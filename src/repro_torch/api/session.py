@@ -1,0 +1,502 @@
+"""Session + solve(): the one front door over the planner/backend registry.
+
+``solve(queries)`` is the one-shot form: assign, batch, dispatch, return
+results in submission order.  :class:`Session` is the serving form: a
+long-lived queue + executor cache where queries from many callers coalesce
+into shared dispatches (micro-batching), and futures resolve on
+``flush()`` or transparently on ``result()`` (which drives only the owning
+query's ``(bucket, backend)`` group).
+
+Both run on the CUDA device unless ``device="cpu"`` is passed, and raise
+``RuntimeError`` when CUDA is asked for and absent.  The lowering itself
+lives in :class:`repro_torch.api.Planner`.
+"""
+
+from __future__ import annotations
+
+import threading
+from collections import deque
+from typing import Any
+
+import torch
+
+from ..errors import TrussError
+from ..obs import MetricsRegistry, Observability
+from ..obs import clock as obs_clock
+from .cache import CompileCache, bucket_for
+from .errors import TrussTimeoutError
+from .planner import PlannedBatch, Planner, QueryState
+from .query import TrussQuery
+from .registry import BackendKey
+
+__all__ = ["QueryQueue", "TrussFuture", "Session", "solve"]
+
+_UNSET = object()  # result(): "no timeout given" vs. explicit None
+
+
+class QueryQueue:
+    """Arrival-ordered queue with same-group, deadline-aware batch formation.
+
+    A batch is formed by taking one pending query's ``(bucket, backend)``
+    group and draining up to ``max_batch`` same-group queries (FIFO within
+    the group).  With no explicit group the *most urgent* pending query
+    picks it: earliest absolute deadline first, arrival order among
+    undeadlined queries.
+    """
+
+    def __init__(self, *, max_batch: int = 8):
+        if max_batch < 1:
+            raise ValueError("max_batch must be >= 1")
+        self.max_batch = int(max_batch)
+        self._pending: deque[QueryState] = deque()
+
+    def __len__(self) -> int:
+        return len(self._pending)
+
+    def enqueue(self, state: QueryState) -> None:
+        self._pending.append(state)
+
+    def drain(self) -> list[QueryState]:
+        """Remove and return every pending query (arrival order)."""
+        states = list(self._pending)
+        self._pending.clear()
+        return states
+
+    @staticmethod
+    def _urgency(state: QueryState) -> tuple[float, int]:
+        d = state.query.deadline_s
+        absolute = state.submitted_at + d if d is not None else float("inf")
+        return (absolute, state.id)
+
+    def discard(self, state: QueryState) -> bool:
+        """Remove one specific pending query (shed-on-timeout's reclaim),
+        matched by identity.  Returns whether it was still pending."""
+        n = len(self._pending)
+        self._pending = deque(st for st in self._pending if st is not state)
+        return len(self._pending) != n
+
+    def next_batch(self, group=None) -> list[QueryState]:
+        """Drain up to ``max_batch`` queries sharing one group."""
+        if not self._pending:
+            return []
+        if group is None:
+            group = min(self._pending, key=self._urgency).group
+        batch: list[QueryState] = []
+        keep: deque[QueryState] = deque()
+        while self._pending:
+            st = self._pending.popleft()
+            if st.group == group and len(batch) < self.max_batch:
+                batch.append(st)
+            else:
+                keep.append(st)
+        self._pending = keep
+        now = obs_clock.now()
+        for st in batch:
+            st.stats.queue_time_s = now - st.submitted_at
+            st.stats.batch_size = len(batch)
+        return batch
+
+
+class TrussFuture:
+    """Handle to a submitted query; resolves when its batch runs."""
+
+    def __init__(self, session: "Session", state: QueryState):
+        self._session = session
+        self._state = state
+        self._result: Any = None
+        self._error: BaseException | None = None
+        self._done = False
+
+    @property
+    def request(self) -> QueryState:
+        return self._state
+
+    @property
+    def query(self) -> TrussQuery:
+        return self._state.query
+
+    @property
+    def stats(self):
+        return self._state.stats
+
+    def done(self) -> bool:
+        return self._done
+
+    def result(self, timeout: float | None = _UNSET) -> Any:
+        """Resolve this query, driving only its own ``(bucket, backend)``
+        group.
+
+        ``timeout`` bounds the time spent driving the queue (checked
+        between batch dispatches); left unset it defaults to the query's
+        remaining ``deadline_s`` budget, and ``timeout=None`` waits until
+        resolved.  On expiry raises :class:`TrussTimeoutError`; under the
+        session's default ``shed_on_timeout=True`` the query is also
+        marked dead and its queue slot reclaimed.
+        """
+        if timeout is _UNSET:
+            timeout = self._state.time_remaining()
+        t0 = obs_clock.now()
+        session = self._session
+        while not self._done:
+            waited = obs_clock.now() - t0
+            if timeout is not None and waited >= timeout:
+                session._record_deadline_miss(self._state, waited)
+                shed = session.shed_on_timeout
+                depth = session.queue_depth()
+                err = TrussTimeoutError(
+                    f"query {self._state.id} ({self._state.query.workload}) "
+                    f"unresolved after {waited:.3f}s (timeout={timeout}s); "
+                    f"bucket={self._state.bucket}, "
+                    f"queue_depth={depth}"
+                    + ("; query shed" if shed else ""),
+                    bucket=self._state.bucket,
+                    queue_depth=depth,
+                    request_id=self._state.id,
+                    waited_s=waited,
+                    shed=shed,
+                )
+                if shed:
+                    session._shed(self._state, err)
+                raise err
+            batch = session._form_batch(group=self._state.group)
+            if batch:
+                session._run_batch(session._planned(batch))
+                continue
+            with session._cv:
+                if self._done:
+                    break
+                if self._state.id in session._inflight:
+                    # Another thread's dispatch owns this query's batch;
+                    # wait for its resolution (bounded, so the deadline
+                    # check above still runs).
+                    session._cv.wait(timeout=0.05)
+                    continue
+                raise RuntimeError(
+                    f"query {self._state.id} is unresolved but not queued"
+                )
+        if self._error is not None:
+            raise self._error
+        return self._result
+
+    def _resolve(self, result: Any) -> None:
+        self._result = result
+        self._done = True
+
+    def _fail(self, error: BaseException) -> None:
+        self._error = error
+        self._done = True
+
+
+class Session:
+    """Long-lived query session: one queue, one planner, one executor cache.
+
+    Config (all optional):
+      device: where packed problems and the peel live; ``None`` = CUDA
+        (``RuntimeError`` when absent — pass ``"cpu"`` for the CPU).
+      backend: force one registry backend for every query
+        (``BackendKey`` / ``"fine/pallas/aligned"``); ``None`` = per-query
+        auto rule on the paper's imbalance statistics.
+      kernel / layout: defaults for the auto rule (kernel ``None`` =
+        ``pallas``, the CUDA kernel, on CUDA; ``xla`` on the CPU).
+      mode: override the backend's update dataflow (``eager``/``owner``).
+      max_batch: packed slots per dispatch (batches pad to this).
+      chunk: task-chunk width (power of two).
+      max_iters: explicit peel iteration cap (None = provable bound).
+      trace: span tracing — ``True`` records in memory, a path string
+        records AND exports Chrome trace JSON there after
+        ``solve()``/``flush()``; ``None`` consults ``REPRO_TRACE``.
+      metrics: route this session's metrics into an existing
+        :class:`repro_torch.obs.MetricsRegistry`.
+      shed_on_timeout: when a ``result(timeout=...)`` expires, mark the
+        query dead and reclaim its queue slot (default).
+
+    A dispatch that raises a typed :class:`repro_torch.errors.TrussError`
+    fails every future of its batch with that error; any other exception
+    fails them and propagates.
+    """
+
+    def __init__(
+        self,
+        *,
+        device: str | torch.device | None = None,
+        backend: BackendKey | str | None = None,
+        kernel: str | None = None,
+        layout: str | None = None,
+        mode: str | None = None,
+        max_batch: int = 8,
+        chunk: int = 256,
+        max_iters: int | None = None,
+        trace: bool | str | None = None,
+        metrics: MetricsRegistry | None = None,
+        shed_on_timeout: bool = True,
+    ):
+        self.obs = Observability(trace=trace, metrics=metrics)
+        self.planner = Planner(
+            max_batch=max_batch,
+            chunk=chunk,
+            kernel=kernel,
+            layout=layout,
+            backend=backend,
+            mode=mode,
+            max_iters=max_iters,
+            device=device,
+        )
+        self.cache = CompileCache(
+            self.planner.build_executor, metrics=self.obs.metrics
+        )
+        # Thread safety: the batch former, the futures map and the
+        # in-flight set share one condition variable; dispatches run
+        # outside the lock.
+        self._cv = threading.Condition()
+        self.queue = QueryQueue(max_batch=max_batch)  # guarded-by: _cv
+        self._futures: dict[int, TrussFuture] = {}  # guarded-by: _cv
+        self._inflight: set[int] = set()  # guarded-by: _cv
+        self.shed_on_timeout = bool(shed_on_timeout)
+
+    # Convenience mirrors of the planner's config ----------------------- #
+    @property
+    def max_batch(self) -> int:
+        return self.planner.max_batch
+
+    @property
+    def chunk(self) -> int:
+        return self.planner.chunk
+
+    # Serving counters — views over the session's metrics registry ------ #
+    @property
+    def requests_served(self) -> int:
+        return int(self.obs.metrics.value("requests_served"))
+
+    @property
+    def batches_run(self) -> int:
+        return int(self.obs.metrics.value("batches_run"))
+
+    @property
+    def device_dispatches(self) -> int:
+        return int(self.obs.metrics.value("dispatches"))
+
+    @property
+    def device_time_s(self) -> float:
+        return self.obs.metrics.value("device_seconds_total")
+
+    @property
+    def deadline_misses(self) -> int:
+        return int(self.obs.metrics.value("deadline_misses"))
+
+    @property
+    def queries_failed(self) -> int:
+        return int(self.obs.metrics.value("queries_failed"))
+
+    @property
+    def queries_shed(self) -> int:
+        return int(self.obs.metrics.value("queries_shed"))
+
+    # ------------------------------------------------------------------ #
+    # Submission
+    # ------------------------------------------------------------------ #
+    def submit(self, query: TrussQuery) -> TrussFuture:
+        """Assign (bucket + backend) and enqueue one declarative query."""
+        with self.obs.activate():
+            state = self.planner.assign(query)
+        fut = TrussFuture(self, state)
+        with self._cv:
+            self._futures[state.id] = fut
+            self.queue.enqueue(state)
+            depth = len(self.queue)
+        self.obs.metrics.set_gauge("queue_depth", depth)
+        return fut
+
+    def solve(self, queries) -> list[Any]:
+        """Submit ``queries``, lower everything queued through one
+        :meth:`Planner.plan`, dispatch batch by batch, and return results
+        in submission order."""
+        queries = list(queries)
+        with self.obs.activate(), self.obs.tracer.span("solve", queries=len(queries)):
+            futs = [self.submit(q) for q in queries]
+            with self._cv:
+                states = self.queue.drain()
+                self._inflight.update(st.id for st in states)
+            now = obs_clock.now()
+            plan = self.planner.plan(states)
+            for batch in plan.batches:
+                for st in batch.queries:
+                    st.stats.queue_time_s = now - st.submitted_at
+                    st.stats.batch_size = len(batch.queries)
+                self._run_batch(batch)
+            results = [f.result() for f in futs]
+        self.obs.export_trace()  # no-op unless a trace path is configured
+        return results
+
+    def executor_for(self, g):
+        """The peel executor a query on ``g`` lowers onto, built on first
+        use.  Needs a session-pinned backend (auto-rule sessions choose per
+        query); exposes the executor's ``dispatches``/``host_syncs``."""
+        if self.planner.backend is None:
+            raise ValueError(
+                "executor_for needs a session-pinned backend= (the auto "
+                "rule chooses per query)"
+            )
+        bucket = bucket_for(g, chunk=self.planner.chunk)
+        exe, _ = self.cache.get(
+            bucket,
+            self.planner.max_batch,
+            self.planner.cache_variant(self.planner.backend),
+        )
+        return exe
+
+    # ------------------------------------------------------------------ #
+    # Execution
+    # ------------------------------------------------------------------ #
+    def poll(self) -> int:
+        """Run at most one micro-batch; returns how many queries resolved."""
+        batch = self._form_batch()
+        if not batch:
+            return 0
+        return self._run_batch(self._planned(batch))
+
+    def queue_depth(self) -> int:
+        """Pending-query count, read under the session lock."""
+        with self._cv:
+            return len(self.queue)
+
+    def flush(self) -> int:
+        """Drain the queue; returns how many queries resolved."""
+        n = 0
+        while self.queue_depth():
+            n += self.poll()
+        self.obs.export_trace()  # no-op unless a trace path is configured
+        return n
+
+    def _form_batch(self, group=None) -> list[QueryState]:
+        """Atomically dequeue one micro-batch and mark it in flight."""
+        with self._cv:
+            batch = self.queue.next_batch(group=group)
+            self._inflight.update(st.id for st in batch)
+        return batch
+
+    def _planned(self, batch: list[QueryState]) -> PlannedBatch:
+        """Wrap a queue-formed (single-group) batch for the planner."""
+        return PlannedBatch(
+            bucket=batch[0].bucket,
+            backend=batch[0].backend,
+            queries=batch,
+            slots=self.planner.max_batch,
+        )
+
+    def _dispatch(self, planned: PlannedBatch) -> list[Any]:
+        """One packed dispatch under the session's obs sinks; counts the
+        per-dispatch serving metrics on success."""
+        with self.obs.activate():
+            results = self.planner.execute(planned, self.cache)
+        batch = planned.queries
+        m = self.obs.metrics
+        m.inc("device_seconds_total", batch[0].stats.device_time_s)
+        m.inc("dispatches")
+        m.inc("batches_run")
+        m.inc("requests_served", len(batch))
+        m.observe(
+            "batch_occupancy",
+            len(batch) / planned.slots,
+            buckets=(0.125, 0.25, 0.5, 0.75, 1.0),
+        )
+        return results
+
+    def _shed(self, state: QueryState, err: BaseException) -> None:
+        """Mark a timed-out query dead: reclaim its queue slot, fail its
+        future, count the shed."""
+        with self._cv:
+            self.queue.discard(state)
+            fut = self._futures.pop(state.id, None)
+            self._inflight.discard(state.id)
+            if fut is not None:
+                fut._fail(err)
+            depth = len(self.queue)
+            self._cv.notify_all()
+        self.obs.metrics.inc("queries_shed")
+        self.obs.metrics.set_gauge("queue_depth", depth)
+
+    def _finish(self, batch: list[QueryState], results=None, error=None) -> None:
+        """Resolve (or fail) every still-owned future of a dequeued batch."""
+        with self._cv:
+            for i, st in enumerate(batch):
+                fut = self._futures.pop(st.id, None)
+                self._inflight.discard(st.id)
+                if fut is None:
+                    continue  # shed mid-flight: its future already failed
+                if error is None:
+                    fut._resolve(results[i])
+                else:
+                    fut._fail(error)
+            depth = len(self.queue)
+            self._cv.notify_all()
+        self.obs.metrics.set_gauge("queue_depth", depth)
+
+    def _run_batch(self, planned: PlannedBatch) -> int:
+        # The batch was already dequeued, so its futures must always end up
+        # resolved or failed.  A typed failure fails the batch's futures
+        # (each result() re-raises it); anything else also propagates.
+        batch = planned.queries
+        try:
+            results = self._dispatch(planned)
+        except TrussError as e:
+            self.obs.metrics.inc("queries_failed", len(batch))
+            self._finish(batch, error=e)
+            return len(batch)
+        except Exception as e:
+            self._finish(batch, error=e)
+            raise
+        self._finish(batch, results=results)
+        return len(batch)
+
+    def _record_deadline_miss(self, state: QueryState, waited_s: float) -> None:
+        self.obs.metrics.inc("deadline_misses")
+        self.obs.tracer.instant(
+            "deadline-miss",
+            query=state.id,
+            workload=state.query.workload,
+            waited_s=round(waited_s, 6),
+        )
+
+    # ------------------------------------------------------------------ #
+    # Observability
+    # ------------------------------------------------------------------ #
+    def stats(self) -> dict:
+        """Serving counters — a view over ``self.obs.metrics``."""
+        return {
+            "requests_served": self.requests_served,
+            "batches_run": self.batches_run,
+            "device_dispatches": self.device_dispatches,
+            "deadline_misses": self.deadline_misses,
+            "pending": self.queue_depth(),
+            "device_time_s": round(self.device_time_s, 6),
+            "queries_failed": self.queries_failed,
+            "queries_shed": self.queries_shed,
+            **{f"cache_{k}": v for k, v in self.cache.stats.row().items()},
+            **{f"planner_{k}": v for k, v in self.planner.stats().items()},
+        }
+
+    def metrics_snapshot(self) -> dict:
+        """JSON snapshot of this session's metrics registry."""
+        return self.obs.metrics_snapshot()
+
+    def prometheus_text(self) -> str:
+        """Prometheus text exposition of this session's metrics."""
+        return self.obs.prometheus_text()
+
+    def export_trace(self, path: str | None = None) -> str | None:
+        """Write the session's Chrome trace JSON (see ``Session(trace=)``)."""
+        return self.obs.export_trace(path)
+
+
+def solve(queries, **session_kwargs) -> Any:
+    """One-shot front door: lower and run a set of declarative queries.
+
+    ``queries`` is a :class:`TrussQuery` or an iterable of them; results
+    come back in submission order (a lone query returns its lone result).
+    Session knobs (``device=``, ``backend=``, ``max_batch=``, ``trace=``,
+    ...) pass through — see :class:`Session`.  ``device`` defaults to CUDA.
+    """
+    single = isinstance(queries, TrussQuery)
+    qs = [queries] if single else list(queries)
+    results = Session(**session_kwargs).solve(qs)
+    return results[0] if single else results
