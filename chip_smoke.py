@@ -5,27 +5,43 @@
 
 Phases (any failure exits non-zero):
 
-1. setup: the card's name and power limit; build the hand-written support
-   kernel from ``src/repro_torch/kernels/csrc`` and print nvcc's
-   register/spill report.
+1. setup: the card's name and power limit; build both hand-written kernels
+   (``support_fine.cu`` and ``peel_fused.cu`` from
+   ``src/repro_torch/kernels/csrc``, one ``nvcc`` each, started together)
+   and print nvcc's register/spill reports.
 2. kernel vs plain version, at the main path's input: ``rmat-15``
    (``configs.LARGE_GRAPHS``) packed as phase 3 packs it (8 slots of its
    bucket, 3 live); ``support_fine_cuda`` must equal the plain torch
    ``support_fine_owner`` bit for bit on the full alive mask and three
    seeded random masks.  Times the kernel, the plain version and a
    ``torch.sparse`` yardstick; computes the kernel's bound.
-3. main path, full size: ``decompose``/``kmax``/``ktruss(k=4)`` of
-   ``rmat-15`` through ``Session.solve`` on CUDA with the backend left to
-   the auto rule; checks the backend, one dispatch, that the kernel ran
-   once per peel trip, and the results against each other and the numpy
-   oracle.
-4. main path vs the torch-ops path and the oracle: every
-   ``configs.BENCH_GRAPHS`` graph decomposed through
-   ``fine/pallas/aligned`` and ``fine/xla/aligned``; trussness must agree
-   bit for bit, and equal ``trussness_numpy`` on er-4k and clustered-32x40.
+3. the support kernel's path, full size: ``decompose``/``kmax``/
+   ``ktruss(k=4)`` of ``rmat-15`` through ``Session`` on CUDA with
+   ``backend="fine/pallas/aligned"``; checks one dispatch, that the kernel
+   ran once per peel trip, and the results against each other and the
+   numpy oracle.
+4. every ``configs.BENCH_GRAPHS`` graph decomposed through
+   ``fine/fused/aligned``, ``fine/pallas/aligned`` and
+   ``fine/xla/aligned``; trussness must agree bit for bit, and equal
+   ``trussness_numpy`` on er-4k and clustered-32x40.  Then each graph's
+   bucket is swept by ``autotune_fused`` over every autotune candidate,
+   timed and not stored.
+5. main path, full size: the same rmat-15 batch through ``Session`` with
+   the backend left to the auto rule, which must pick
+   ``fine/fused/aligned``; checks one dispatch, one kernel launch per level
+   step (``peel_fused_levels``), and the results against phase 3's.
+6. the fused kernel vs its plain version on rmat-15's first level (the
+   main path's packed batch): every state field bit for bit; times the
+   kernel, the plain version and the bound (each input read once, each
+   output written once; the intersection steps of every inner trip's
+   alive set); times each level launch of the whole peel.  Then the state
+   of the whole fused peel, for every autotune candidate, must equal the
+   ``fine/pallas/aligned`` executor's
+   on every field but ``total_iters``; each candidate's peel and the
+   pallas peel are timed on the same batch.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
-lists each kernel with its launches on the main path and its times.
+lists each kernel with its launches on its path and its times.
 Imports nothing of JAX or of the JAX package.  Needs one CUDA card; exits
 non-zero without one, or outside a checkout of the repository.
 """
@@ -63,27 +79,37 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def support_bound(p, alive) -> tuple[float, str, float, float]:
-    """Least time for ``support_fine`` on these inputs: bytes (each input
-    read once, the output written once) over the memory rate vs the
-    intersection steps these rows need (per alive edge the cheaper of a
-    merge, deg(a)+deg(b), and a binary search of the shorter row in the
-    longer, min*ceil(log2(max+1))) over the non-tensor peak."""
+def support_steps(p, alive) -> float:
+    """Intersection steps ``support_fine`` needs on this alive set: per
+    alive edge the cheaper of a merge, deg(a)+deg(b), and a binary search
+    of the shorter row in the longer, min*ceil(log2(max+1))."""
     import torch
 
+    live = (p.colidx != 0) & alive
+    da = p.udeg[p.edge_row[live].long()].double()
+    db = p.udeg[p.colidx[live].long()].double()
+    lo, hi = torch.minimum(da, db), torch.maximum(da, db)
+    return float(torch.minimum(da + db, lo * torch.ceil(torch.log2(hi + 1))).sum())
+
+
+def roofline(nbytes: float, ops: float) -> tuple[float, str]:
+    """The larger of bytes over the memory rate and operations over the
+    non-tensor peak, in ms, and which of the two it is."""
+    t_bytes, t_ops = nbytes / MEM_BYTES_PER_S * 1e3, ops / INT_OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def support_bound(p, alive) -> tuple[float, str, float, float]:
+    """Least time for ``support_fine`` on these inputs: bytes (each input
+    read once, the output written once) vs ``support_steps``."""
     nbytes = (
         p.edge_row.numel() * 4 + p.colidx.numel() * 4 + alive.numel() * 1
         + p.urowptr.numel() * 4 + p.udeg.numel() * 4
         + p.ucolidx.numel() * 4 + p.u2d.numel() * 4
         + p.colidx.numel() * 4  # the (nnz_pad,) int32 output
     )
-    live = (p.colidx != 0) & alive
-    da = p.udeg[p.edge_row[live].long()].double()
-    db = p.udeg[p.colidx[live].long()].double()
-    lo, hi = torch.minimum(da, db), torch.maximum(da, db)
-    ops = float(torch.minimum(da + db, lo * torch.ceil(torch.log2(hi + 1))).sum())
-    t_bytes, t_ops = nbytes / MEM_BYTES_PER_S * 1e3, ops / INT_OPS_PER_S * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), nbytes, ops
+    ops = support_steps(p, alive)
+    return (*roofline(nbytes, ops), nbytes, ops)
 
 
 def sparse_yardstick(p, alive):
@@ -109,6 +135,9 @@ def sparse_yardstick(p, alive):
 
 
 def phase_setup(torch):
+    from concurrent.futures import ThreadPoolExecutor
+
+    from repro_torch.kernels.peel_fused import load_peel_fused
     from repro_torch.kernels.support_fine import load_support_fine
 
     smi = subprocess.run(
@@ -118,11 +147,16 @@ def phase_setup(torch):
     log(f"card: {smi}")
     log(f"torch {torch.__version__} cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
-    built = load_support_fine()
-    log(f"phase1 build support_fine: {time.perf_counter() - t0:.2f}s (nvcc {built.build_s:.2f}s) -> {built.path.name}")
-    for line in built.log.splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"  ptxas: {line.strip()}")
+    loaders = {"support_fine": load_support_fine, "peel_fused": load_peel_fused}
+    with ThreadPoolExecutor(len(loaders)) as pool:  # one nvcc per source, together
+        futs = {name: pool.submit(fn) for name, fn in loaders.items()}
+        built = {name: f.result() for name, f in futs.items()}
+    log(f"phase1 build: {time.perf_counter() - t0:.2f}s for {len(built)} libraries")
+    for name, lib in built.items():
+        log(f"phase1 {name}: nvcc {lib.build_s:.2f}s -> {lib.path.name}")
+        for line in lib.log.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"  ptxas: {line.strip()}")
     return smi
 
 
@@ -179,39 +213,46 @@ def phase_kernel(torch, g, bucket) -> dict:
                 bound_by=bound_by, library_ms=library_ms)
 
 
-def phase_main(torch, g) -> int:
-    from repro_torch.api import Session, TrussQuery
-    from repro_torch.core import support_numpy
-    from repro_torch.kernels import support_fine_cuda
+QUERIES = ("decompose", "kmax", "ktruss4")
 
-    session = Session(device="cuda")
-    queries = [TrussQuery.decompose(g), TrussQuery.kmax(g), TrussQuery.ktruss(g, k=4)]
+
+def rmat15_queries(g):
+    from repro_torch.api import TrussQuery
+
+    return [TrussQuery.decompose(g), TrussQuery.kmax(g), TrussQuery.ktruss(g, k=4)]
+
+
+def run_session(torch, g, **kw):
+    """The rmat-15 batch through one ``Session``: futures, wall seconds."""
+    from repro_torch.api import Session
+
+    session = Session(device="cuda", **kw)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    support_fine_cuda.launches = 0
     t0 = time.perf_counter()
-    futs = [session.submit(q) for q in queries]
+    futs = [session.submit(q) for q in rmat15_queries(g)]
     session.flush()
     torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = support_fine_cuda.launches
-    dec, kmax, kt = (f.result() for f in futs)
+    return session, futs, time.perf_counter() - t0
 
-    st = session.stats()
-    backends = {row["backend"] for row in st["planner_backends"]}
-    trips = futs[0].stats.dispatch_trips
-    log(
-        f"phase3 rmat-15 solve: {wall:.2f}s wall, backend {sorted(backends)}, dispatches "
-        f"{st['device_dispatches']}, total_iters {trips}, launches {launches}, levels {dec.levels}, "
-        f"kmax {dec.kmax}, ktruss(4) edges {kt.edges_remaining}, "
-        f"peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB"
-    )
-    if backends != {"fine/pallas/aligned"}:
-        raise AssertionError(f"planner chose {backends}, expected fine/pallas/aligned")
-    if st["device_dispatches"] != 1:
-        raise AssertionError(f"{st['device_dispatches']} dispatches for one bucket")
-    if launches != trips or trips == 0:
-        raise AssertionError(f"kernel launched {launches} times over {trips} peel trips")
+
+def executor_of(session, g, backend: str):
+    """The session's cached executor for ``g``'s bucket on ``backend``."""
+    from repro_torch.api import bucket_for, get_backend
+
+    planner = session.planner
+    bucket = bucket_for(g, chunk=planner.chunk)
+    variant = planner.cache_variant(get_backend(backend).key, bucket, planner.max_batch)
+    exe, hit = session.cache.get(bucket, planner.max_batch, variant)
+    if not hit:
+        raise AssertionError(f"no cached {backend} executor for {g.name}")
+    return exe
+
+
+def check_rmat15_results(g, futs) -> None:
+    from repro_torch.core import support_numpy
+
+    dec, kmax, kt = (f.result() for f in futs)
     if kmax != (dec.kmax if dec.kmax >= 3 else 0):
         raise AssertionError(f"kmax query {kmax} != decompose kmax {dec.kmax}")
     if not (kt.alive == (dec.trussness >= 4)).all():
@@ -219,7 +260,205 @@ def phase_main(torch, g) -> int:
     s = support_numpy(g, kt.alive)
     if not (s[kt.alive] >= 2).all():
         raise AssertionError("a 4-truss edge has support < 2 under the numpy oracle")
+
+
+def phase_pallas_path(torch, g):
+    from repro_torch.kernels import support_fine_cuda
+
+    support_fine_cuda.launches = 0
+    session, futs, wall = run_session(torch, g, backend="fine/pallas/aligned")
+    launches = support_fine_cuda.launches
+    st = session.stats()
+    dec, _, kt = (f.result() for f in futs)
+    trips = futs[0].stats.dispatch_trips
+    log(
+        f"phase3 rmat-15 fine/pallas/aligned: {wall:.2f}s wall, dispatches "
+        f"{st['device_dispatches']}, total_iters {trips}, launches {launches}, host syncs "
+        f"{executor_of(session, g, 'fine/pallas/aligned').host_syncs}, levels {dec.levels}, "
+        f"kmax {dec.kmax}, ktruss(4) edges {kt.edges_remaining}, "
+        f"peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB"
+    )
+    if st["device_dispatches"] != 1:
+        raise AssertionError(f"{st['device_dispatches']} dispatches for one bucket")
+    if launches != trips or trips == 0:
+        raise AssertionError(f"kernel launched {launches} times over {trips} peel trips")
+    check_rmat15_results(g, futs)
+    return launches, futs, wall
+
+
+def phase_fused_main(torch, g, pallas_futs, pallas_wall) -> int:
+    from repro_torch.kernels import support_fine_cuda
+    from repro_torch.kernels.peel_fused import fused_level_cuda
+
+    fused_level_cuda.launches = 0
+    support_fine_cuda.launches = 0
+    session, futs, wall = run_session(torch, g)
+    launches, other = fused_level_cuda.launches, support_fine_cuda.launches
+    st = session.stats()
+    backends = {row["backend"] for row in st["planner_backends"]}
+    level_steps = int(session.obs.metrics.value("peel_fused_levels"))
+    dec, _, kt = (f.result() for f in futs)
+    log(
+        f"phase5 rmat-15 auto rule: backend {sorted(backends)}, {wall:.2f}s wall "
+        f"(fine/pallas/aligned: {pallas_wall:.2f}s), dispatches {st['device_dispatches']}, "
+        f"level steps {level_steps}, launches {launches}, host syncs "
+        f"{executor_of(session, g, 'fine/fused/aligned').host_syncs}, "
+        f"total_iters {futs[0].stats.dispatch_trips}, "
+        f"levels {dec.levels}, kmax {dec.kmax}, ktruss(4) edges {kt.edges_remaining}, "
+        f"peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB"
+    )
+    if backends != {"fine/fused/aligned"}:
+        raise AssertionError(f"planner chose {backends}, expected fine/fused/aligned")
+    if st["device_dispatches"] != 1:
+        raise AssertionError(f"{st['device_dispatches']} dispatches for one bucket")
+    if launches != level_steps or launches == 0 or other:
+        raise AssertionError(
+            f"fused kernel launched {launches} times over {level_steps} level steps "
+            f"(support kernel {other} times)"
+        )
+    check_rmat15_results(g, futs)
+    for name, f, pf in zip(QUERIES, futs, pallas_futs):
+        a, b = f.result(), pf.result()
+        same = (f.stats.rounds, f.stats.iterations) == (pf.stats.rounds, pf.stats.iterations)
+        if name == "decompose":
+            same &= (a.kmax, a.levels) == (b.kmax, b.levels) and bool((a.trussness == b.trussness).all())
+        elif name == "kmax":
+            same &= a == b
+        else:
+            same &= (a.iterations, a.edges_remaining) == (b.iterations, b.edges_remaining)
+            same &= bool((a.alive == b.alive).all() and (a.support == b.support).all())
+        if not same:
+            raise AssertionError(f"{name}: fused and pallas results differ")
+    log("phase5 fused results == fine/pallas/aligned results for decompose, kmax, ktruss(4)")
     return launches
+
+
+def fused_trip_alive_sets(p, st0, frozen, ftruss, trips: int):
+    """The effective alive set each of a level's ``trips`` inner trips
+    intersects over, replayed with ``support_fine_cuda`` (support, then
+    ``alive &= s >= cur_k - 2``), and the alive lanes per slot after the
+    last trip."""
+    import torch
+
+    from repro_torch.kernels import support_fine_cuda
+
+    slot_nnz = p.nnz_pad // st0.cur_k.numel()
+    k_lane = st0.cur_k.repeat_interleave(slot_nnz)
+    flive = frozen & (ftruss >= k_lane)
+    alive, sets = st0.alive, []
+    for _ in range(trips):
+        sets.append(alive | flive)
+        alive = alive & (support_fine_cuda(p, sets[-1]) >= k_lane - 2)
+    return sets, alive.view(-1, slot_nnz).sum(dim=1, dtype=torch.int32)
+
+
+def fused_bound(p, inputs, outputs, trip_sets) -> tuple[float, str, float, float]:
+    """Least time for one fused level launch on these inputs.  Bytes: each
+    input (the problem, the state, the frozen lanes) read once and each
+    output written once, whatever the kernel reads again trip after trip.
+    Operations: ``support_steps`` summed over the alive set of every inner
+    trip this level took."""
+    nbytes = sum(t.numel() * t.element_size() for t in (*inputs, *outputs))
+    ops = sum(support_steps(p, alive) for alive in trip_sets)
+    return (*roofline(nbytes, ops), nbytes, ops)
+
+
+def phase_fused_kernel(torch, g, bucket) -> dict:
+    import statistics
+
+    from repro_torch.exec.peel import PeelExecutor, init_peel_state
+    from repro_torch.kernels.autotune import FusedConfig, candidate_configs
+    from repro_torch.kernels.peel_fused import fused_level_cuda, fused_level_torch
+
+    slots = 8
+    p = main_path_problem(g, bucket, slots=slots)
+    dev = p.device
+    slot_ids = torch.arange(slots, dtype=torch.int32, device=dev).repeat_interleave(bucket.nnz_pad)
+    k0 = torch.tensor([3, 3, 4] + [3] * (slots - 3), dtype=torch.int32, device=dev)
+    single = torch.tensor([False, False, True] + [False] * (slots - 3), device=dev)
+    frozen = torch.zeros(p.nnz_pad, dtype=torch.bool, device=dev)
+    ftruss = torch.zeros(p.nnz_pad, dtype=torch.int32, device=dev)
+    st0 = init_peel_state(slot_ids, k0, p.colidx != 0, frozen, ftruss)
+    cfg = FusedConfig().clamp(bucket.nnz_pad)  # the planner's pick without a store
+
+    def kernel(st):
+        return fused_level_cuda(p, st, frozen, ftruss, single, block=cfg.block, schedule=cfg.schedule)
+
+    got = kernel(st0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = fused_level_torch(p, st0, frozen, ftruss, single, window=bucket.window, block=cfg.block)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    err = 0
+    for f in got._fields:
+        a, b = getattr(got, f), getattr(want, f)
+        if a.dtype != b.dtype or a.shape != b.shape:
+            raise AssertionError(f"fused level field {f}: {a.dtype}{tuple(a.shape)} vs {b.dtype}{tuple(b.shape)}")
+        err = max(err, int((a.long() - b.long()).abs().max()) if a.numel() else 0)
+    trips = int(got.total_iters) - int(st0.total_iters)
+    log(f"phase6 first level: {trips} inner trips, max_abs_err {err} over all 10 fields")
+    if err:
+        raise AssertionError("fused_level_cuda disagrees with fused_level_torch on the first level")
+    ms = cuda_ms(lambda: kernel(st0), reps=5)
+    trip_sets, left = fused_trip_alive_sets(p, st0, frozen, ftruss, trips)
+    if not torch.equal(torch.where(st0.done, got.edges_alive, left), got.edges_alive):
+        raise AssertionError("the replayed inner trips do not end at the kernel's alive set")
+    inputs = (*(getattr(p, f) for f in ("colidx", "edge_row", "u2d", "urowptr", "udeg", "ucolidx")),
+              *st0, frozen, ftruss, single)
+    bound_ms, bound_by, nbytes, ops = fused_bound(p, inputs, got, trip_sets)
+    log(
+        f"phase6 fused_level_cuda first level: {ms:.3f} ms/launch; plain {plain_ms:.1f} ms; "
+        f"bound {bound_ms:.4f} ms by {bound_by} ({nbytes / 1e6:.1f} MB read once and written "
+        f"once; {ops / 1e6:.1f} M steps over the {trips} trips' alive sets); "
+        f"block {cfg.block}, schedule {cfg.schedule}"
+    )
+
+    # Each level launch of the whole peel, timed by CUDA events.
+    st, level_ms = st0, []
+    while not bool(st.done.all()):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        st = kernel(st)
+        end.record()
+        torch.cuda.synchronize()
+        level_ms.append(start.elapsed_time(end))
+    log(
+        f"phase6 whole peel by level launches: {len(level_ms)} launches, median "
+        f"{statistics.median(level_ms):.3f} ms, max {max(level_ms):.3f} ms, sum {sum(level_ms):.1f} ms, "
+        f"total_iters {int(st.total_iters)}"
+    )
+
+    # Every autotune candidate: the same state, and its whole-peel time
+    # beside the unfused kernel path's on the same batch (pallas first and
+    # last, candidates between).
+    kw = dict(slot_ids=slot_ids, k0=k0.cpu().numpy(), single_level=single.cpu().numpy())
+
+    def timed(exe):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = exe.peel(p, **kw)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    pallas = PeelExecutor(mode="owner", backend="pallas", window=bucket.window, chunk=256)
+    st_p, pallas_s = timed(pallas)
+    first = None
+    for c in candidate_configs(bucket.nnz_pad):
+        st_f, fused_s = timed(PeelExecutor(backend="fused", window=bucket.window, chunk=256, fused_config=c))
+        for f in st_f._fields:
+            if f != "total_iters" and not torch.equal(getattr(st_f, f), getattr(st_p, f)):
+                raise AssertionError(f"candidate {c}: field {f} differs from fine/pallas/aligned")
+        if first is not None and not all(torch.equal(getattr(st_f, f), getattr(first, f)) for f in st_f._fields):
+            raise AssertionError(f"candidate {c}: state differs from the first candidate's")
+        first = first if first is not None else st_f
+        log(f"phase6 candidate block={c.block} schedule={c.schedule}: whole peel {fused_s * 1e3:.1f} ms, "
+            f"total_iters {int(st_f.total_iters)}, state == pallas state")
+    _, pallas_s2 = timed(pallas)
+    log(f"phase6 fine/pallas/aligned whole peel: {pallas_s * 1e3:.1f} ms, {pallas_s2 * 1e3:.1f} ms; "
+        f"total_iters {int(st_p.total_iters)}")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=None)
 
 
 def phase_paths(torch) -> None:
@@ -229,20 +468,50 @@ def phase_paths(torch) -> None:
 
     graphs = [b.build() for b in BENCH_GRAPHS]
     out = {}
-    for backend in ("fine/pallas/aligned", "fine/xla/aligned"):
+    for backend in ("fine/fused/aligned", "fine/pallas/aligned", "fine/xla/aligned"):
         session = Session(max_batch=8, device="cuda", backend=backend)
         t0 = time.perf_counter()
         out[backend] = session.solve([TrussQuery.decompose(g) for g in graphs])
         torch.cuda.synchronize()
         log(f"phase4 {backend}: {time.perf_counter() - t0:.2f}s, dispatches {session.device_dispatches}")
-    for g, a, b in zip(graphs, out["fine/pallas/aligned"], out["fine/xla/aligned"]):
-        if not (a.trussness == b.trussness).all() or (a.kmax, a.levels) != (b.kmax, b.levels):
-            raise AssertionError(f"{g.name}: kernel path and torch-ops path disagree")
-        log(f"phase4 {g.name}: n={g.n} nnz={g.nnz} kmax={a.kmax} levels={a.levels} agree")
+    ref = out["fine/pallas/aligned"]
+    for backend in ("fine/fused/aligned", "fine/xla/aligned"):
+        for g, a, b in zip(graphs, out[backend], ref):
+            if not (a.trussness == b.trussness).all() or (a.kmax, a.levels) != (b.kmax, b.levels):
+                raise AssertionError(f"{g.name}: {backend} and fine/pallas/aligned disagree")
+    for g, a in zip(graphs, ref):
+        log(f"phase4 {g.name}: n={g.n} nnz={g.nnz} kmax={a.kmax} levels={a.levels} agree on all three")
         if g.name in ("er-4k", "clustered-32x40"):
             if not (a.trussness == trussness_numpy(g)).all():
                 raise AssertionError(f"{g.name}: trussness != numpy oracle")
             log(f"phase4 {g.name}: equals trussness_numpy")
+    sweep_buckets(graphs, Session(max_batch=8, device="cuda").planner)
+
+
+def sweep_buckets(graphs, planner) -> None:
+    """Each graph's fused peel for every autotune candidate in its own
+    bucket, as the planner packs it, timed by ``autotune_fused`` (best of
+    3, warm); nothing is stored."""
+    from repro_torch.api import bucket_for
+    from repro_torch.kernels.autotune import autotune_fused, candidate_configs, get_store
+
+    if get_store() is not None:
+        raise AssertionError("an autotune store is installed; the sweep would write to it")
+    totals: dict[tuple, float] = {}
+    for g in graphs:
+        bucket = bucket_for(g, chunk=planner.chunk)
+        cands = candidate_configs(bucket.nnz_pad)
+        winner, rows = autotune_fused(
+            bucket, planner.max_batch, graphs=[g], chunk=planner.chunk,
+            candidates=cands, repeats=3, device="cuda",
+        )
+        row = " ".join(f"{r['config']['block']}/{r['config']['schedule']}={r['best_s'] * 1e3:.2f}"
+                       for r in rows)
+        log(f"phase4 sweep {g.name} {tuple(bucket)}: {row} ms; best {winner.block}/{winner.schedule}")
+        for c, r in zip(cands, rows):
+            totals[c.signature()] = totals.get(c.signature(), 0.0) + r["best_s"]
+    row = " ".join(f"{b}/{sch}={t * 1e3:.2f}" for (b, sch), t in sorted(totals.items(), key=lambda kv: kv[1]))
+    log(f"phase4 sweep sum over the {len(graphs)} buckets: {row} ms")
 
 
 def main() -> int:
@@ -268,16 +537,28 @@ def main() -> int:
     bucket = bucket_for(g, chunk=256)
     log(f"rmat-15: n={g.n} nnz={g.nnz} bucket={tuple(bucket)}")
     numbers = phase_kernel(torch, g, bucket)
-    launches = phase_main(torch, g)
+    launches, pallas_futs, pallas_wall = phase_pallas_path(torch, g)
     phase_paths(torch)
-    kernels = [dict(
-        name="support_fine_cuda",
-        route="cuda",
-        source="src/repro_torch/kernels/csrc/support_fine.cu",
-        replaces="src/repro/kernels/support_fine.py:86",
-        launches=launches,
-        **numbers,
-    )]
+    fused_launches = phase_fused_main(torch, g, pallas_futs, pallas_wall)
+    fused_numbers = phase_fused_kernel(torch, g, bucket)
+    kernels = [
+        dict(
+            name="support_fine_cuda",
+            route="cuda",
+            source="src/repro_torch/kernels/csrc/support_fine.cu",
+            replaces="src/repro/kernels/support_fine.py:86",
+            launches=launches,
+            **numbers,
+        ),
+        dict(
+            name="fused_level_cuda",
+            route="cuda",
+            source="src/repro_torch/kernels/csrc/peel_fused.cu",
+            replaces="src/repro/kernels/peel_fused.py:260",
+            launches=fused_launches,
+            **fused_numbers,
+        ),
+    ]
     log(f"total {time.perf_counter() - t_start:.1f}s")
     log(smi)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -3,10 +3,11 @@
 Declare *what* you want as :class:`TrussQuery` values; ``solve()`` (one
 shot) or :class:`Session` (long-lived serving, micro-batching, futures)
 lowers them through the :class:`Planner` onto interchangeable backends —
-``formulation={coarse,fine} × kernel={xla,pallas} × layout={contig,
+``formulation={coarse,fine} × kernel={xla,pallas,fused} × layout={contig,
 aligned}`` — chosen per shape bucket by an auto rule keyed on the paper's
 load-imbalance statistics.  On a CUDA device the ``pallas`` kernel axis
-runs the hand-written Hopper support kernel; ``xla`` runs torch ops::
+runs the hand-written Hopper support kernel, ``fused`` the hand-written
+one-launch-per-level kernel; ``xla`` runs torch ops::
 
     from repro_torch.api import TrussQuery, solve
 
@@ -16,7 +17,7 @@ runs the hand-written Hopper support kernel; ``xla`` runs torch ops::
 """
 
 from ..core.truss import KTrussResult, TrussDecomposition
-from .cache import Bucket, CompileCache, bucket_for, bucket_str
+from .cache import Bucket, CompileCache, bucket_for, bucket_str, enable_persistent_cache
 from .errors import (
     CheckpointError,
     CompileError,
@@ -81,6 +82,7 @@ __all__ = [
     "bucket_for",
     "bucket_str",
     "CompileCache",
+    "enable_persistent_cache",
     # result types
     "KTrussResult",
     "TrussDecomposition",

@@ -12,7 +12,8 @@ takes the ``FineProblem`` as an argument, so any same-bucket problem —
 including a block-diagonal batch of them — reuses it.  Cache keys are
 ``(bucket, slots, variant)``: the slot count scales the packed shapes and
 the variant captures everything else that specializes the executor — the
-registry backend key and dataflow mode.
+registry backend key, dataflow mode and, for the fused backend, its tuned
+kernel config.
 """
 
 from __future__ import annotations
@@ -32,7 +33,27 @@ __all__ = [
     "bucket_str",
     "CacheStats",
     "CompileCache",
+    "enable_persistent_cache",
 ]
+
+
+def enable_persistent_cache(cache_dir: str) -> None:
+    """Keep the fused kernel's autotune store at ``<cache_dir>/autotune.json``.
+
+    The counterpart of ``repro.api.cache.enable_persistent_cache``.  The
+    reference also points XLA's persistent compilation cache there; torch
+    has no such cache (the port's kernels are built once per checkout into
+    ``kernels/_build/``), so here only the autotune store persists: winning
+    per-bucket kernel configs are written to it and replayed on warm start
+    (``repro_torch.kernels.autotune.lookup``, which the planner consults
+    whenever it builds a fused executor).  Process-wide, and idempotent;
+    opt in via ``Session(cache_dir=...)``.
+    """
+    import os
+
+    from ..kernels import autotune
+
+    autotune.set_store(os.path.join(str(cache_dir), "autotune.json"))
 
 
 class Bucket(NamedTuple):

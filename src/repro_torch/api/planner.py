@@ -210,20 +210,48 @@ class Planner:
     # ------------------------------------------------------------------ #
     # Lowering: batch -> one dispatch -> per-query results
     # ------------------------------------------------------------------ #
-    def cache_variant(self, backend: BackendKey):
+    def cache_variant(
+        self,
+        backend: BackendKey,
+        bucket: Bucket | None = None,
+        slots: int | None = None,
+    ):
         """What beyond (bucket, slots) specializes the executor.
 
         Every planner attribute ``build_executor`` reads MUST be folded in
         here — a scalar missing from this tuple would let two configs
-        share one cache row."""
-        return (backend, self.mode, self.chunk, self.max_iters)
+        share one cache row.  Fused backends also fold in the bucket's
+        autotuned kernel config (``repro_torch.kernels.autotune.lookup``),
+        so a newly tuned block/schedule builds its own executor instead of
+        reusing a stale one."""
+        fused_sig = None
+        if backend.kernel == "fused" and bucket is not None:
+            fused_sig = self.fused_config_for(bucket, slots or self.max_batch).signature()
+        return (backend, self.mode, self.chunk, self.max_iters, fused_sig)
+
+    def fused_config_for(self, bucket: Bucket, slots: int):
+        """The fused tuning point for one (bucket, slots): the persisted
+        autotune winner when one exists, the stock default otherwise —
+        always clamped so the block divides the bucket's slot width."""
+        from ..kernels import autotune
+
+        return autotune.lookup(bucket, slots).clamp(bucket.nnz_pad)
 
     def build_executor(self, key: tuple[Bucket, int, Any]):
         """Cache builder: one peel executor per cache key (everything it
         depends on arrives through the key)."""
-        bucket, _slots, (backend, mode, chunk, max_iters) = key
+        bucket, _slots, (backend, mode, chunk, max_iters, fused_sig) = key
+        fused_config = None
+        if fused_sig is not None:
+            from ..kernels.autotune import FusedConfig
+
+            fused_config = FusedConfig.from_signature(fused_sig)
         return get_backend(backend).make_executor(
-            window=bucket.window, chunk=chunk, max_iters=max_iters, mode=mode
+            window=bucket.window,
+            chunk=chunk,
+            max_iters=max_iters,
+            mode=mode,
+            fused_config=fused_config,
         )
 
     def _slot_ids_for(self, batch: PlannedBatch, edge_ranges) -> torch.Tensor:
@@ -272,7 +300,9 @@ class Planner:
             )
         pack_dt = obs_clock.now() - t0
         with tracer.span("compile", backend=str(backend)) as span:
-            exe, hit = cache.get(bucket, batch.slots, self.cache_variant(backend))
+            exe, hit = cache.get(
+                bucket, batch.slots, self.cache_variant(backend, bucket, batch.slots)
+            )
             span.attrs["hit"] = hit
         for st in queries:
             st.stats.pack_time_s = pack_dt

@@ -10,13 +10,15 @@ string names the same point in both packages:
 * ``formulation`` — ``coarse`` (row tasks) | ``fine`` (nonzero tasks);
 * ``kernel``      — ``xla``: the torch-ops twins (the name is the
                     reference's) | ``pallas``: in the port, the
-                    hand-written CUDA kernel
+                    hand-written CUDA support kernel
                     (``repro_torch.kernels.support_fine``) on CUDA
-                    tensors, its plain version on CPU tensors.  The
-                    reference's third kernel, ``fused``, is not ported
-                    yet;
+                    tensors, its plain version on CPU tensors |
+                    ``fused``: the hand-written fused level kernel
+                    (``repro_torch.kernels.peel_fused``), one launch per
+                    truss level, autotuned per bucket;
 * ``layout``      — ``contig`` (prefix-sum packed lanes) | ``aligned``
-                    (slot-aligned lanes).
+                    (slot-aligned lanes; the only layout whose slot-banded
+                    lane geometry the fused kernel can tile).
 
 Every registered backend is *semantically identical* — bit-identical
 ``trussness`` on any graph — so :func:`choose_backend` is purely a
@@ -46,7 +48,7 @@ __all__ = [
 ]
 
 FORMULATIONS = ("coarse", "fine")
-KERNELS = ("xla", "pallas")
+KERNELS = ("xla", "pallas", "fused")
 LAYOUTS = ("contig", "aligned")
 
 
@@ -81,9 +83,12 @@ class BackendSpec:
         chunk: int = 256,
         max_iters: int | None = None,
         mode: str | None = None,
+        fused_config=None,
     ):
         """Build this backend's :class:`repro_torch.exec.PeelExecutor` for
-        one shape bucket.  ``mode`` overrides the spec's dataflow."""
+        one shape bucket.  ``mode`` overrides the spec's dataflow;
+        ``fused_config`` is the ``kernel="fused"`` tuning point
+        (``repro_torch.kernels.autotune``), ignored by the other kernels."""
         from ..exec.peel import PeelExecutor  # lazy: registry stays import-light
 
         return PeelExecutor(
@@ -93,6 +98,7 @@ class BackendSpec:
             window=window,
             chunk=chunk,
             max_iters=max_iters,
+            fused_config=fused_config,
         )
 
 
@@ -162,15 +168,26 @@ def choose_backend(
 
       coarse  iff  coarse_lane_efficiency >= 0.4 and coarse_imbalance <= 2.5
 
-    otherwise fine.  The kernel axis implements the fine formulation only,
-    so ``kernel="pallas"`` forces ``fine``.  (The reference also upgrades
-    a heavily imbalanced ``pallas`` pick to its fused megakernel; the port
-    has no fused backend yet, so it keeps ``fine/pallas`` there — with
-    identical results.)
+    otherwise fine.  The hand kernels implement the fine formulation only,
+    so ``kernel="pallas"`` or ``"fused"`` forces ``fine``.  On the
+    hand-kernel path (``kernel="pallas"``, the CUDA default) a *heavily*
+    imbalanced bucket (``coarse_imbalance > 8``) is upgraded to the fused
+    level kernel when its aligned variant is registered: a heavy degree
+    tail means long peel tails with mostly-dead lanes, where the fused
+    kernel's dead-tile skipping and one-readback-per-level pay.  Every
+    backend returns identical results, so a wrong guess costs time, never
+    correctness.  The rule is the reference's, verbatim.
     """
     kernel = kernel or default_kernel()
     balanced = stats.coarse_lane_efficiency >= 0.4 and stats.coarse_imbalance <= 2.5
-    formulation = "coarse" if (balanced and kernel != "pallas") else "fine"
+    formulation = "coarse" if (balanced and kernel not in ("pallas", "fused")) else "fine"
+    if (
+        kernel == "pallas"
+        and layout == "aligned"
+        and stats.coarse_imbalance > 8.0
+        and BackendKey("fine", "fused", layout) in _REGISTRY
+    ):
+        kernel = "fused"
     key = BackendKey(formulation, kernel, layout)
     if key not in _REGISTRY:
         raise KeyError(f"auto-chosen backend {key} is not registered")
@@ -200,6 +217,20 @@ def _register_defaults() -> None:
                 description="nonzero tasks, collision-free hand-written CUDA kernel",
             )
         )
+    # The fused kernel tiles the aligned layout's slot-banded lane
+    # geometry; there is no contig variant (a contig pack interleaves
+    # members' lanes, which its per-slot reductions cannot band).
+    register_backend(
+        BackendSpec(
+            key=BackendKey("fine", "fused", "aligned"),
+            mode="owner",
+            description=(
+                "hand-written fused CUDA level kernel: support + prune + level "
+                "bookkeeping in one launch per level, autotuned per bucket "
+                "(repro_torch.kernels.autotune)"
+            ),
+        )
+    )
 
 
 _register_defaults()

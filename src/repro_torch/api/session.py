@@ -23,7 +23,7 @@ import torch
 from ..errors import TrussError
 from ..obs import MetricsRegistry, Observability
 from ..obs import clock as obs_clock
-from .cache import CompileCache, bucket_for
+from .cache import CompileCache, bucket_for, enable_persistent_cache
 from .errors import TrussTimeoutError
 from .planner import PlannedBatch, Planner, QueryState
 from .query import TrussQuery
@@ -202,6 +202,9 @@ class Session:
       max_batch: packed slots per dispatch (batches pad to this).
       chunk: task-chunk width (power of two).
       max_iters: explicit peel iteration cap (None = provable bound).
+      cache_dir: keep the fused kernel's autotune store at
+        ``<cache_dir>/autotune.json``, so tuned configs outlive the
+        process (:func:`repro_torch.api.cache.enable_persistent_cache`).
       trace: span tracing — ``True`` records in memory, a path string
         records AND exports Chrome trace JSON there after
         ``solve()``/``flush()``; ``None`` consults ``REPRO_TRACE``.
@@ -226,10 +229,13 @@ class Session:
         max_batch: int = 8,
         chunk: int = 256,
         max_iters: int | None = None,
+        cache_dir: str | None = None,
         trace: bool | str | None = None,
         metrics: MetricsRegistry | None = None,
         shed_on_timeout: bool = True,
     ):
+        if cache_dir is not None:
+            enable_persistent_cache(cache_dir)
         self.obs = Observability(trace=trace, metrics=metrics)
         self.planner = Planner(
             max_batch=max_batch,
@@ -340,7 +346,9 @@ class Session:
         exe, _ = self.cache.get(
             bucket,
             self.planner.max_batch,
-            self.planner.cache_variant(self.planner.backend),
+            self.planner.cache_variant(
+                self.planner.backend, bucket, self.planner.max_batch
+            ),
         )
         return exe
 

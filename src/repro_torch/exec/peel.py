@@ -19,7 +19,12 @@ exactly as the reference's loop counter does.
 Slots are the block-diagonal members of ``repro_torch.graphs.pack``;
 because the packing is a disjoint union, each slot's fixed point is
 independent and a per-slot convergence test (a segment sum of changed
-lanes) is exact.  Mesh placement and the fused level kernel are not
+lanes) is exact.
+
+:func:`build_fused_peel` is the fused form: each level's support→prune
+fixed point runs inside one launch of the fused level kernel
+(``repro_torch.kernels.peel_fused``), and the host loop steps levels with
+one readback per level instead of one per trip.  Mesh placement is not
 ported yet.
 """
 
@@ -41,6 +46,7 @@ __all__ = [
     "make_problem_support",
     "init_peel_state",
     "build_peel",
+    "build_fused_peel",
     "PeelExecutor",
 ]
 
@@ -81,6 +87,11 @@ def make_problem_support(
     hand-written CUDA kernel on CUDA tensors.  ``"xla"`` is the torch-ops
     twin axis (the name keeps the reference's spelling).
     """
+    if backend == "fused":
+        raise ValueError(
+            "the fused backend is not a support fn; it is built whole via "
+            "build_fused_peel (one kernel launch per level)"
+        )
     if backend == "pallas":
         from ..kernels import ops as kernel_ops  # lazy: keeps exec dep-light
 
@@ -243,12 +254,84 @@ def build_peel(support: SupportFn, *, max_iters: int | None = None) -> _Peel:
     return _Peel(support, max_iters)
 
 
+class _FusedPeel:
+    """The peel callable :func:`build_fused_peel` returns (see there)."""
+
+    def __init__(self, level_step, max_iters: int | None):
+        self.level_step = level_step
+        self.max_iters = max_iters
+        self.host_syncs = 0  # device->host readbacks, one per level
+
+    def __call__(
+        self,
+        p: FineProblem,
+        slot_ids: torch.Tensor,
+        k0: torch.Tensor,
+        single_level: torch.Tensor,
+        alive0: torch.Tensor,
+        frozen: torch.Tensor,
+        frozen_truss: torch.Tensor,
+    ) -> PeelState:
+        num_slots = int(k0.shape[0])
+        limit = (
+            int(alive0.shape[0]) + p.n + 4 if self.max_iters is None else int(self.max_iters)
+        )
+        st = init_peel_state(slot_ids, k0, alive0, frozen, frozen_truss)
+        tracer = current_tracer()
+        registry = current_registry()
+        level = 0
+        while True:
+            # One readback per level: the loop condition and the cap check.
+            self.host_syncs += 1
+            all_done, trips = torch.stack(
+                [st.done.all().to(torch.int32), st.total_iters]
+            ).tolist()
+            if all_done or trips >= limit:
+                break  # a fired cap: the executor's all-done belt raises
+            with tracer.span("peel-level", level=level, slots=num_slots):
+                st = self.level_step(p, st, frozen, frozen_truss, single_level)
+            registry.inc("peel_fused_levels")
+            level += 1
+        return st
+
+
+def build_fused_peel(
+    *,
+    window: int,
+    block: int = 32,
+    schedule: str = "compare",
+    max_iters: int | None = None,
+) -> _FusedPeel:
+    """Host-driven fused peel: one fused-kernel launch per level.
+
+    Same signature and bit-identical results as :func:`build_peel`'s
+    callable (except ``total_iters``, which counts the kernel's inner
+    trips), but the support→prune fixed point of each level runs inside
+    one launch (``repro_torch.kernels.peel_fused.make_fused_level``), and
+    the host loop steps levels — one ``"peel-level"`` span and one
+    ``peel_fused_levels`` tick per launch, and one readback per level
+    (``host_syncs``).  A fired iteration cap returns the un-done state;
+    :meth:`PeelExecutor.peel`'s all-done belt raises the typed
+    ``DeviceError`` exactly as on the unfused path.
+    """
+    from ..kernels.peel_fused import make_fused_level  # lazy: exec stays dep-light
+
+    return _FusedPeel(
+        make_fused_level(window=window, block=block, schedule=schedule), max_iters
+    )
+
+
 class PeelExecutor:
     """Unified executor for every multi-level K-truss workload.
 
     One instance owns one peel (one support configuration) and serves
     ``ktruss`` / ``kmax`` / ``decompose`` for any problem matching its
     shapes — a single graph (one slot) or a packed batch.
+
+    ``backend="fused"`` runs the fused level kernel through
+    :func:`build_fused_peel`, tuned by ``fused_config``
+    (``repro_torch.kernels.autotune.FusedConfig``; default the stock
+    config), and validates each pack's tiling before dispatch.
 
     ``dispatches`` counts :meth:`peel` calls (one per packed batch);
     ``host_syncs`` counts the device→host readbacks they made.
@@ -264,7 +347,26 @@ class PeelExecutor:
         chunk: int = 256,
         max_iters: int | None = None,
         support: SupportFn | None = None,
+        fused_config=None,
     ):
+        self.backend = backend
+        self.fused_config = None
+        self.dispatches = 0
+        self._belt_syncs = 0
+        if backend == "fused":
+            if granularity != "fine":
+                raise ValueError("fused backend implements the fine granularity")
+            if window is None:
+                raise ValueError("window is required for the fused backend")
+            from ..kernels.autotune import FusedConfig  # lazy: exec stays dep-light
+
+            cfg = fused_config if fused_config is not None else FusedConfig()
+            self.fused_config = cfg
+            self.support = None
+            self._peel = build_fused_peel(
+                window=window, block=cfg.block, schedule=cfg.schedule, max_iters=max_iters
+            )
+            return
         if support is None:
             if window is None:
                 raise ValueError("window is required unless support= is given")
@@ -277,8 +379,6 @@ class PeelExecutor:
             )
         self.support = support
         self._peel = build_peel(support, max_iters=max_iters)
-        self.dispatches = 0
-        self._belt_syncs = 0
 
     @property
     def host_syncs(self) -> int:
@@ -318,6 +418,15 @@ class PeelExecutor:
             frozen = torch.zeros(alive0.shape, dtype=torch.bool, device=dev)
         if frozen_truss is None:
             frozen_truss = torch.zeros(alive0.shape, dtype=torch.int32, device=dev)
+        if self.backend == "fused":
+            # The kernel tiles lanes by `block` and reduces per slot over
+            # slot bands: refuse mis-tiled packs loudly (typed,
+            # slot-attributed) instead of mixing members.  Reads the pack's
+            # row arrays back once.
+            from ..graphs.pack import validate_fused_tiling
+
+            self._belt_syncs += 1
+            validate_fused_tiling(p, slots=num_slots, block=self.fused_config.block)
         self.dispatches += 1
         current_registry().inc("peel_dispatches")
         tracer = current_tracer()

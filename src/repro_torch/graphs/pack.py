@@ -29,6 +29,7 @@ __all__ = [
     "PackedProblem",
     "pack_graphs",
     "pack_problems",
+    "validate_fused_tiling",
 ]
 
 
@@ -292,3 +293,60 @@ def _pack_problems_aligned(
         slots=int(slots),
         layout="aligned",
     )
+
+
+def validate_fused_tiling(problem, *, slots: int, block: int) -> None:
+    """Validate an aligned pack against the fused kernel's tiling.
+
+    The fused level kernel (``repro_torch.kernels.peel_fused``) walks edge
+    lanes in ``block``-sized tiles it can skip when dead, and reduces
+    per-slot convergence over each slot's band of ``slot_nnz`` lanes.
+    Both are only sound for the aligned layout's geometry: ``block`` must
+    divide each slot's lane band, and every row's lanes must sit inside
+    its slot's band ``[i * slot_nnz, (i+1) * slot_nnz)``.  A violation —
+    a mis-sized block, or a pack whose row starts spill across a slot
+    boundary — would silently mix members' edges into one tile/slot
+    reduction; instead it raises the typed :class:`InvalidGraphError`
+    naming the offending slot.  Reads ``rowptr``/``deg`` back to the host.
+    """
+    nnzp = int(problem.colidx.shape[0])
+    if slots < 1 or nnzp % slots:
+        raise InvalidGraphError(
+            f"packed nnz={nnzp} does not divide into {slots} aligned slots",
+            kind="fused_tiling",
+        )
+    slot_nnz = nnzp // slots
+    if block < 1 or slot_nnz % block:
+        raise InvalidGraphError(
+            f"fused kernel block={block} does not divide slot_nnz="
+            f"{slot_nnz}: a {block}-lane tile would straddle slot 1's "
+            f"band boundary at lane {slot_nnz}; repack or clamp the "
+            "config (FusedConfig.clamp)",
+            slot=1 if slots > 1 else 0,
+            kind="fused_tiling",
+        )
+    rowptr = problem.rowptr.cpu().numpy()
+    deg = problem.deg.cpu().numpy()
+    n_tot = rowptr.shape[0] - 1
+    if n_tot % slots:
+        raise InvalidGraphError(
+            f"packed vertex count {n_tot} does not divide into {slots} slots",
+            kind="fused_tiling",
+        )
+    slot_n = n_tot // slots
+    v = np.arange(1, n_tot + 1)
+    start = rowptr[:-1].astype(np.int64)  # rowptr[v-1] begins row v
+    extent = deg[1:].astype(np.int64)
+    slot_of = (v - 1) // slot_n
+    lo = slot_of.astype(np.int64) * slot_nnz
+    bad = (extent > 0) & ((start < lo) | (start + extent > lo + slot_nnz))
+    if bad.any():
+        i = int(np.argmax(bad))
+        raise InvalidGraphError(
+            f"slot {int(slot_of[i])}: row {int(v[i])} spans lanes "
+            f"[{int(start[i])}, {int(start[i] + extent[i])}) outside its "
+            f"aligned band [{int(lo[i])}, {int(lo[i] + slot_nnz)}); the "
+            "fused kernel's per-slot tiles would mix members",
+            slot=int(slot_of[i]),
+            kind="fused_tiling",
+        )

@@ -45,7 +45,8 @@ class BuiltLibrary:
     log: str  # nvcc's output when the library was built (ptxas' register/spill report)
 
 
-_lock = threading.Lock()
+_lock = threading.Lock()  # guards _locks
+_locks: dict[str, threading.Lock] = {}  # one per library: builds run in parallel
 _loaded: dict[str, BuiltLibrary] = {}
 
 
@@ -62,8 +63,13 @@ def _nvcc() -> str:
 
 
 def load_library(name: str) -> BuiltLibrary:
-    """Build (if needed) and load ``csrc/<name>.cu``; cached per process."""
+    """Build (if needed) and load ``csrc/<name>.cu``; cached per process.
+
+    Different libraries build concurrently when called from several
+    threads; one library builds once."""
     with _lock:
+        lock = _locks.setdefault(name, threading.Lock())
+    with lock:
         if name in _loaded:
             return _loaded[name]
         src = CSRC / f"{name}.cu"

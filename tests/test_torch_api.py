@@ -84,11 +84,12 @@ def test_stream_update_matches_reference():
 
 def test_backend_grid_spellings_and_default_kernel():
     port = {str(k) for k in ta.available_backends()}
-    assert port == {str(k) for k in ra.available_backends()} - {"fine/fused/aligned"}
+    assert port == {str(k) for k in ra.available_backends()}
     assert ta.get_backend("fine/pallas/aligned").mode == "owner"
+    assert ta.get_backend("fine/fused/aligned").mode == "owner"
     assert ta.default_kernel("cpu") == "xla" and ta.default_kernel("cuda") == "pallas"
     with pytest.raises(KeyError):
-        ta.get_backend("fine/fused/aligned")
+        ta.get_backend("fine/fused/contig")
 
 
 def test_entry_points_default_to_cuda_and_never_fall_back(monkeypatch):

@@ -1,4 +1,4 @@
-"""The hand-written CUDA support kernel against its plain version, on the
+"""The hand-written CUDA kernels against their plain versions, on the
 card.  Marked ``gpu``: each test decides inside itself whether a CUDA device
 is present and skips otherwise (run them on a machine with an H100:
 ``PYTHONPATH=src python -m pytest -m gpu tests/test_torch_kernels_gpu.py``)."""
@@ -68,3 +68,126 @@ def test_kernel_refuses_wrong_inputs(cuda):
     p = prepare_fine(g, chunk=64, device=cuda)
     with pytest.raises(ValueError, match="bool"):
         support_fine_cuda(p, (p.colidx != 0).to(torch.int32))
+
+
+# --------------------------------------------------------------------- #
+# The fused level kernel (csrc/peel_fused.cu) against fused_level_torch
+# --------------------------------------------------------------------- #
+def _bench_pack(cuda):
+    """er-4k, clustered-32x40 and rmat-12 (configs.BENCH_GRAPHS) packed
+    aligned into one 4-slot batch of their largest bucket."""
+    from repro_torch.configs import BENCH_GRAPHS
+
+    gs = [b.build() for b in BENCH_GRAPHS if b.name in ("er-4k", "clustered-32x40", "rmat-12")]
+    buckets = [bucket_for(g, chunk=256) for g in gs]
+    nnz_pad = max(b.nnz_pad for b in buckets)
+    pp = tg.pack_problems(
+        gs, slot_n=max(b.n_pad for b in buckets), slot_nnz=nnz_pad, slots=4,
+        chunk=256, layout="aligned", device=cuda,
+    )
+    return pp, max(b.window for b in buckets)
+
+
+def test_fused_level_kernel_matches_plain_version_for_every_candidate(cuda):
+    from repro_torch.exec.peel import PeelExecutor, init_peel_state
+    from repro_torch.kernels.autotune import FusedConfig, candidate_configs
+    from repro_torch.kernels.peel_fused import fused_level_cuda, fused_level_torch
+
+    pp, window = _bench_pack(cuda)
+    p = pp.problem
+    slot_ids = torch.arange(4, dtype=torch.int32, device=cuda).repeat_interleave(pp.slot_nnz)
+    k0 = torch.tensor([3, 3, 4, 3], dtype=torch.int32, device=cuda)
+    single = torch.tensor([False, False, True, False], device=cuda)
+    # Any frozen lanes and truss values are valid inputs: kernel and plain
+    # version must agree on all of them.
+    rng = np.random.default_rng(7)
+    real = (p.colidx != 0).cpu().numpy()
+    frozen_np = real & (rng.random(real.shape[0]) < 0.2)
+    frozen_np[pp.slot_nnz :] = False  # slot 0 only
+    frozen = torch.from_numpy(frozen_np).to(cuda)
+    ftruss = torch.from_numpy(rng.integers(2, 9, real.shape[0]).astype(np.int32)).to(cuda)
+    ftruss = ftruss * frozen
+    alive0 = (p.colidx != 0) & ~frozen
+    for cfg in candidate_configs(pp.slot_nnz):
+        st = init_peel_state(slot_ids, k0, alive0, frozen, ftruss)
+        levels = 0
+        while not bool(st.done.all()):
+            before = fused_level_cuda.launches
+            got = fused_level_cuda(p, st, frozen, ftruss, single, block=cfg.block, schedule=cfg.schedule)
+            torch.cuda.synchronize()
+            assert fused_level_cuda.launches == before + 1
+            want = fused_level_torch(p, st, frozen, ftruss, single, window=window, block=cfg.block)
+            for f in got._fields:
+                a, b = getattr(got, f), getattr(want, f)
+                assert a.dtype == b.dtype and torch.equal(a, b), (cfg, levels, f)
+            st, levels = got, levels + 1
+        assert levels >= 3, cfg
+    # The whole fused peel equals the unfused kernel path on every field but
+    # total_iters, and launches once per level step.
+    kw = dict(slot_ids=slot_ids, k0=k0.cpu().numpy(), single_level=single.cpu().numpy())
+    before = fused_level_cuda.launches
+    fused = PeelExecutor(backend="fused", window=window, chunk=256, fused_config=FusedConfig())
+    st_f = fused.peel(p, **kw)
+    st_p = PeelExecutor(mode="owner", backend="pallas", window=window, chunk=256).peel(p, **kw)
+    assert fused_level_cuda.launches - before == int(st_f.levels.max())
+    for f in st_f._fields:
+        if f != "total_iters":
+            assert torch.equal(getattr(st_f, f), getattr(st_p, f)), f
+    assert fused.host_syncs == int(st_f.levels.max()) + 3
+
+
+def test_fused_level_kernel_refuses_mis_tiled_block(cuda):
+    from repro_torch.errors import InvalidGraphError
+    from repro_torch.exec.peel import PeelExecutor, init_peel_state
+    from repro_torch.kernels.autotune import FusedConfig
+    from repro_torch.kernels.peel_fused import fused_level_cuda
+
+    pp, window = _bench_pack(cuda)
+    p = pp.problem
+    slot_ids = torch.arange(4, dtype=torch.int32, device=cuda).repeat_interleave(pp.slot_nnz)
+    k0 = torch.full((4,), 3, dtype=torch.int32, device=cuda)
+    frozen = torch.zeros(p.nnz_pad, dtype=torch.bool, device=cuda)
+    ftruss = torch.zeros(p.nnz_pad, dtype=torch.int32, device=cuda)
+    st = init_peel_state(slot_ids, k0, p.colidx != 0, frozen, ftruss)
+    single = torch.zeros(4, dtype=torch.bool, device=cuda)
+    before = fused_level_cuda.launches
+    with pytest.raises(ValueError, match="does not divide"):
+        fused_level_cuda(p, st, frozen, ftruss, single, block=2 * pp.slot_nnz, schedule="compare")
+    exe = PeelExecutor(
+        backend="fused", window=window, chunk=256, fused_config=FusedConfig(block=2 * pp.slot_nnz)
+    )
+    with pytest.raises(InvalidGraphError, match="does not divide"):
+        exe.peel(p, slot_ids=slot_ids, k0=k0.cpu().numpy())
+    assert fused_level_cuda.launches == before
+
+
+def test_fused_level_launch_error_raises(cuda):
+    """65,536 one-lane slots need 768 KiB of shared memory per CTA for the
+    per-slot latch, more than a CTA can have: the launch is refused, and
+    the wrapper raises the typed error instead of returning a state."""
+    from repro_torch.core import problem_from_arrays
+    from repro_torch.errors import DeviceError
+    from repro_torch.exec.peel import init_peel_state
+    from repro_torch.kernels.peel_fused import fused_level_cuda
+
+    slots = 1 << 16
+
+    def z(n):
+        return np.zeros(n, np.int32)
+
+    p = problem_from_arrays(
+        dict(rowptr=z(2), colidx=z(slots), edge_row=z(slots), deg=z(2), urowptr=z(2),
+             ucolidx=z(2 * slots), u2d=np.full(2 * slots, slots), uedge_row=z(2 * slots),
+             udeg=z(2)),
+        cuda,
+    )
+    lanes = torch.arange(slots, dtype=torch.int32, device=cuda)
+    frozen = torch.zeros(slots, dtype=torch.bool, device=cuda)
+    st = init_peel_state(
+        lanes, torch.full((slots,), 3, dtype=torch.int32, device=cuda),
+        frozen, frozen, torch.zeros(slots, dtype=torch.int32, device=cuda),
+    )
+    before = fused_level_cuda.launches
+    with pytest.raises(DeviceError, match="launch failed"):
+        fused_level_cuda(p, st, frozen, st.trussness, frozen, block=1, schedule="bsearch")
+    assert fused_level_cuda.launches == before
