@@ -5,10 +5,10 @@
 
 Phases (any failure exits non-zero):
 
-1. setup: the card's name and power limit; build both hand-written kernels
-   (``support_fine.cu`` and ``peel_fused.cu`` from
-   ``src/repro_torch/kernels/csrc``, one ``nvcc`` each, started together)
-   and print nvcc's register/spill reports.
+1. setup: the card's name and power limit; build the three hand-written
+   kernels (``support_fine.cu``, ``peel_fused.cu`` and ``support_dense.cu``
+   from ``src/repro_torch/kernels/csrc``, one ``nvcc`` each, started
+   together) and print nvcc's register/spill reports.
 2. kernel vs plain version, at the main path's input: ``rmat-15``
    (``configs.LARGE_GRAPHS``) packed as phase 3 packs it (8 slots of its
    bucket, 3 live); ``support_fine_cuda`` must equal the plain torch
@@ -39,6 +39,21 @@ Phases (any failure exits non-zero):
    ``fine/pallas/aligned`` executor's
    on every field but ``total_iters``; each candidate's peel and the
    pallas peel are timed on the same batch.
+7. the dense kernel at full width: rmat-15's dense symmetric adjacency
+   (1-based, n + 1 = 32,769 rows, padded to 32,896), built on the card,
+   through ``kernels.ops.support_dense``; ``support_dense_cuda`` must equal
+   ``support_dense_torch`` bit for bit there and on an asymmetric random
+   0/1 matrix at V = 4,096, and ``S`` at every edge must equal
+   ``support_fine_cuda`` with every lane alive (zero off the edges).
+   Times the kernel, the plain version and ``torch._int_mm`` with the mask
+   as the yardstick; computes the bound; prints peak memory.
+8. ``KTrussEngine`` on the card: rmat-15 at full width, fine/owner/pallas;
+   ``ktruss(4)``, ``kmax()``, ``decompose()`` and ``peel_levels()`` must
+   equal phase 3's answers, through ``support_fine_cuda``.  Then the
+   quickstart's grid (coarse/eager/xla, fine/eager/xla, fine/owner/xla,
+   fine/owner/pallas, bucketed) on ``ENGINE_GRID_GRAPH``: all agree on
+   ``ktruss(4)``; each one's ``support()`` time and ME/s (the paper's
+   Table I in miniature).
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 lists each kernel with its launches on its path and its times.
@@ -57,7 +72,9 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 MEM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 INT_OPS_PER_S = 67e12  # H100 SXM non-tensor peak, the table's float32 row
+INT8_TENSOR_OPS_PER_S = 1979e12  # H100 SXM dense int8 tensor-core peak
 SEED_MASKS = (101, 202, 303)
+ENGINE_GRID_GRAPH = "ba-6k"  # BENCH_GRAPHS: skewed (coarse imbalance 395), coarse O(n·W²) still quick
 
 
 def log(msg: str) -> None:
@@ -92,10 +109,31 @@ def support_steps(p, alive) -> float:
     return float(torch.minimum(da + db, lo * torch.ceil(torch.log2(hi + 1))).sum())
 
 
-def roofline(nbytes: float, ops: float) -> tuple[float, str]:
+def median_ms(fn, reps: int) -> float:
+    """Median device time of one ``fn`` call over ``reps`` calls (CUDA
+    events around each), after one warm-up call."""
+    import statistics
+
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def roofline(nbytes: float, ops: float, ops_per_s: float = INT_OPS_PER_S) -> tuple[float, str]:
     """The larger of bytes over the memory rate and operations over the
-    non-tensor peak, in ms, and which of the two it is."""
-    t_bytes, t_ops = nbytes / MEM_BYTES_PER_S * 1e3, ops / INT_OPS_PER_S * 1e3
+    given peak (default the non-tensor one), in ms, and which of the two
+    it is."""
+    t_bytes, t_ops = nbytes / MEM_BYTES_PER_S * 1e3, ops / ops_per_s * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -138,6 +176,7 @@ def phase_setup(torch):
     from concurrent.futures import ThreadPoolExecutor
 
     from repro_torch.kernels.peel_fused import load_peel_fused
+    from repro_torch.kernels.support_dense import load_support_dense
     from repro_torch.kernels.support_fine import load_support_fine
 
     smi = subprocess.run(
@@ -147,7 +186,11 @@ def phase_setup(torch):
     log(f"card: {smi}")
     log(f"torch {torch.__version__} cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
-    loaders = {"support_fine": load_support_fine, "peel_fused": load_peel_fused}
+    loaders = {
+        "support_fine": load_support_fine,
+        "peel_fused": load_peel_fused,
+        "support_dense": load_support_dense,
+    }
     with ThreadPoolExecutor(len(loaders)) as pool:  # one nvcc per source, together
         futs = {name: pool.submit(fn) for name, fn in loaders.items()}
         built = {name: f.result() for name, f in futs.items()}
@@ -514,6 +557,177 @@ def sweep_buckets(graphs, planner) -> None:
     log(f"phase4 sweep sum over the {len(graphs)} buckets: {row} ms")
 
 
+def dense_adjacency(torch, g, vp: int):
+    """rmat-15's dense symmetric 0/1 adjacency in the reference's 1-based
+    layout, zero-padded to (vp, vp) int8, built on the card by scattering
+    the CSR's (row, col) and (col, row); and the edges' rows and columns."""
+    rows = torch.from_numpy(g.row_of_edge()).cuda().long()
+    cols = torch.from_numpy(g.colidx).cuda().long()
+    u = torch.zeros((vp, vp), dtype=torch.int8, device="cuda")
+    u[rows, cols] = 1
+    u[cols, rows] = 1
+    return u, rows, cols
+
+
+def peak_gib(torch, fn):
+    """``fn()``'s result, the device memory peak during the call and what
+    was allocated before it (GiB)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated() / 2**30
+    out = fn()
+    torch.cuda.synchronize()
+    return out, torch.cuda.max_memory_allocated() / 2**30, before
+
+
+def phase_dense(torch, g) -> dict:
+    import numpy as np
+
+    from repro_torch.core import prepare_fine
+    from repro_torch.kernels import ops, support_fine_cuda
+    from repro_torch.kernels.support_dense import TILE, support_dense_cuda, support_dense_torch
+
+    n1 = g.n + 1
+    vp = -(-n1 // TILE) * TILE
+    up, rows, cols = dense_adjacency(torch, g, vp)
+    held = torch.cuda.memory_allocated() / 2**30
+
+    # The slice's path: the public entry point at full width.
+    support_dense_cuda.launches = 0
+    s, peak_ops, _ = peak_gib(torch, lambda: ops.support_dense(up[:n1, :n1]))
+    launches = support_dense_cuda.launches
+    p = prepare_fine(g, chunk=256, device="cuda")
+    sf = support_fine_cuda(p, p.colidx != 0)[: g.nnz].float()
+    torch.cuda.synchronize()
+    if s.shape != (n1, n1) or s.dtype != torch.float32 or launches != 1:
+        raise AssertionError(f"ops.support_dense: {tuple(s.shape)} {s.dtype}, {launches} launches")
+    if not (torch.equal(s[rows, cols], sf) and torch.equal(s[cols, rows], sf)):
+        raise AssertionError("S at the edges != support_fine_cuda with every lane alive")
+    if float(s.min()) < 0 or float(s.double().sum()) != 2 * float(sf.double().sum()):
+        raise AssertionError("S is not zero off the edges")
+    log(f"phase7 ops.support_dense rmat-15: V={n1} padded to {vp}, {launches} launch; "
+        f"S == support_fine_cuda at all {g.nnz} edges (both orientations), zero elsewhere; "
+        f"peak {peak_ops:.2f} GiB ({held:.2f} GiB held before)")
+    del s, p, sf
+
+    # Kernel vs its plain version, bit for bit, on the padded matrix and
+    # on an asymmetric random 0/1 matrix.
+    got, peak_k, before_k = peak_gib(torch, lambda: support_dense_cuda(up))
+    want, peak_p, before_p = peak_gib(torch, lambda: support_dense_torch(up))
+    err_full, same = float((got - want).abs().max()), torch.equal(got, want)
+    del want
+    rng = np.random.default_rng(4096)
+    ua = torch.from_numpy((rng.random((4096, 4096)) < 0.1).astype(np.int8)).cuda()
+    if torch.equal(ua, ua.t()):
+        raise AssertionError("the asymmetric input came out symmetric")
+    ga, wa = support_dense_cuda(ua), support_dense_torch(ua)
+    err_asym = float((ga - wa).abs().max())
+    u_gib = vp * vp / 2**30
+    log(f"phase7 support_dense_cuda vs support_dense_torch: V={vp} max_abs_err {err_full}, "
+        f"asymmetric V=4096 max_abs_err {err_asym}; call footprint (peak above what was held "
+        f"before, plus the {u_gib:.2f} GiB of U read): kernel {peak_k - before_k + u_gib:.2f} GiB, "
+        f"plain {peak_p - before_p + u_gib:.2f} GiB")
+    if not same or not torch.equal(ga, wa):
+        raise AssertionError("support_dense_cuda disagrees with support_dense_torch")
+    err = max(err_full, err_asym)
+    del ga, wa, ua
+
+    ms = median_ms(lambda: support_dense_cuda(up), reps=7)
+    plain_ms = median_ms(lambda: support_dense_torch(up), reps=3)
+
+    # The yardstick: cuBLAS's int8 product, then the mask.  With the second
+    # operand column-major (its layout for int8) it is several times faster
+    # than with both row-major, so library_ms is that form; both are timed.
+    def library():
+        return torch._int_mm(up, up.t().contiguous().t()) * up
+
+    def library_row_major():
+        return torch._int_mm(up, up) * up
+
+    for fn in (library, library_row_major):
+        lib = fn()
+        if not torch.equal(lib.float(), got):
+            raise AssertionError(f"the {fn.__name__} yardstick disagrees with the kernel")
+        del lib
+    del got
+    library_ms = median_ms(library, reps=5)
+    row_major_ms = median_ms(library_row_major, reps=5)
+    nbytes = 6.0 * vp * vp  # U and UT read once (1 byte each), S written once (4 bytes)
+    ops_count = 2.0 * vp**3
+    bound_ms, bound_by = roofline(nbytes, ops_count, INT8_TENSOR_OPS_PER_S)
+    log(f"phase7 support_dense_cuda: {ms:.3f} ms/launch (median of 7); plain {plain_ms:.1f} ms; "
+        f"torch._int_mm + mask {library_ms:.3f} ms (both operands row-major: "
+        f"{row_major_ms:.3f} ms); bound {bound_ms:.3f} ms by {bound_by} "
+        f"({ops_count / 1e12:.1f} T int8 ops, {nbytes / 1e9:.2f} GB); "
+        f"{ops_count / ms / 1e9:.1f} TOPS achieved, {bound_ms / ms:.1%} of the bound")
+    return dict(launches=launches, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
+
+
+ENGINE_COMBOS = (
+    ("coarse", "eager", "xla", False),
+    ("fine", "eager", "xla", False),
+    ("fine", "owner", "xla", False),
+    ("fine", "owner", "pallas", False),
+    ("fine", "eager", "xla", True),
+)
+
+
+def phase_engine(torch, g, pallas_futs, smi) -> None:
+    from repro_torch.configs import BENCH_GRAPHS
+    from repro_torch.core import KTrussEngine
+    from repro_torch.kernels import support_fine_cuda
+
+    dec, kmax, kt = (f.result() for f in pallas_futs)
+    t0 = time.perf_counter()
+    support_fine_cuda.launches = 0
+    before = support_fine_cuda.launches
+    eng = KTrussEngine(g, granularity="fine", mode="owner", backend="pallas", device="cuda")
+    r4 = eng.ktruss(4)
+    e_kmax = eng.kmax()
+    e_dec = eng.decompose()
+    l_kmax, levels = eng.peel_levels()
+    r_top = eng.ktruss(l_kmax)
+    torch.cuda.synchronize()
+    after = support_fine_cuda.launches
+    log(f"phase8 KTrussEngine rmat-15 fine/owner/pallas: {time.perf_counter() - t0:.2f}s; "
+        f"support_fine_cuda.launches {before} -> {after}; ktruss(4) {r4.edges_remaining} edges in "
+        f"{r4.iterations} trips (phase 3: {kt.edges_remaining}); kmax {e_kmax} (phase 3: {kmax}); "
+        f"peel_levels kmax {l_kmax} over {len(levels)} levels; window {eng.window}")
+    if after <= before:
+        raise AssertionError("KTrussEngine(backend='pallas') did not launch support_fine_cuda")
+    if not (r4.edges_remaining == kt.edges_remaining and (r4.alive == kt.alive).all()
+            and (r4.support == kt.support).all()):
+        raise AssertionError("engine ktruss(4) != phase 3's ktruss(4)")
+    if e_kmax != kmax or l_kmax != dec.kmax:
+        raise AssertionError(f"engine kmax {e_kmax} / peel_levels {l_kmax} != phase 3's {kmax}")
+    if not ((e_dec.trussness == dec.trussness).all() and e_dec.kmax == dec.kmax):
+        raise AssertionError("engine decompose() != phase 3's trussness")
+    if not (levels[-1].k == l_kmax and (levels[-1].alive == r_top.alive).all()):
+        raise AssertionError("the last peel level's alive != ktruss(kmax)")
+    log("phase8 engine == phase 3 on ktruss(4), kmax, trussness; last level == ktruss(kmax)")
+
+    # The quickstart's grid: the paper's Table I in miniature.
+    gg = next(b for b in BENCH_GRAPHS if b.name == ENGINE_GRID_GRAPH).build()
+    t0 = time.perf_counter()
+    base = None
+    for gran, mode, backend, bucketed in ENGINE_COMBOS:
+        e = KTrussEngine(gg, granularity=gran, mode=mode, backend=backend, bucketed=bucketed,
+                         device="cuda")
+        res = e.ktruss(4)
+        alive = e.initial_alive()
+        ms = median_ms(lambda e=e, alive=alive: e.support(alive), reps=3)
+        tag = f"{gran}/{mode}/{backend}" + ("/bucketed" if bucketed else "")
+        log(f"phase8 {ENGINE_GRID_GRAPH} {tag:28s} support {ms:9.3f} ms "
+            f"({gg.nnz / ms / 1e3:8.2f} ME/s); 4-truss edges {res.edges_remaining}, "
+            f"{res.iterations} trips")
+        base = res if base is None else base
+        if not ((res.alive == base.alive).all() and (res.support == base.support).all()):
+            raise AssertionError(f"{tag} disagrees on ktruss(4)")
+    log(f"phase8 grid on {ENGINE_GRID_GRAPH} (n={gg.n}, nnz={gg.nnz}): all agree on ktruss(4); "
+        f"{time.perf_counter() - t0:.2f}s; card {smi}")
+
+
 def main() -> int:
     try:
         import torch
@@ -541,6 +755,8 @@ def main() -> int:
     phase_paths(torch)
     fused_launches = phase_fused_main(torch, g, pallas_futs, pallas_wall)
     fused_numbers = phase_fused_kernel(torch, g, bucket)
+    dense_numbers = phase_dense(torch, g)
+    phase_engine(torch, g, pallas_futs, smi)
     kernels = [
         dict(
             name="support_fine_cuda",
@@ -557,6 +773,13 @@ def main() -> int:
             replaces="src/repro/kernels/peel_fused.py:260",
             launches=fused_launches,
             **fused_numbers,
+        ),
+        dict(
+            name="support_dense_cuda",
+            route="cuda",
+            source="src/repro_torch/kernels/csrc/support_dense.cu",
+            replaces="src/repro/kernels/support_dense.py:45",
+            **dense_numbers,
         ),
     ]
     log(f"total {time.perf_counter() - t_start:.1f}s")

@@ -1,33 +1,60 @@
-"""The paper's algorithms on tensors: support formulations and oracles."""
+"""Core: the paper's contribution — Eager K-truss, coarse & fine grained."""
 
 from .eager_coarse import support_coarse_eager
 from .eager_fine import (
     FineProblem,
+    bucket_tasks,
     prepare_fine,
     prepare_fine_arrays,
     problem_from_arrays,
+    support_fine_bucketed,
     support_fine_eager,
     support_fine_owner,
+    support_fine_stacked,
     undirected_alive,
 )
-from .reference import ktruss_numpy, support_numpy, trussness_numpy
-from .taskmap import batched_searchsorted, sorted_window_member
-from .truss import KTrussResult, TrussDecomposition
+from .reference import (
+    kmax_numpy,
+    ktruss_dense,
+    ktruss_numpy,
+    support_dense,
+    support_numpy,
+    trussness_numpy,
+)
+from .taskmap import (
+    batched_searchsorted,
+    row_of_task,
+    segment_offsets,
+    sorted_window_member,
+    window_gather,
+)
+from .truss import KTrussEngine, KTrussResult, TrussDecomposition, make_support_fn
 
 __all__ = [
+    "support_coarse_eager",
     "FineProblem",
+    "bucket_tasks",
     "prepare_fine",
     "prepare_fine_arrays",
     "problem_from_arrays",
+    "support_fine_bucketed",
     "support_fine_eager",
     "support_fine_owner",
+    "support_fine_stacked",
     "undirected_alive",
-    "support_coarse_eager",
-    "support_numpy",
+    "kmax_numpy",
+    "ktruss_dense",
     "ktruss_numpy",
+    "support_dense",
+    "support_numpy",
     "trussness_numpy",
     "batched_searchsorted",
+    "row_of_task",
+    "segment_offsets",
     "sorted_window_member",
+    "window_gather",
+    "KTrussEngine",
     "KTrussResult",
     "TrussDecomposition",
+    "make_support_fn",
 ]

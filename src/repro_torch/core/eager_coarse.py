@@ -19,7 +19,7 @@ __all__ = ["support_coarse_eager"]
 
 
 def support_coarse_eager(
-    p: FineProblem, alive: torch.Tensor, *, window: int
+    p: FineProblem, alive: torch.Tensor, *, window: int, row_chunk: int = 32
 ) -> torch.Tensor:
     """Support per directed edge via row-parallel eager updates (Alg. 2).
 
@@ -27,15 +27,16 @@ def support_coarse_eager(
       p: problem tensors (``prepare_fine`` — shared with the fine algorithm).
       alive: (nnzp,) bool mask over directed edges.
       window: width ≥ max out-degree.
-
-    Rows run in blocks sized so each ``(rows, W, W)`` intermediate stays
-    near ``_WINDOW_ELEMS`` elements (the reference scans fixed blocks of
-    ``row_chunk`` rows; the sums are integers, so the block size does not
-    change the result).
+      row_chunk: rows per step in the reference (``>= 1``).  Accepted for
+        its signature; the port sizes its blocks so each ``(rows, W, W)``
+        intermediate stays near ``_WINDOW_ELEMS`` elements instead.  The
+        sums are integers, so the block size never changes the result.
 
     Returns:
       (nnzp,) int32 support (0 on dead/pad lanes).
     """
+    if int(row_chunk) < 1:
+        raise ValueError(f"row_chunk must be >= 1, got {row_chunk}")
     n, nnzp = p.n, p.nnz_pad
     w = int(window)
     c = max(1, _WINDOW_ELEMS // (w * w))

@@ -42,6 +42,9 @@ __all__ = [
     "problem_from_arrays",
     "support_fine_eager",
     "support_fine_owner",
+    "support_fine_stacked",
+    "bucket_tasks",
+    "support_fine_bucketed",
     "undirected_alive",
 ]
 
@@ -188,35 +191,58 @@ def _row_start(rowptr: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
 # Mode "eager": faithful Algorithm 3 dataflow (index_add_ for atomics)
 # ---------------------------------------------------------------------- #
 def support_fine_eager(
-    p: FineProblem, alive: torch.Tensor, *, window: int, chunk: int = 1024
+    p: FineProblem,
+    alive: torch.Tensor,
+    *,
+    window: int,
+    chunk: int = 1024,
+    tasks: torch.Tensor | None = None,
+    s_init: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Support per directed edge via the eager triple-update (Alg. 3).
 
     Args:
       p: problem tensors (``prepare_fine``).
       alive: (nnzp,) bool — surviving edges (pad lanes False).
-      window: width ≥ max degree of the graph.
-      chunk: the task granularity; must divide ``nnz_pad``.
+      window: width ≥ max degree of the graph (of the ``tasks`` given).
+      chunk: the task granularity; must divide the number of tasks.
+      tasks: optional (multiple-of-chunk,) explicit task ids to process
+        (ids ``>= nnz_pad`` are skipped) — the degree-bucketing hook: each
+        bucket runs with a window sized to its own degree class
+        (:func:`support_fine_bucketed`).
+      s_init: optional (nnzp,) accumulator to add into (bucket chaining);
+        it is not modified.
 
     Returns:
       (nnzp,) int32 support (0 on dead/pad lanes).
     """
     nnzp = p.nnz_pad
-    if nnzp % chunk:
-        raise ValueError(f"tasks={nnzp} not a multiple of chunk={chunk}")
+    n_tasks = nnzp if tasks is None else int(tasks.shape[0])
+    if n_tasks % chunk:
+        raise ValueError(f"tasks={n_tasks} not a multiple of chunk={chunk}")
     w = int(window)
     dev = p.device
     large = p.n + 2
     offs = torch.arange(w, dtype=torch.int32, device=dev)[None, :]
     # One extra lane absorbs the masked-off scatters (JAX's mode="drop").
     s_acc = torch.zeros(nnzp + 1, dtype=torch.int32, device=dev)
+    if s_init is not None:
+        s_acc[:nnzp] = s_init
     step = _block(chunk, w)
 
-    for start in range(0, nnzp, step):
-        t = torch.arange(start, min(start + step, nnzp), dtype=torch.int32, device=dev)
+    for start in range(0, n_tasks, step):
+        if tasks is None:
+            t = torch.arange(start, min(start + step, nnzp), dtype=torch.int32, device=dev)
+            skip = None
+        else:
+            raw = tasks[start : start + step]
+            skip = raw >= nnzp
+            t = raw.clamp(max=nnzp - 1).to(torch.int32)
         kappa = p.colidx[t]
         i = p.edge_row[t]
         valid_t = (kappa != 0) & alive[t]
+        if skip is not None:
+            valid_t &= ~skip
 
         # --- row-i suffix window (queries) -------------------------------
         a_idx = t[:, None] + 1 + offs  # global colidx positions
@@ -251,6 +277,45 @@ def support_fine_eager(
         u3_tgt = torch.where(member, b_start[:, None] + pos_c, nnzp)
         s_acc.index_add_(0, u3_tgt.reshape(-1), ones.reshape(-1))
     return s_acc[:nnzp]
+
+
+def bucket_tasks(g: CSRGraph, chunk: int = 256) -> list[tuple[int, np.ndarray]]:
+    """Partition edge tasks into power-of-two window buckets (host numpy).
+
+    Task t of edge (i,κ) needs window ≥ max(deg(i)−pos−1, deg(κ)); using
+    the global max degree pads every task to the heaviest one.  Returns
+    ``[(window, task_ids padded to chunk multiples with int32-max
+    sentinels)]``, the same arrays as ``repro.core.eager_fine.bucket_tasks``.
+    """
+    deg = g.degrees()
+    rows = g.row_of_edge()
+    pos = g.pos_in_row()
+    need = np.maximum(deg[rows] - pos - 1, deg[g.colidx]).astype(np.int64)
+    need = np.maximum(need, 1)
+    bucket_of = np.maximum(8, 2 ** np.ceil(np.log2(need)).astype(np.int64))
+    out = []
+    for wb in sorted(set(bucket_of.tolist())):
+        ids = np.nonzero(bucket_of == wb)[0].astype(np.int32)
+        padded = -(-len(ids) // chunk) * chunk
+        ids = np.pad(ids, (0, padded - len(ids)), constant_values=np.iinfo(np.int32).max)
+        out.append((int(wb), ids))
+    return out
+
+
+def support_fine_bucketed(
+    p: FineProblem,
+    alive: torch.Tensor,
+    buckets: list[tuple[int, torch.Tensor]],
+    *,
+    chunk: int = 256,
+) -> torch.Tensor:
+    """Fine eager support with per-bucket windows (chained accumulation)."""
+    s = torch.zeros(p.nnz_pad, dtype=torch.int32, device=p.device)
+    for wb, ids in buckets:
+        s = support_fine_eager(
+            p, alive, window=wb, chunk=min(chunk, int(ids.shape[0])), tasks=ids, s_init=s
+        )
+    return s
 
 
 # ---------------------------------------------------------------------- #
@@ -306,3 +371,40 @@ def support_fine_owner(
         member &= torch.gather(b_alive, 1, pos.clamp(max=w - 1).long())
         out[start : start + t.shape[0]] = member.sum(dim=1, dtype=torch.int32) * valid_t
     return out
+
+
+# ---------------------------------------------------------------------- #
+# Batched entry point: many same-shape graphs in one call
+# ---------------------------------------------------------------------- #
+def support_fine_stacked(
+    p: FineProblem,
+    alive: torch.Tensor,
+    *,
+    window: int,
+    chunk: int = 1024,
+    mode: str = "eager",
+) -> torch.Tensor:
+    """``alive -> support`` over a leading batch axis.
+
+    ``p`` is a :class:`FineProblem` whose every field carries a leading
+    ``(B, ...)`` batch dimension (``repro_torch.graphs.pack.stack_problems``)
+    and ``alive`` is ``(B, nnzp)``.  The members run one after another
+    (the reference's ``lax.map``).
+
+    Returns (B, nnzp) int32 supports.
+    """
+    if mode == "eager":
+        fn = support_fine_eager
+    elif mode == "owner":
+        fn = support_fine_owner
+    else:
+        raise ValueError(f"unknown mode {mode!r}")
+    return torch.stack(
+        [fn(member, alive[i], window=window, chunk=chunk) for i, member in enumerate(_unstack(p))]
+    )
+
+
+def _unstack(p: FineProblem) -> list[FineProblem]:
+    """The members of a stacked :class:`FineProblem`, as views."""
+    batch = int(p.colidx.shape[0])
+    return [FineProblem(*(f[i] for f in p)) for i in range(batch)]

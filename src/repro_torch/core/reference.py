@@ -1,18 +1,61 @@
-"""Numpy K-truss oracles (independent of every implementation under test).
+"""Reference K-truss implementations (oracles for tests and kernels).
 
-Pure-numpy set-intersection triangle counting on the upper-triangular CSR,
-structurally independent of the eager and owner formulations and of the
-CUDA kernel.  Copied from ``repro.core.reference`` so the port can check
-itself where JAX is absent.
+Two independent oracles, as in ``repro.core.reference``:
+
+* :func:`support_dense` / :func:`ktruss_dense` — Algorithm 1 of the paper,
+  the linear-algebraic form ``S = (A·A) ∘ A`` over the *symmetric* dense
+  adjacency, pruned to a fixed point.  Plain torch, O(n³): small graphs.
+  Neither calls the dense kernel (``repro_torch.kernels.ops.support_dense``).
+* :func:`support_numpy` — pure-numpy set-intersection triangle counting on
+  the upper-triangular CSR; structurally independent of both the dense
+  form and the eager, owner and CUDA implementations.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from ..graphs.csr import CSRGraph
 
-__all__ = ["support_numpy", "ktruss_numpy", "trussness_numpy"]
+__all__ = [
+    "support_dense",
+    "ktruss_dense",
+    "support_numpy",
+    "ktruss_numpy",
+    "trussness_numpy",
+    "kmax_numpy",
+]
+
+
+# ---------------------------------------------------------------------- #
+# Dense linear-algebraic oracle (Algorithm 1)
+# ---------------------------------------------------------------------- #
+def support_dense(adj_sym: torch.Tensor) -> torch.Tensor:
+    """S = (A @ A) ∘ A on a dense symmetric 0/1 adjacency."""
+    return (adj_sym @ adj_sym) * adj_sym
+
+
+def ktruss_dense(
+    adj_sym: torch.Tensor, k: int, max_iters: int = 10_000
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Fixed-point prune loop of Algorithm 1 on the dense symmetric form.
+
+    The reference's ``(adj, support, changed)`` loop in float32, one
+    readback of ``changed`` per trip, at most ``max_iters`` trips (the
+    fixed point comes after at most one trip per edge).
+
+    Returns (adj_final, support_final); ``adj_final`` is the K-truss.
+    """
+    adj = adj_sym.to(torch.float32)
+    for _ in range(max(1, max_iters)):
+        s = support_dense(adj)
+        mask = (s >= (k - 2)).to(adj.dtype) * adj
+        changed = bool((mask != adj).any())
+        adj, s = mask, s * mask
+        if not changed:
+            break
+    return adj, s
 
 
 def support_numpy(g: CSRGraph, alive: np.ndarray | None = None) -> np.ndarray:
@@ -77,3 +120,11 @@ def trussness_numpy(g: CSRGraph, k_start: int = 3) -> np.ndarray:
         trussness[alive] = k
         k += 1
     return trussness
+
+
+def kmax_numpy(g: CSRGraph, k_start: int = 3) -> int:
+    """Largest k with a non-empty k-truss (0 if even the ``k_start``-truss
+    is empty): the top of :func:`trussness_numpy`'s peel."""
+    trussness = trussness_numpy(g, k_start)
+    top = int(trussness.max()) if trussness.size else 0
+    return top if top >= k_start else 0

@@ -79,6 +79,7 @@ def make_problem_support(
     backend: str = "xla",
     window: int,
     chunk: int = 256,
+    row_chunk: int = 32,
 ) -> SupportFn:
     """Problem-polymorphic ``(problem, alive) -> support`` for one config.
 
@@ -103,7 +104,7 @@ def make_problem_support(
     if granularity == "coarse":
         if mode != "eager":
             raise ValueError("coarse granularity implements the eager mode")
-        return functools.partial(support_coarse_eager, window=window)
+        return functools.partial(support_coarse_eager, window=window, row_chunk=row_chunk)
     if granularity != "fine":
         raise ValueError(f"unknown granularity {granularity!r}")
     if mode == "eager":

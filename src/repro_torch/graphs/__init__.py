@@ -2,7 +2,7 @@
 
 from .csr import CSRGraph, DeviceCSR, build_upper_csr, from_edges, validate_csr
 from .generators import barabasi, clustered, erdos, rmat, road, suite, SUITE_SPECS
-from .pack import PackedGraph, PackedProblem, pack_graphs, pack_problems
+from .pack import PackedGraph, PackedProblem, pack_graphs, pack_problems, stack_problems
 from .stats import ImbalanceStats, coarse_task_work, fine_task_work, imbalance_stats
 
 __all__ = [
@@ -15,6 +15,7 @@ __all__ = [
     "PackedProblem",
     "pack_graphs",
     "pack_problems",
+    "stack_problems",
     "barabasi",
     "clustered",
     "erdos",

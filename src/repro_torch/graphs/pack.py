@@ -29,6 +29,7 @@ __all__ = [
     "PackedProblem",
     "pack_graphs",
     "pack_problems",
+    "stack_problems",
     "validate_fused_tiling",
 ]
 
@@ -293,6 +294,25 @@ def _pack_problems_aligned(
         slots=int(slots),
         layout="aligned",
     )
+
+
+def stack_problems(problems):
+    """Stack same-shape ``FineProblem``s along a new leading batch axis.
+
+    Input to the ``support_fine_stacked`` batched entry points; all members
+    must come from one shape bucket (identical field shapes).
+    """
+    if not problems:
+        raise ValueError("stack_problems needs at least one problem")
+    first = problems[0]
+    for i, q in enumerate(problems[1:], start=1):
+        for name, a, b in zip(first._fields, first, q):
+            if a.shape != b.shape:
+                raise ValueError(
+                    f"problem {i} field {name!r} has shape {tuple(b.shape)}, "
+                    f"problem 0 has {tuple(a.shape)}: stack one shape bucket"
+                )
+    return type(first)(*(torch.stack(xs) for xs in zip(*problems)))
 
 
 def validate_fused_tiling(problem, *, slots: int, block: int) -> None:

@@ -1,17 +1,18 @@
-"""Plain torch oracle of the TPU support kernel's window contract.
+"""Plain torch oracles of the TPU kernels' contracts (``repro.kernels.ref``).
 
-A literal copy of ``repro.kernels.ref.support_tiles_ref``: the function
+``support_tiles_ref`` is the function
 ``repro.kernels.support_fine.support_fine_pallas`` computes from
 pre-gathered ``(E, W)`` windows.  The port's CUDA kernel reads the CSR
 itself and has no window arrays; this oracle pins the window semantics in
-the parity tests.
+the parity tests.  ``support_dense_ref`` is Algorithm 1, the function of
+``repro.kernels.support_dense.support_dense_pallas``.
 """
 
 from __future__ import annotations
 
 import torch
 
-__all__ = ["support_tiles_ref"]
+__all__ = ["support_tiles_ref", "support_dense_ref"]
 
 
 def support_tiles_ref(
@@ -36,3 +37,8 @@ def support_tiles_ref(
     eq = a_nav[:, :, None] == b_nav[:, None, :]
     eq &= a_ok[:, :, None] & b_ok[:, None, :]
     return eq.any(dim=2).sum(dim=1).to(torch.int32)
+
+
+def support_dense_ref(u_sym: torch.Tensor) -> torch.Tensor:
+    """Dense linear-algebraic support: S = (U @ U) ∘ U (Algorithm 1)."""
+    return (u_sym @ u_sym) * u_sym

@@ -191,3 +191,68 @@ def test_fused_level_launch_error_raises(cuda):
     with pytest.raises(DeviceError, match="launch failed"):
         fused_level_cuda(p, st, frozen, st.trussness, frozen, block=1, schedule="bsearch")
     assert fused_level_cuda.launches == before
+
+
+# --------------------------------------------------------------------- #
+# The dense kernel (csrc/support_dense.cu) against support_dense_torch,
+# and KTrussEngine through the support kernel
+# --------------------------------------------------------------------- #
+def _zero_one(v, seed, symmetric):
+    rng = np.random.default_rng(seed)
+    u = (rng.random((v, v)) < 0.15).astype(np.int8)
+    if symmetric:
+        u = np.triu(u, 1)
+        u = u + u.T
+    return u
+
+
+@pytest.mark.parametrize("symmetric", [True, False], ids=["symmetric", "asymmetric"])
+def test_dense_kernel_matches_plain_version(cuda, symmetric):
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.support_dense import support_dense_cuda, support_dense_torch
+
+    for v in (128, 384):
+        u = torch.from_numpy(_zero_one(v, v, symmetric)).to(cuda)
+        before = support_dense_cuda.launches
+        got = support_dense_cuda(u)
+        torch.cuda.synchronize()
+        assert support_dense_cuda.launches == before + 1
+        want = support_dense_torch(u)
+        assert got.dtype == torch.float32 and torch.equal(got, want), v
+    u = _zero_one(1000, 1000, symmetric)  # padded to 1024 by ops.support_dense
+    got = ops.support_dense(torch.from_numpy(u).to(cuda))
+    want = support_dense_torch(torch.from_numpy(u))
+    assert got.shape == (1000, 1000) and torch.equal(got.cpu(), want)
+
+
+def test_dense_kernel_refuses_wrong_inputs(cuda):
+    from repro_torch.kernels.support_dense import support_dense_cuda
+
+    u = torch.from_numpy(_zero_one(256, 1, True)).to(cuda)
+    before = support_dense_cuda.launches
+    with pytest.raises(ValueError, match="CUDA"):
+        support_dense_cuda(u.cpu())
+    with pytest.raises(ValueError, match="int8"):
+        support_dense_cuda(u.to(torch.float32))
+    with pytest.raises(ValueError, match="square"):
+        support_dense_cuda(u[:128])
+    with pytest.raises(ValueError, match="square"):
+        support_dense_cuda(u[:200, :200].contiguous())
+    with pytest.raises(ValueError, match="contiguous"):
+        support_dense_cuda(u.t())
+    assert support_dense_cuda.launches == before
+
+
+def test_engine_pallas_goes_through_the_kernel(cuda):
+    from repro_torch.core import KTrussEngine
+
+    g = GRAPHS[2]()
+    eng = KTrussEngine(g, granularity="fine", mode="owner", backend="pallas", device=cuda)
+    ref = KTrussEngine(g, granularity="fine", mode="owner", backend="pallas", device="cpu")
+    before = support_fine_cuda.launches
+    got, want = eng.ktruss(4), ref.ktruss(4)
+    assert support_fine_cuda.launches - before == got.iterations > 0
+    assert np.array_equal(got.alive, want.alive) and np.array_equal(got.support, want.support)
+    assert got.iterations == want.iterations
+    assert eng.kmax() == ref.kmax()
+    assert np.array_equal(eng.decompose().trussness, ref.decompose().trussness)
