@@ -6,9 +6,11 @@
 Phases (any failure exits non-zero):
 
 1. setup: the card's name and power limit; build the three hand-written
-   kernels (``support_fine.cu``, ``peel_fused.cu`` and ``support_dense.cu``
-   from ``src/repro_torch/kernels/csrc``, one ``nvcc`` each, started
-   together) and print nvcc's register/spill reports.
+   kernel libraries (``support_fine.cu``, ``peel_fused.cu`` and
+   ``support_dense.cu`` from ``src/repro_torch/kernels/csrc``, one ``nvcc``
+   each, started together) and print nvcc's register, shared-memory and
+   spill reports, the fused kernel's CTAs per SM (its cooperative grid)
+   and the dense product's dynamic shared memory.
 2. kernel vs plain version, at the main path's input: ``rmat-15``
    (``configs.LARGE_GRAPHS``) packed as phase 3 packs it (8 slots of its
    bucket, 3 live); ``support_fine_cuda`` must equal the plain torch
@@ -31,10 +33,12 @@ Phases (any failure exits non-zero):
    ``fine/fused/aligned``; checks one dispatch, one kernel launch per level
    step (``peel_fused_levels``), and the results against phase 3's.
 6. the fused kernel vs its plain version on rmat-15's first level (the
-   main path's packed batch): every state field bit for bit; times the
-   kernel, the plain version and the bound (each input read once, each
-   output written once; the intersection steps of every inner trip's
-   alive set); times each level launch of the whole peel.  Then the state
+   main path's packed batch): every state field bit for bit; prints the
+   kernel's worklist per inner trip (unsplit and split lanes) and its
+   split work items; times the kernel, the plain version and the bound
+   (each input read once, each output written once; the intersection
+   steps of every inner trip's alive set); times each level launch of the
+   whole peel, and sums the kernel's own clock over its phases.  Then the state
    of the whole fused peel, for every autotune candidate, must equal the
    ``fine/pallas/aligned`` executor's
    on every field but ``total_iters``; each candidate's peel and the
@@ -46,7 +50,9 @@ Phases (any failure exits non-zero):
    0/1 matrix at V = 4,096, and ``S`` at every edge must equal
    ``support_fine_cuda`` with every lane alive (zero off the edges).
    Times the kernel, the plain version and ``torch._int_mm`` with the mask
-   as the yardstick; computes the bound; prints peak memory.
+   as the yardstick; computes the bound; prints peak memory and the share
+   of the call spent making Uᵀ (the library's transpose kernel, beside
+   torch's ``u.t().contiguous()``).
 8. ``KTrussEngine`` on the card: rmat-15 at full width, fine/owner/pallas;
    ``ktruss(4)``, ``kmax()``, ``decompose()`` and ``peel_levels()`` must
    equal phase 3's answers, through ``support_fine_cuda``.  Then the
@@ -198,8 +204,14 @@ def phase_setup(torch):
     for name, lib in built.items():
         log(f"phase1 {name}: nvcc {lib.build_s:.2f}s -> {lib.path.name}")
         for line in lib.log.splitlines():
-            if "registers" in line or "spill" in line:
+            if "Compiling entry function" in line or "registers" in line or "spill" in line:
                 log(f"  ptxas: {line.strip()}")
+    for bsearch, schedule in ((0, "compare"), (1, "bsearch")):
+        per_sm = built["peel_fused"].lib.peel_fused_blocks_per_sm(bsearch, 8)
+        log(f"phase1 peel_fused ({schedule}): {per_sm} CTAs of 256 threads per SM at 8 slots "
+            f"(cooperative grid {per_sm} x SMs)")
+    log(f"phase1 support_dense: product kernel dynamic shared memory "
+        f"{built['support_dense'].lib.support_dense_smem_bytes()} bytes")
     return smi
 
 
@@ -411,7 +423,12 @@ def phase_fused_kernel(torch, g, bucket) -> dict:
 
     from repro_torch.exec.peel import PeelExecutor, init_peel_state
     from repro_torch.kernels.autotune import FusedConfig, candidate_configs
-    from repro_torch.kernels.peel_fused import fused_level_cuda, fused_level_torch
+    from repro_torch.kernels.peel_fused import (
+        NUM_STAMPS,
+        SPLIT_WAYS,
+        fused_level_cuda,
+        fused_level_torch,
+    )
 
     slots = 8
     p = main_path_problem(g, bucket, slots=slots)
@@ -424,10 +441,13 @@ def phase_fused_kernel(torch, g, bucket) -> dict:
     st0 = init_peel_state(slot_ids, k0, p.colidx != 0, frozen, ftruss)
     cfg = FusedConfig().clamp(bucket.nnz_pad)  # the planner's pick without a store
 
-    def kernel(st):
-        return fused_level_cuda(p, st, frozen, ftruss, single, block=cfg.block, schedule=cfg.schedule)
+    def kernel(st, stamps=None):
+        return fused_level_cuda(p, st, frozen, ftruss, single, block=cfg.block,
+                                schedule=cfg.schedule, stamps=stamps)
 
-    got = kernel(st0)
+    trip_log = torch.full((2 * 64,), -1, dtype=torch.int32, device=dev)
+    got = fused_level_cuda(p, st0, frozen, ftruss, single, block=cfg.block, schedule=cfg.schedule,
+                           trip_log=trip_log)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     want = fused_level_torch(p, st0, frozen, ftruss, single, window=bucket.window, block=cfg.block)
@@ -443,6 +463,13 @@ def phase_fused_kernel(torch, g, bucket) -> dict:
     log(f"phase6 first level: {trips} inner trips, max_abs_err {err} over all 10 fields")
     if err:
         raise AssertionError("fused_level_cuda disagrees with fused_level_torch on the first level")
+    work = [tuple(r) for r in trip_log.view(-1, 2)[: min(trips, 64)].tolist()]
+    live0 = int((st0.alive & ~st0.done.repeat_interleave(bucket.nnz_pad)).sum())
+    if sum(work[0]) != live0:
+        raise AssertionError(f"first worklist {work[0]} != the {live0} alive lanes of live slots")
+    log(f"phase6 first level worklist per trip (unsplit + split lanes): "
+        f"{', '.join(f'{a}+{b}' for a, b in work)}; split work items per trip "
+        f"{', '.join(str(b * SPLIT_WAYS) for _, b in work)} ({SPLIT_WAYS} per split lane)")
     ms = cuda_ms(lambda: kernel(st0), reps=5)
     trip_sets, left = fused_trip_alive_sets(p, st0, frozen, ftruss, trips)
     if not torch.equal(torch.where(st0.done, got.edges_alive, left), got.edges_alive):
@@ -457,20 +484,28 @@ def phase_fused_kernel(torch, g, bucket) -> dict:
         f"block {cfg.block}, schedule {cfg.schedule}"
     )
 
-    # Each level launch of the whole peel, timed by CUDA events.
-    st, level_ms = st0, []
+    # Each level launch of the whole peel, timed by CUDA events; the
+    # kernel's own clock (CTA 0's %globaltimer) splits each launch into
+    # its phases.
+    phases = ("row compaction", "first worklist", "inner trips", "bookkeeping", "prune-ahead")
+    st, level_ms, split = st0, [], [0.0] * len(phases)
+    stamps = torch.zeros(NUM_STAMPS, dtype=torch.int64, device=dev)
     while not bool(st.done.all()):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
-        st = kernel(st)
+        st = kernel(st, stamps)
         end.record()
         torch.cuda.synchronize()
         level_ms.append(start.elapsed_time(end))
+        t = stamps.tolist()
+        split = [ms_ + (t[i + 1] - t[i]) / 1e6 for i, ms_ in enumerate(split)]
     log(
         f"phase6 whole peel by level launches: {len(level_ms)} launches, median "
         f"{statistics.median(level_ms):.3f} ms, max {max(level_ms):.3f} ms, sum {sum(level_ms):.1f} ms, "
         f"total_iters {int(st.total_iters)}"
     )
+    log("phase6 the launches' phases, summed (kernel clock): "
+        + ", ".join(f"{name} {ms_:.1f} ms" for name, ms_ in zip(phases, split)))
 
     # Every autotune candidate: the same state, and its whole-peel time
     # beside the unfused kernel path's on the same batch (pallas first and
@@ -585,7 +620,12 @@ def phase_dense(torch, g) -> dict:
 
     from repro_torch.core import prepare_fine
     from repro_torch.kernels import ops, support_fine_cuda
-    from repro_torch.kernels.support_dense import TILE, support_dense_cuda, support_dense_torch
+    from repro_torch.kernels.support_dense import (
+        TILE,
+        support_dense_cuda,
+        support_dense_torch,
+        transpose_cuda,
+    )
 
     n1 = g.n + 1
     vp = -(-n1 // TILE) * TILE
@@ -652,6 +692,10 @@ def phase_dense(torch, g) -> dict:
     del got
     library_ms = median_ms(library, reps=5)
     row_major_ms = median_ms(library_row_major, reps=5)
+    if not torch.equal(transpose_cuda(up), up.t().contiguous()):
+        raise AssertionError("the library's transpose disagrees with u.t().contiguous()")
+    transpose_ms = median_ms(lambda: transpose_cuda(up), reps=7)
+    torch_transpose_ms = median_ms(lambda: up.t().contiguous(), reps=3)
     nbytes = 6.0 * vp * vp  # U and UT read once (1 byte each), S written once (4 bytes)
     ops_count = 2.0 * vp**3
     bound_ms, bound_by = roofline(nbytes, ops_count, INT8_TENSOR_OPS_PER_S)
@@ -660,6 +704,8 @@ def phase_dense(torch, g) -> dict:
         f"{row_major_ms:.3f} ms); bound {bound_ms:.3f} ms by {bound_by} "
         f"({ops_count / 1e12:.1f} T int8 ops, {nbytes / 1e9:.2f} GB); "
         f"{ops_count / ms / 1e9:.1f} TOPS achieved, {bound_ms / ms:.1%} of the bound")
+    log(f"phase7 making U^T: {transpose_ms:.3f} ms by the library's transpose kernel, "
+        f"{transpose_ms / ms:.1%} of the call; torch's u.t().contiguous() {torch_transpose_ms:.3f} ms")
     return dict(launches=launches, max_abs_err=err, ms=ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
 

@@ -299,8 +299,8 @@ class _FusedPeel:
 def build_fused_peel(
     *,
     window: int,
-    block: int = 32,
-    schedule: str = "compare",
+    block: int = 128,
+    schedule: str = "bsearch",
     max_iters: int | None = None,
 ) -> _FusedPeel:
     """Host-driven fused peel: one fused-kernel launch per level.

@@ -23,10 +23,11 @@ field; :meth:`FusedConfig.from_json` ignores the key, and a store the
 reference wrote still loads.
 
 The stock point and the sweep grid are the port's own, measured on an
-H100 (``chip_smoke.py`` phases 4 and 6, recorded in ``PERF.md``): block
-32 with ``"compare"`` had the least mean slowdown against each bucket's
-best point over the ``BENCH_GRAPHS`` buckets and rmat-15, so the stock
-block is 32 (the reference's is 128) and the grid starts at 32.
+H100 (``chip_smoke.py`` phases 4 and 6, recorded in ``PERF.md``): the
+point with the least mean slowdown against each bucket's best point over
+the ``BENCH_GRAPHS`` buckets and rmat-15 is the stock one: block 128 with
+``"bsearch"`` (the reference's stock point is 128 with ``"compare"``).
+The grid starts at 32.
 """
 
 from __future__ import annotations
@@ -58,16 +59,17 @@ DEFAULT_SCHEDULES = ("compare", "bsearch")
 class FusedConfig:
     """One fused-kernel tuning point.
 
-    ``block`` is the edge-lane tile the kernel iterates (and skips) in —
-    a power of two that must divide the packed ``slot_nnz``; ``schedule``
-    picks the in-kernel intersection: ``"compare"`` (a warp-wide merge of
-    the two sorted rows, 32 by 32 entries) or ``"bsearch"`` (each entry of
-    one row binary-searched in the other).  Both count exactly, so every
-    point gives the same state.
+    ``block`` is the most worklist items (alive lanes, or chunks of a split
+    lane) a warp of the kernel claims at a time — a power of two that must
+    divide the packed ``slot_nnz``; ``schedule`` picks the in-kernel
+    intersection: ``"compare"`` (a warp-wide merge of the shorter row with
+    the longer, 32 by 32 entries) or ``"bsearch"`` (each entry of the
+    shorter row binary-searched in the longer, the probes of a warp's items
+    flattened).  Both count exactly, so every point gives the same state.
     """
 
-    block: int = 32
-    schedule: str = "compare"
+    block: int = 128
+    schedule: str = "bsearch"
 
     def __post_init__(self):
         if self.block < 1 or (self.block & (self.block - 1)) != 0:

@@ -10,48 +10,77 @@
 // Function (every array int32 unless noted; bools are one byte, 0/1):
 //   per launch: flive[t] = frozen[t] && ftruss[t] >= cur_k[slot(t)]
 //   per inner trip, while some slot is live (!latch && !done) and
-//   trips < inner_limit:
-//     (a) ualive[u] = (alive | flive)[u2d[u]]        (u2d == nnzp on pads)
-//     (b) over tiles of `block` lanes: a tile with no free alive lane is
-//         skipped and its supports written 0; otherwise one warp per lane t
-//         with b = colidx[t] != 0 and (alive | flive)[t] counts
-//         |{c : (a, c) and (b, c) alive}| over the undirected rows of
-//         a = edge_row[t] and b (row v starts at urowptr[v-1], 0 for v = 0,
-//         and holds udeg[v] strictly ascending entries of ucolidx).  Then
-//         alive[t] &= s >= cur_k - 2, and each death adds one to the
-//         slot's `changed` count;
-//     (c) per slot: live slots count one iteration, and latch when nothing
-//         changed.  Every CTA keeps its own copy of latch/iters in shared
-//         memory, computed from the same counts, so all CTAs agree on when
-//         the loop ends;
+//   trips < inner_limit, for every lane t of a live slot with
+//   alive[t]: s[t] = |{c : (a, c) and (b, c) in alive | flive}| over the
+//   undirected rows of a = edge_row[t] and b = colidx[t] (0 when b == 0;
+//   row v starts at urowptr[v-1], 0 for v = 0, and holds udeg[v] strictly
+//   ascending entries of ucolidx); then alive[t] &= s[t] >= cur_k - 2, each
+//   death adding one to the slot's `changed` count; a live slot counts one
+//   iteration, and latches when nothing changed;
 //   then the level bookkeeping of build_peel's converged branch (trussness,
 //   `left` per slot, retire, cur_k advance, kmax, levels, edges) and the
 //   prune-ahead against the advanced threshold.
-// Slot s owns lanes [s * slot_nnz, (s+1) * slot_nnz); block divides slot_nnz,
-// so a tile lies in one slot (the wrapper and validate_fused_tiling check).
+// Slot s owns lanes [s * slot_nnz, (s+1) * slot_nnz).
 //
-// Bound: the level reads each input once (the problem: colidx, edge_row,
-// u2d, ucolidx, urowptr, udeg; the state; frozen, ftruss) and writes each
-// output once, about 4 * (2 nnzp + 2 unnzp + 2 n) + 19 nnzp bytes, over
-// device memory; the intersection steps of each inner trip's alive set over
-// the integer peak are below that.  The kernel itself re-reads the problem
-// on every trip, and its intersections are data-dependent probes into rows
-// that mostly sit in L2, so like support_fine.cu it is limited by the
-// latency of those probes and by hub rows, far above the bound.  What the
-// design does about it: supports, alive flags and the per-slot latch never
-// leave the launch between trips (no host round trip, no torch op per
-// trip); dead tiles cost one byte per lane; the per-trip
-// `changed` counts are integer atomics only on deaths (at most nnzp over a
-// whole peel); and two grid barriers per trip replace the host readback.
-// Splitting hub rows across warps is left for later.
+// The plain version (fused_level_torch, the reference's _level_kernel)
+// recomputes every lane's support on every trip.  Only alive lanes of live
+// slots can change the state, so only they are computed here:
+// - the support of a lane that is not alive is never read: the prune only
+//   touches alive lanes, and `support` comes out masked by alive_next (a
+//   frozen-live lane is never alive);
+// - a slot that latched on trip i computed s on exactly the alive set that
+//   trip i left (nothing changed), so every later trip of the launch would
+//   compute the same s again: its lanes leave the worklist;
+// - a slot that is done (retired) on entry is a fixed point.  The trip on
+//   which it converged computed s on exactly its final alive set, and
+//   retirement does not advance cur_k, so its prune-ahead kept every lane
+//   and its support in is that s masked by alive; any trip of this launch
+//   would compute the same.  Its alive, support and trussness are copied
+//   from the state in (supp_in).  The one exception: a launch whose every
+//   slot is done runs no trip, and the plain version then prunes ahead
+//   with s = 0; so does this kernel.  A slot that is done from
+//   init_peel_state has no alive lane and support 0: the copy holds too.
 //
-// schedule "bsearch": the 32 lanes of a warp stride over a's row and each
-// binary-searches its entry in b's row (as support_fine.cu).  schedule
-// "compare": a warp-wide merge of the two rows, 32 entries of each at a time
-// compared all against all by shuffles, advancing the side whose chunk ends
-// lower; both start at the first entry the other row can match.  Both count
-// every match exactly once, so the state is bit-identical for every block x
-// schedule.
+// Bound: the level reads each input once (the problem, the state, frozen,
+// ftruss) and writes each output once, about 4 * (2 nnzp + 2 unnzp + 2 n)
+// + 23 nnzp bytes, over device memory; the intersection steps of each inner
+// trip's alive set over the integer peak are below that.  The kernel is
+// limited instead by the latency of data-dependent probes into rows that
+// mostly sit in L2, and by the fixed cost of two grid barriers a trip.
+// What the design does about it:
+// - a worklist: at launch, the alive lanes of live slots are compacted
+//   (warp ballots, one atomic per warp) into a list in scratch; each trip's
+//   prune phase writes the survivors into the other of two lists, so a trip
+//   costs what its alive set costs, and dead tiles, retired and latched
+//   slots cost nothing;
+// - warps claim `block` list entries per atomic on a cursor per trip
+//   parity (fewer when the list is too short to give every warp `block`),
+//   so no CTA holds the grid at a barrier with a fixed share;
+// - the shorter of the two rows is walked (bsearch probes the longer);
+// - a lane whose shorter (compacted) row has more than split_row entries
+//   is split into split_ways chunks of that row, separate work items that
+//   several warps take; they add into acc[t] with integer atomics (exact
+//   in any order), which is why the prune is a phase of its own behind a
+//   grid barrier;
+// - each launch first compacts every undirected row to its entries that
+//   are alive or frozen-live (a warp a row, into ccol/calive/cdeg): at
+//   high k the rows of the surviving core are mostly dead entries, so the
+//   walks and searches of every trip are over what is left at launch.
+//   Within the launch a death clears the lane's two compacted entries (two
+//   binary searches), behind the same barrier;
+// - the per-slot latch is kept in every CTA's shared memory, computed from
+//   the same counts, so all CTAs agree on when the loop ends.
+//
+// schedule "bsearch": the items a warp claimed are flattened into one run
+// of probes (a warp scan of their chunk lengths), one probe a thread: the
+// entry of the shorter row is binary-searched in the longer row, so short
+// rows do not leave most of the warp idle.  schedule "compare": one item
+// at a time, a warp-wide merge of the chunk of the shorter row with the
+// longer row, 32 entries of each compared all against all by shuffles,
+// advancing the side whose window ends lower, and jumping (binary search)
+// over a run of one row that lies wholly below the other's window.  Both
+// count every match exactly once, so the state is bit-identical for every
+// block x schedule.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <limits.h>
@@ -65,6 +94,15 @@ constexpr int kWarp = 32;
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / kWarp;
 constexpr unsigned kFull = 0xffffffffu;
+constexpr int kUnroll = 4;  // groups of 32 row entries per step of the compaction
+
+// `counts` (int32, zeroed by the wrapper) holds the item cursors of the two
+// trip parities first (64-bit, at the front so that they are 8-byte
+// aligned: warps claim past the end of the list, so the cursor outgrows
+// the item count), then changed[2][S] and left[S], then the lengths of the
+// two lists (unsplit, split) per parity.
+constexpr int kCursorWords = 4;
+enum : int { kRegCount = 0, kSplitCount = 2 };
 
 struct Args {
   // The packed problem (read-only).
@@ -76,6 +114,7 @@ struct Args {
   const int32_t* __restrict__ u2d;
   // The state in, and the frozen lanes (read-only).
   const uint8_t* __restrict__ alive_in;
+  const int32_t* __restrict__ supp_in;
   const int32_t* __restrict__ truss_in;
   const int32_t* __restrict__ cur_k_in;
   const int32_t* __restrict__ kmax_in;
@@ -87,7 +126,7 @@ struct Args {
   const uint8_t* __restrict__ frozen;
   const int32_t* __restrict__ ftruss;
   const uint8_t* __restrict__ single;
-  // The state out.  `alive` and `supp` are also the working buffers, read by
+  // The state out.  `alive` and `supp` are also working buffers, read by
   // other CTAs during the launch: never through the read-only cache.
   uint8_t* alive;
   int32_t* supp;
@@ -99,27 +138,52 @@ struct Args {
   uint8_t* done;
   int32_t* titers;
   int32_t* edges;
-  // Scratch: flive (nnzp), ualive (unnzp), counts (changed[2][S], left[S]).
-  uint8_t* flive;
-  uint8_t* ualive;
+  // Scratch: the rows compacted at launch, ccol and calive (unnzp; row v
+  // keeps its start, urowptr[v-1], and holds cdeg[v] entries); lists
+  // (2 x nnzp: per parity, unsplit lanes from the front, split lanes from
+  // the back); acc (nnzp, split lanes' sums); counts (see above);
+  // trip_log (2 x
+  // trip_log_len, optional: per trip, the worklist's unsplit and split
+  // lanes).
+  int32_t* ccol;
+  uint8_t* calive;
+  int32_t* cdeg;
+  int32_t* lists;
+  int32_t* acc;
   int32_t* counts;
+  int32_t* trip_log;
+  int64_t* stamps;  // optional: six %globaltimer readings of CTA 0 (ns)
   int64_t nnzp;
   int64_t unnzp;
+  int32_t nrows;
   int32_t slot_nnz;
   int32_t num_slots;
   int32_t block;
   int32_t inner_limit;
+  int32_t split_row;
+  int32_t split_ways;
+  int32_t trip_log_len;
 };
+
+// CTA 0's clock at: entry (0), rows compacted (1), first worklist built
+// (2), inner loop done (3), bookkeeping done (4), exit (5).
+__device__ __forceinline__ void stamp(const Args& a, int i) {
+  if (a.stamps != nullptr && blockIdx.x == 0 && threadIdx.x == 0) {
+    int64_t t;
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+    a.stamps[i] = t;
+  }
+}
 
 __device__ __forceinline__ int32_t row_start(const Args& a, int32_t v) {
   return v > 0 ? a.urowptr[v - 1] : 0;
 }
 
-// First index in [0, n) of the strictly ascending row at `base` whose entry
-// is >= v (warp-uniform when its arguments are).
-__device__ __forceinline__ int32_t lower_bound(const int32_t* __restrict__ col,
-                                               int32_t base, int32_t n, int32_t v) {
-  int32_t lo = 0, hi = n;
+// First index in [lo, hi) of the strictly ascending entries at `base` that
+// is >= v (hi when none is).  Plain (L1-cached) loads: the compacted rows
+// are written in phase 0 and only read after its grid barrier.
+__device__ __forceinline__ int32_t lower_bound(const int32_t* __restrict__ col, int32_t base,
+                                               int32_t lo, int32_t hi, int32_t v) {
   while (lo < hi) {
     const int32_t mid = (lo + hi) >> 1;
     if (col[base + mid] < v) lo = mid + 1; else hi = mid;
@@ -127,144 +191,375 @@ __device__ __forceinline__ int32_t lower_bound(const int32_t* __restrict__ col,
   return lo;
 }
 
-// Per-lane partial count; the caller sums the warp.  ualive is read through
-// L2 (__ldcg): other CTAs wrote it this trip.
-__device__ int count_bsearch(const Args& a, int32_t a0, int32_t da, int32_t b0,
-                             int32_t db, int lane) {
-  int count = 0;
-  for (int32_t i = lane; i < da; i += kWarp) {
-    if (!__ldcg(a.ualive + a0 + i)) continue;
-    const int32_t v = a.ucolidx[a0 + i];
-    const int32_t lo = lower_bound(a.ucolidx, b0, db, v);
-    if (lo < db && a.ucolidx[b0 + lo] == v && __ldcg(a.ualive + b0 + lo)) ++count;
-  }
-  return count;
-}
-
-__device__ int count_merge(const Args& a, int32_t a0, int32_t da, int32_t b0,
-                           int32_t db, int lane) {
-  if (da == 0 || db == 0) return 0;
-  // Entries below the other row's first entry cannot match.
-  int32_t ia = lower_bound(a.ucolidx, a0, da, a.ucolidx[b0]);
-  int32_t ib = lower_bound(a.ucolidx, b0, db, a.ucolidx[a0]);
-  int count = 0;
-  while (ia < da && ib < db) {  // warp-uniform
-    const int32_t pa = ia + lane, pb = ib + lane;
-    // Past a row's end: sentinels above every vertex id, unequal to each other.
-    const int32_t va = pa < da ? a.ucolidx[a0 + pa] : INT_MAX;
-    const int32_t vb = pb < db ? a.ucolidx[b0 + pb] : INT_MAX - 1;
-    const int32_t amax = __shfl_sync(kFull, va, kWarp - 1);
-    const int32_t bmax = __shfl_sync(kFull, vb, kWarp - 1);
-    const int32_t amin = __shfl_sync(kFull, va, 0);
-    const int32_t bmin = __shfl_sync(kFull, vb, 0);
-    if (amin <= bmax && bmin <= amax) {
-      // Dead or absent entries compare as -1 (a) and -2 (b): never equal.
-      const int32_t ma = (pa < da && __ldcg(a.ualive + a0 + pa)) ? va : -1;
-      const int32_t mb = (pb < db && __ldcg(a.ualive + b0 + pb)) ? vb : -2;
-#pragma unroll
-      for (int k = 0; k < kWarp; ++k) count += ma == __shfl_sync(kFull, mb, k);
-    }
-    if (amax <= bmax) ia += kWarp;
-    if (bmax <= amax) ib += kWarp;
-  }
-  return count;
-}
-
 __device__ __forceinline__ int warp_sum(int v) {
-  for (int offset = kWarp / 2; offset > 0; offset /= 2)
-    v += __shfl_down_sync(kFull, v, offset);
+  for (int offset = kWarp / 2; offset > 0; offset /= 2) v += __shfl_down_sync(kFull, v, offset);
   return v;
+}
+
+__device__ __forceinline__ int warp_incl_scan(int v, int lane) {
+  for (int offset = 1; offset < kWarp; offset *= 2) {
+    const int n = __shfl_up_sync(kFull, v, offset);
+    if (lane >= offset) v += n;
+  }
+  return v;
+}
+
+// One work item: a chunk of the shorter row of lane t's pair, to be
+// intersected with the longer row.  n == 0 for nothing to do.
+struct Item {
+  int32_t t;      // the lane; -1 when the item is skipped
+  int32_t s0;     // first entry of the chunk (index into ccol)
+  int32_t n;      // entries in the chunk
+  int32_t l0;     // start of the longer row
+  int32_t dl;     // its length
+  int32_t whole;  // 1: the item is the whole lane (store), 0: a chunk (add)
+};
+
+// Item q of the trip's worklist (`list` is this parity's list).
+__device__ __forceinline__ Item resolve(const Args& a, const int32_t* list, int64_t q, int32_t n_reg,
+                        const int32_t* latch) {
+  Item it{-1, 0, 0, 0, 0, 1};
+  int32_t t, chunk = 0, ways = 1;
+  // Lists were written by other CTAs during the launch: read through L2.
+  if (q < n_reg) {
+    t = __ldcg(list + q);
+  } else {
+    const int64_t r = q - n_reg;
+    t = __ldcg(list + a.nnzp - 1 - r / a.split_ways);
+    chunk = static_cast<int32_t>(r % a.split_ways);
+    ways = a.split_ways;
+  }
+  if (latch[t / a.slot_nnz]) return it;  // latched: its s is final for this launch
+  it.t = t;
+  it.whole = ways == 1;
+  const int32_t b = a.colidx[t];
+  if (b == 0) return it;
+  const int32_t ra = a.edge_row[t];
+  const int32_t da = a.cdeg[ra], db = a.cdeg[b];
+  const bool a_short = da <= db;
+  const int32_t ds = a_short ? da : db;
+  const int32_t s0 = row_start(a, a_short ? ra : b);
+  it.l0 = row_start(a, a_short ? b : ra);
+  it.dl = a_short ? db : da;
+  const int32_t len = (ds + ways - 1) / ways;
+  const int32_t lo = chunk * len;
+  const int32_t hi = min(lo + len, ds);
+  it.s0 = s0 + lo;
+  it.n = max(hi - lo, 0);
+  return it;
+}
+
+// compare: warp-wide merge of ccol[s0, s0 + n) with the row [l0, l0 + dl).
+__device__ __forceinline__ int count_merge(const Args& a, const Item& it, int lane) {
+  const int32_t* col = a.ccol;
+  int32_t ia = 0, ib = 0;
+  int count = 0;
+  while (ia < it.n && ib < it.dl) {  // warp-uniform
+    const int32_t na = min(kWarp, it.n - ia), nb = min(kWarp, it.dl - ib);
+    const int32_t va = lane < na ? col[it.s0 + ia + lane] : INT_MAX;
+    const int32_t vb = lane < nb ? col[it.l0 + ib + lane] : INT_MAX;
+    const int32_t amin = __shfl_sync(kFull, va, 0), amax = __shfl_sync(kFull, va, na - 1);
+    const int32_t bmin = __shfl_sync(kFull, vb, 0), bmax = __shfl_sync(kFull, vb, nb - 1);
+    // A run wholly below the other window holds no uncounted match: jump it.
+    if (amax < bmin) {
+      ia = lower_bound(col, it.s0, ia + na, it.n, bmin);
+      continue;
+    }
+    if (bmax < amin) {
+      ib = lower_bound(col, it.l0, ib + nb, it.dl, amin);
+      continue;
+    }
+    // Dead or absent entries compare as -1 (a) and -2 (b): never equal.
+    const int32_t ma = (lane < na && __ldcg(a.calive + it.s0 + ia + lane)) ? va : -1;
+    const int32_t mb = (lane < nb && __ldcg(a.calive + it.l0 + ib + lane)) ? vb : -2;
+#pragma unroll
+    for (int k = 0; k < kWarp; ++k) count += ma == __shfl_sync(kFull, mb, k);
+    if (amax <= bmax) ia += na;
+    if (bmax <= amax) ib += nb;
+  }
+  return count;
+}
+
+__device__ __forceinline__ void put_result(const Args& a, const Item& it, int count) {
+  if (it.t < 0) return;
+  if (it.whole) a.supp[it.t] = count;
+  else if (count) atomicAdd(a.acc + it.t, count);
+}
+
+// Items [q0, q1) of the worklist, claimed by this warp; q1 - q0 <= 32.
+template <bool kBsearch>
+__device__ void run_items(const Args& a, const int32_t* list, int64_t q0, int64_t q1,
+                          int32_t n_reg, const int32_t* latch, int32_t* warp_counts, int lane) {
+  const int n_items = static_cast<int>(q1 - q0);
+  Item mine{-1, 0, 0, 0, 0, 1};
+  if (lane < n_items) mine = resolve(a, list, q0 + lane, n_reg, latch);
+  if (kBsearch) {
+    // One probe a thread over the items' chunks, flattened.
+    const int incl = warp_incl_scan(mine.n, lane);
+    const int total = __shfl_sync(kFull, incl, kWarp - 1);
+    warp_counts[lane] = 0;
+    __syncwarp();
+    for (int j0 = 0; j0 < total; j0 += kWarp) {  // warp-uniform
+      const int j = j0 + lane;
+      int k = 0;  // the item holding probe j: the first with incl > j
+#pragma unroll
+      for (int step = kWarp / 2; step > 0; step >>= 1)
+        if (__shfl_sync(kFull, incl, k + step - 1) <= j) k += step;
+      const int32_t s0 = __shfl_sync(kFull, mine.s0, k);
+      const int32_t first = __shfl_sync(kFull, incl - mine.n, k);
+      const int32_t l0 = __shfl_sync(kFull, mine.l0, k);
+      const int32_t dl = __shfl_sync(kFull, mine.dl, k);
+      if (j < total) {
+        // The entry's own flag is loaded before the search, which does not
+        // wait for it (a dead entry costs a search, not a serial L2 trip).
+        const int32_t u = s0 + (j - first);
+        const bool live_u = __ldcg(a.calive + u) != 0;
+        const int32_t v = a.ccol[u];
+        const int32_t pos = lower_bound(a.ccol, l0, 0, dl, v);
+        if (live_u && pos < dl && a.ccol[l0 + pos] == v && __ldcg(a.calive + l0 + pos))
+          atomicAdd(warp_counts + k, 1);
+      }
+    }
+    __syncwarp();
+    if (lane < n_items) put_result(a, mine, warp_counts[lane]);
+    __syncwarp();
+  } else {
+    for (int k = 0; k < n_items; ++k) {
+      Item it;
+      it.t = __shfl_sync(kFull, mine.t, k);
+      it.s0 = __shfl_sync(kFull, mine.s0, k);
+      it.n = __shfl_sync(kFull, mine.n, k);
+      it.l0 = __shfl_sync(kFull, mine.l0, k);
+      it.dl = __shfl_sync(kFull, mine.dl, k);
+      it.whole = __shfl_sync(kFull, mine.whole, k);
+      const int count = warp_sum(count_merge(a, it, lane));
+      if (lane == 0) put_result(a, it, count);
+    }
+  }
+}
+
+// Appends lane t (where `keep`) to the parity-`p` list, unsplit lanes at
+// the front and split lanes at the back; one atomic per warp and side.
+// Warp-uniform call.
+__device__ __forceinline__ void append(const Args& a, int p, bool keep, bool split, int32_t t,
+                                       int lane) {
+  int32_t* list = a.lists + p * a.nnzp;
+  int32_t* ctr = a.counts + kCursorWords + 3 * a.num_slots;
+  const unsigned lt = (1u << lane) - 1;
+  const unsigned m_reg = __ballot_sync(kFull, keep && !split);
+  const unsigned m_spl = __ballot_sync(kFull, keep && split);
+  int32_t base_reg = 0, base_spl = 0;
+  if (lane == 0) {
+    if (m_reg) base_reg = atomicAdd(ctr + kRegCount + p, __popc(m_reg));
+    if (m_spl) base_spl = atomicAdd(ctr + kSplitCount + p, __popc(m_spl));
+  }
+  base_reg = __shfl_sync(kFull, base_reg, 0);
+  base_spl = __shfl_sync(kFull, base_spl, 0);
+  if (keep && !split) list[base_reg + __popc(m_reg & lt)] = t;
+  if (keep && split) list[a.nnzp - 1 - (base_spl + __popc(m_spl & lt))] = t;
+}
+
+// Whether lane t's pair is split: its shorter compacted row exceeds
+// split_row.
+__device__ __forceinline__ bool is_split(const Args& a, int32_t t) {
+  const int32_t b = a.colidx[t];
+  if (b == 0) return false;
+  return min(a.cdeg[a.edge_row[t]], a.cdeg[b]) > a.split_row;
+}
+
+// Clears the two undirected alive flags of the directed lane t = (a, b).
+__device__ void clear_undirected(const Args& a, int32_t t) {
+  const int32_t b = a.colidx[t];
+  if (b == 0) return;
+  const int32_t ra = a.edge_row[t];
+  const int32_t a0 = row_start(a, ra), da = a.cdeg[ra];
+  const int32_t b0 = row_start(a, b), db = a.cdeg[b];
+  const int32_t i = lower_bound(a.ccol, a0, 0, da, b);
+  if (i < da && a.ccol[a0 + i] == b) a.calive[a0 + i] = 0;
+  const int32_t j = lower_bound(a.ccol, b0, 0, db, ra);
+  if (j < db && a.ccol[b0 + j] == ra) a.calive[b0 + j] = 0;
 }
 
 // Whether any slot is still live; also a CTA barrier over latch.
 __device__ __forceinline__ bool any_live(const Args& a, const int32_t* latch) {
   int live = 0;
-  for (int s = threadIdx.x; s < a.num_slots; s += blockDim.x)
-    live |= !latch[s] && !a.done_in[s];
+  for (int s = threadIdx.x; s < a.num_slots; s += blockDim.x) live |= !latch[s] && !a.done_in[s];
   return __syncthreads_or(live) != 0;
 }
 
+// CTAs per SM asked of the compiler.  The probes of bsearch are latency
+// bound and gain from more warps in flight (8 CTAs, 32 registers a thread,
+// a few spills) more than they lose; the merge of compare spills too much
+// to gain, so it keeps 64 registers (4 CTAs).
 template <bool kBsearch>
-__global__ void __launch_bounds__(kThreads) peel_fused_kernel(Args a) {
+__global__ void __launch_bounds__(kThreads, kBsearch ? 8 : 4) peel_fused_kernel(Args a) {
   cg::grid_group grid = cg::this_grid();
   extern __shared__ int32_t smem[];
+  __shared__ int32_t warp_counts_all[kWarps][kWarp];
   const int32_t S = a.num_slots;
-  int32_t* latch = smem;         // per slot: converged this launch
-  int32_t* iters = smem + S;     // per slot: iterations so far
+  int32_t* latch = smem;             // per slot: converged this launch
+  int32_t* iters = smem + S;         // per slot: iterations so far
   int32_t* left_cta = smem + 2 * S;  // per slot: this CTA's alive lanes
   const int lane = threadIdx.x % kWarp;
   const int warp = threadIdx.x / kWarp;
   const int64_t tid = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   const int64_t nthreads = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  const int64_t ntiles = a.nnzp / a.block;
-  int32_t* left = a.counts + 2 * S;
+  // Warp-uniform strides for loops that ballot.
+  const int64_t wbase = (static_cast<int64_t>(blockIdx.x) * kWarps + warp) * kWarp;
+  const int64_t wstride = nthreads;
+  int32_t* changed_all = a.counts + kCursorWords;  // changed[2][S]
+  int32_t* left = changed_all + 2 * S;
+  int32_t* ctr = changed_all + 3 * S;
+  unsigned long long* cursor = reinterpret_cast<unsigned long long*>(a.counts);
+  int32_t* warp_counts = warp_counts_all[warp];
+  stamp(a, 0);
 
-  // Phase 0: working copies, frozen-live flags, zeroed counters.
-  for (int64_t t = tid; t < a.nnzp; t += nthreads) {
-    const int32_t slot = static_cast<int32_t>(t / a.slot_nnz);
-    a.alive[t] = a.alive_in[t];
-    a.flive[t] = a.frozen[t] && a.ftruss[t] >= a.cur_k_in[slot];
-    a.supp[t] = 0;
-  }
-  for (int64_t i = tid; i < 3 * static_cast<int64_t>(S); i += nthreads) a.counts[i] = 0;
+  // Phase 0: the working alive copy; every undirected row of a slot that is
+  // not done compacted to its entries alive or frozen-live at launch
+  // (entries keep their order, so rows stay sorted); then the first
+  // worklist.
   for (int s = threadIdx.x; s < S; s += blockDim.x) {
     latch[s] = 0;
     iters[s] = a.iters_in[s];
     left_cta[s] = 0;
   }
+  for (int64_t t = tid; t < a.nnzp; t += nthreads) a.alive[t] = a.alive_in[t];
+  const unsigned lt = (1u << lane) - 1;
+  // A warp takes 32 rows at a time, strided over the grid's warps so that
+  // every warp gets a share of each slot's rows: lane i reads its row's
+  // extent and whether its slot is done (the rows of a done slot are never
+  // read); the warp then compacts the rows with work one after another.
+  const int64_t gwarp = wbase / kWarp, nwarps = wstride / kWarp;
+  for (int64_t v0 = gwarp; v0 < a.nrows; v0 += kWarp * nwarps) {  // warp-uniform
+    const int64_t mine = v0 + lane * nwarps;
+    int32_t r0 = 0, d = 0;
+    if (mine < a.nrows) {
+      r0 = row_start(a, static_cast<int32_t>(mine));
+      d = a.udeg[mine];
+      if (d > 0) {  // a row lies in one slot: its first entry's
+        const int32_t e0 = a.u2d[r0];
+        if (e0 < a.nnzp && a.done_in[e0 / a.slot_nnz]) d = 0;
+      }
+      if (d == 0) a.cdeg[mine] = 0;
+    }
+    for (unsigned rows = __ballot_sync(kFull, d > 0); rows; rows &= rows - 1) {
+      const int src = __ffs(rows) - 1;
+      const int32_t rs = __shfl_sync(kFull, r0, src), n = __shfl_sync(kFull, d, src);
+      int32_t kept = 0;
+      // kUnroll groups of 32 entries a step, their loads independent of each
+      // other, so that a hub row is not one long chain of dependent loads.
+      for (int32_t i0 = 0; i0 < n; i0 += kUnroll * kWarp) {
+        bool on[kUnroll];
+        int32_t c[kUnroll];
+#pragma unroll
+        for (int j = 0; j < kUnroll; ++j) {
+          const int32_t i = i0 + j * kWarp + lane;
+          const int32_t e = i < n ? a.u2d[rs + i] : static_cast<int32_t>(a.nnzp);
+          c[j] = i < n ? a.ucolidx[rs + i] : 0;
+          on[j] = false;
+          if (e < a.nnzp) {
+            const bool al = a.alive_in[e], fz = a.frozen[e];
+            on[j] = al || (fz && a.ftruss[e] >= a.cur_k_in[e / a.slot_nnz]);
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < kUnroll; ++j) {
+          const unsigned m = __ballot_sync(kFull, on[j]);
+          if (on[j]) {
+            a.ccol[rs + kept + __popc(m & lt)] = c[j];
+            a.calive[rs + kept + __popc(m & lt)] = 1;
+          }
+          kept += __popc(m);
+        }
+      }
+      if (lane == src) a.cdeg[mine] = kept;
+    }
+  }
   grid.sync();
+  stamp(a, 1);
+  for (int64_t t0 = wbase; t0 < a.nnzp; t0 += wstride) {  // warp-uniform
+    const int64_t t = t0 + lane;
+    bool keep = false, split = false;
+    if (t < a.nnzp) {
+      keep = a.alive_in[t] && !a.done_in[t / a.slot_nnz];
+      split = keep && is_split(a, static_cast<int32_t>(t));
+      if (split) a.acc[t] = 0;
+    }
+    append(a, 0, keep, split, static_cast<int32_t>(t), lane);
+  }
+  grid.sync();
+  stamp(a, 2);
 
   int32_t trips = 0;
   // any_live first: its barrier also orders the last latch update before
-  // the bookkeeping below reads it.
+  // the reads below.
   while (any_live(a, latch) && trips < a.inner_limit) {
-    // (a) the undirected alive flags of this trip.
-    for (int64_t u = tid; u < a.unnzp; u += nthreads) {
-      const int32_t d = a.u2d[u];
-      a.ualive[u] = d < a.nnzp && (__ldcg(a.alive + d) | __ldcg(a.flive + d));
+    const int p = trips & 1;
+    const int32_t* list = a.lists + p * a.nnzp;
+    const int32_t n_reg = __ldcg(ctr + kRegCount + p);
+    const int32_t n_split = __ldcg(ctr + kSplitCount + p);
+    const int64_t n_items = n_reg + static_cast<int64_t>(n_split) * a.split_ways;
+    if (a.trip_log != nullptr && blockIdx.x == 0 && threadIdx.x == 0 && trips < a.trip_log_len) {
+      a.trip_log[2 * trips] = n_reg;
+      a.trip_log[2 * trips + 1] = n_split;
+    }
+
+    // (a) supports: warps claim up to `block` items at a time; fewer when
+    // the list is short, so that every warp of the grid gets a share.
+    const int64_t n_warps = static_cast<int64_t>(gridDim.x) * kWarps;
+    int64_t share = (n_items + n_warps - 1) / n_warps;
+    if (share > a.block) share = a.block;
+    if (share < 1) share = 1;
+    const int32_t claim = static_cast<int32_t>(share);
+    while (true) {
+      unsigned long long claimed = 0;
+      if (lane == 0) claimed = atomicAdd(cursor + p, static_cast<unsigned long long>(claim));
+      const int64_t base = static_cast<int64_t>(__shfl_sync(kFull, claimed, 0));
+      if (base >= n_items) break;
+      const int64_t end = min(base + claim, n_items);
+      for (int64_t q = base; q < end; q += kWarp)
+        run_items<kBsearch>(a, list, q, min(q + kWarp, end), n_reg, latch, warp_counts, lane);
     }
     grid.sync();
 
-    // (b) supports and the prune, tile by tile.
-    int32_t* changed = a.counts + (trips & 1) * S;
-    for (int64_t tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
-      const int64_t base = tile * a.block;
-      int any = 0;
-      for (int i = threadIdx.x; i < a.block; i += blockDim.x) any |= __ldcg(a.alive + base + i);
-      if (!__syncthreads_or(any)) {
-        for (int i = threadIdx.x; i < a.block; i += blockDim.x) a.supp[base + i] = 0;
-        continue;
-      }
-      const int32_t slot = static_cast<int32_t>(base / a.slot_nnz);
-      const int32_t thresh = a.cur_k_in[slot] - 2;
-      for (int j = warp; j < a.block; j += kWarps) {
-        const int64_t t = base + j;
-        const int32_t b = a.colidx[t];
-        const bool al = __ldcg(a.alive + t) != 0;
-        int count = 0;
-        if (b != 0 && (al || __ldcg(a.flive + t))) {  // warp-uniform
-          const int32_t ra = a.edge_row[t];
-          const int32_t a0 = row_start(a, ra), da = a.udeg[ra];
-          const int32_t b0 = row_start(a, b), db = a.udeg[b];
-          count = kBsearch ? count_bsearch(a, a0, da, b0, db, lane)
-                           : count_merge(a, a0, da, b0, db, lane);
-          count = warp_sum(count);
-        }
-        if (lane == 0) {
-          a.supp[t] = count;
-          if (al && count < thresh) {
+    // (b) the prune: survivors go to the other list.
+    int32_t* changed = changed_all + p * S;
+    const int64_t n_lanes = n_reg + static_cast<int64_t>(n_split);
+    for (int64_t q0 = wbase; q0 < n_lanes; q0 += wstride) {  // warp-uniform
+      const int64_t q = q0 + lane;
+      bool keep = false, split = false;
+      int32_t t = 0;
+      if (q < n_lanes) {
+        split = q >= n_reg;
+        t = __ldcg(split ? list + a.nnzp - 1 - (q - n_reg) : list + q);
+        const int32_t slot = t / a.slot_nnz;
+        if (!latch[slot]) {
+          int32_t s;
+          if (split) {
+            s = __ldcg(a.acc + t);
+            a.supp[t] = s;
+            a.acc[t] = 0;
+          } else {
+            s = __ldcg(a.supp + t);
+          }
+          keep = s >= a.cur_k_in[slot] - 2;
+          if (!keep) {
             a.alive[t] = 0;
             atomicAdd(changed + slot, 1);
+            if (!(a.frozen[t] && a.ftruss[t] >= a.cur_k_in[slot])) clear_undirected(a, t);
           }
         }
       }
+      append(a, p ^ 1, keep, split, t, lane);
     }
     grid.sync();
 
     // (c) the per-slot latch, identically in every CTA.  CTA 0 zeroes the
-    // other parity of `changed`: every CTA read it last trip, before the
-    // barrier above, and the next trip adds to it only after a barrier.
-    int32_t* other = a.counts + ((trips + 1) & 1) * S;
+    // other parity of `changed` (every CTA read it last trip, before the
+    // barrier above; the next trip adds to it only after a barrier) and
+    // this parity's list counters and cursor (read this trip, before the
+    // barrier above; refilled on the next trip, after a barrier).
+    int32_t* other = changed_all + (p ^ 1) * S;
     for (int s = threadIdx.x; s < S; s += blockDim.x) {
       const int32_t ch = __ldcg(changed + s);
       if (!latch[s] && !a.done_in[s]) {
@@ -273,45 +568,42 @@ __global__ void __launch_bounds__(kThreads) peel_fused_kernel(Args a) {
       }
       if (blockIdx.x == 0) other[s] = 0;
     }
+    if (blockIdx.x == 0 && threadIdx.x == 0) {
+      ctr[kRegCount + p] = 0;
+      ctr[kSplitCount + p] = 0;
+      cursor[p] = 0;
+    }
     ++trips;
   }
 
+  stamp(a, 3);
+
   // Level bookkeeping: trussness of converged slots, and `left` per slot.
-  for (int64_t tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
-    const int64_t base = tile * a.block;
-    const int32_t slot = static_cast<int32_t>(base / a.slot_nnz);
+  for (int64_t t = tid; t < a.nnzp; t += nthreads) {
+    const int32_t slot = static_cast<int32_t>(t / a.slot_nnz);
     const bool conv = latch[slot] && !a.done_in[slot];
-    const int32_t k = a.cur_k_in[slot];
-    int n_alive = 0;
-    for (int i = threadIdx.x; i < a.block; i += blockDim.x) {
-      const int64_t t = base + i;
-      const bool al = __ldcg(a.alive + t) != 0;
-      a.truss[t] = (conv && al) ? k : a.truss_in[t];
-      n_alive += al;
-    }
-    n_alive = warp_sum(n_alive);
-    if (lane == 0 && n_alive) atomicAdd(left_cta + slot, n_alive);
+    const bool al = __ldcg(a.alive + t) != 0;
+    a.truss[t] = (conv && al) ? a.cur_k_in[slot] : a.truss_in[t];
+    if (al) atomicAdd(left_cta + slot, 1);
   }
   __syncthreads();
   for (int s = threadIdx.x; s < S; s += blockDim.x)
     if (left_cta[s]) atomicAdd(left + s, left_cta[s]);
   grid.sync();
+  stamp(a, 4);
 
   // Retire / advance, then prune ahead against the new threshold.
-  for (int64_t tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
-    const int64_t base = tile * a.block;
-    const int32_t slot = static_cast<int32_t>(base / a.slot_nnz);
-    const bool conv = latch[slot] && !a.done_in[slot];
+  for (int64_t t = tid; t < a.nnzp; t += nthreads) {
+    const int32_t slot = static_cast<int32_t>(t / a.slot_nnz);
+    const bool was_done = a.done_in[slot] != 0;
+    const bool conv = latch[slot] && !was_done;
     const bool nonempty = __ldcg(left + slot) > 0;
     const bool retired = conv && (!nonempty || a.single[slot]);
     const int32_t k_next = a.cur_k_in[slot] + ((conv && !retired) ? 1 : 0);
-    for (int i = threadIdx.x; i < a.block; i += blockDim.x) {
-      const int64_t t = base + i;
-      const int32_t s_t = __ldcg(a.supp + t);
-      const bool keep = __ldcg(a.alive + t) && s_t >= k_next - 2;
-      a.alive[t] = keep;
-      a.supp[t] = keep ? s_t : 0;
-    }
+    const int32_t s_t = was_done ? (trips > 0 ? a.supp_in[t] : 0) : __ldcg(a.supp + t);
+    const bool keep = __ldcg(a.alive + t) && s_t >= k_next - 2;
+    a.alive[t] = keep;
+    a.supp[t] = keep ? s_t : 0;
   }
   if (blockIdx.x == 0) {
     for (int s = threadIdx.x; s < S; s += blockDim.x) {
@@ -327,15 +619,16 @@ __global__ void __launch_bounds__(kThreads) peel_fused_kernel(Args a) {
     }
     if (threadIdx.x == 0) a.titers[0] = a.titers_in[0] + trips;
   }
+  stamp(a, 5);
 }
 
 template <bool kBsearch>
-int launch(Args& args, int device, cudaStream_t stream) {
+cudaError_t launch(Args& args, int device, cudaStream_t stream) {
   const void* fn = reinterpret_cast<const void*>(&peel_fused_kernel<kBsearch>);
   const size_t smem = 3 * sizeof(int32_t) * static_cast<size_t>(args.num_slots);
   cudaError_t err;
   if ((err = cudaSetDevice(device)) != cudaSuccess) return err;
-  if (smem > 48 * 1024 &&
+  if (smem > 40 * 1024 &&
       (err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                   static_cast<int>(smem))) != cudaSuccess)
     return err;
@@ -346,15 +639,13 @@ int launch(Args& args, int device, cudaStream_t stream) {
       cudaSuccess)
     return err;
   if (per_sm < 1) return cudaErrorCooperativeLaunchTooLarge;
-  const int64_t ntiles = args.nnzp / args.block;
   int64_t grid = static_cast<int64_t>(per_sm) * sms;
-  if (grid > ntiles) grid = ntiles;  // no CTA without a tile
+  const int64_t enough = (args.nnzp + kThreads - 1) / kThreads;  // a lane a thread
+  if (grid > enough) grid = enough;
   if (grid < 1) grid = 1;
   void* params[] = {&args};
-  err = cudaLaunchCooperativeKernel(fn, dim3(static_cast<unsigned>(grid)), dim3(kThreads),
-                                    params, smem, stream);
-  if (err != cudaSuccess) return err;
-  return cudaGetLastError();
+  return cudaLaunchCooperativeKernel(fn, dim3(static_cast<unsigned>(grid)), dim3(kThreads),
+                                     params, smem, stream);
 }
 
 }  // namespace
@@ -362,41 +653,69 @@ int launch(Args& args, int device, cudaStream_t stream) {
 extern "C" {
 
 // Launches one level on `stream`; returns the cudaError_t of the launch
-// (0 = success).  Pointers in the order of struct Args.
+// (0 = success).  Pointers in the order of struct Args; `counts` must come
+// zeroed; trip_log and stamps may be null.
 int peel_fused_launch(const void* colidx, const void* edge_row, const void* urowptr,
                       const void* udeg, const void* ucolidx, const void* u2d,
-                      const void* alive_in, const void* truss_in, const void* cur_k_in,
-                      const void* kmax_in, const void* levels_in, const void* iters_in,
-                      const void* done_in, const void* edges_in, const void* titers_in,
-                      const void* frozen, const void* ftruss, const void* single,
-                      void* alive, void* supp, void* truss, void* cur_k, void* kmax,
-                      void* levels, void* iters, void* done, void* titers, void* edges,
-                      void* flive, void* ualive, void* counts,
-                      long long nnzp, long long unnzp, int slot_nnz, int num_slots,
-                      int block, int inner_limit, int bsearch, int device, void* stream) {
-  if (nnzp <= 0 || num_slots < 1 || block < 1 || nnzp % block || slot_nnz % block)
+                      const void* alive_in, const void* supp_in, const void* truss_in,
+                      const void* cur_k_in, const void* kmax_in, const void* levels_in,
+                      const void* iters_in, const void* done_in, const void* edges_in,
+                      const void* titers_in, const void* frozen, const void* ftruss,
+                      const void* single, void* alive, void* supp, void* truss, void* cur_k,
+                      void* kmax, void* levels, void* iters, void* done, void* titers,
+                      void* edges, void* ccol, void* calive, void* cdeg, void* lists, void* acc,
+                      void* counts, void* trip_log, void* stamps, long long nnzp,
+                      long long unnzp, int nrows,
+                      int slot_nnz,
+                      int num_slots, int block, int inner_limit, int split_row, int split_ways,
+                      int trip_log_len, int bsearch, int device, void* stream) {
+  // Lanes are int32 in the worklists.
+  if (nnzp <= 0 || nnzp > INT_MAX || nrows < 1 || num_slots < 1 || block < 1 || nnzp % block ||
+      slot_nnz % block || split_ways < 1 || split_row < 0)
     return cudaErrorInvalidValue;
   Args args{
       static_cast<const int32_t*>(colidx),   static_cast<const int32_t*>(edge_row),
       static_cast<const int32_t*>(urowptr),  static_cast<const int32_t*>(udeg),
       static_cast<const int32_t*>(ucolidx),  static_cast<const int32_t*>(u2d),
-      static_cast<const uint8_t*>(alive_in), static_cast<const int32_t*>(truss_in),
-      static_cast<const int32_t*>(cur_k_in), static_cast<const int32_t*>(kmax_in),
-      static_cast<const int32_t*>(levels_in), static_cast<const int32_t*>(iters_in),
-      static_cast<const uint8_t*>(done_in),  static_cast<const int32_t*>(edges_in),
-      static_cast<const int32_t*>(titers_in), static_cast<const uint8_t*>(frozen),
-      static_cast<const int32_t*>(ftruss),   static_cast<const uint8_t*>(single),
-      static_cast<uint8_t*>(alive),          static_cast<int32_t*>(supp),
-      static_cast<int32_t*>(truss),          static_cast<int32_t*>(cur_k),
-      static_cast<int32_t*>(kmax),           static_cast<int32_t*>(levels),
-      static_cast<int32_t*>(iters),          static_cast<uint8_t*>(done),
-      static_cast<int32_t*>(titers),         static_cast<int32_t*>(edges),
-      static_cast<uint8_t*>(flive),          static_cast<uint8_t*>(ualive),
-      static_cast<int32_t*>(counts),
-      static_cast<int64_t>(nnzp),            static_cast<int64_t>(unnzp),
-      slot_nnz, num_slots, block, inner_limit};
+      static_cast<const uint8_t*>(alive_in), static_cast<const int32_t*>(supp_in),
+      static_cast<const int32_t*>(truss_in), static_cast<const int32_t*>(cur_k_in),
+      static_cast<const int32_t*>(kmax_in),  static_cast<const int32_t*>(levels_in),
+      static_cast<const int32_t*>(iters_in), static_cast<const uint8_t*>(done_in),
+      static_cast<const int32_t*>(edges_in), static_cast<const int32_t*>(titers_in),
+      static_cast<const uint8_t*>(frozen),   static_cast<const int32_t*>(ftruss),
+      static_cast<const uint8_t*>(single),   static_cast<uint8_t*>(alive),
+      static_cast<int32_t*>(supp),           static_cast<int32_t*>(truss),
+      static_cast<int32_t*>(cur_k),          static_cast<int32_t*>(kmax),
+      static_cast<int32_t*>(levels),         static_cast<int32_t*>(iters),
+      static_cast<uint8_t*>(done),           static_cast<int32_t*>(titers),
+      static_cast<int32_t*>(edges),          static_cast<int32_t*>(ccol),
+      static_cast<uint8_t*>(calive),         static_cast<int32_t*>(cdeg),
+      static_cast<int32_t*>(lists),          static_cast<int32_t*>(acc),
+      static_cast<int32_t*>(counts),         static_cast<int32_t*>(trip_log),
+      static_cast<int64_t*>(stamps),         static_cast<int64_t>(nnzp),
+      static_cast<int64_t>(unnzp),           nrows,
+      slot_nnz, num_slots, block, inner_limit, split_row, split_ways, trip_log_len};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return bsearch ? launch<true>(args, device, s) : launch<false>(args, device, s);
+  const cudaError_t err = bsearch ? launch<true>(args, device, s) : launch<false>(args, device, s);
+  // A refused call is reported here; clear it from the runtime's last-error
+  // state so that it is not charged to the caller's next launch.
+  if (err != cudaSuccess) cudaGetLastError();
+  return err;
+}
+
+// CTAs of the kernel per SM for `num_slots` slots (the cooperative grid is
+// this times the SM count), or -(cudaError_t) when the query fails.
+int peel_fused_blocks_per_sm(int bsearch, int num_slots) {
+  const void* fn = bsearch ? reinterpret_cast<const void*>(&peel_fused_kernel<true>)
+                           : reinterpret_cast<const void*>(&peel_fused_kernel<false>);
+  int per_sm = 0;
+  const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, fn, kThreads, 3 * sizeof(int32_t) * static_cast<size_t>(num_slots));
+  if (err != cudaSuccess) {
+    cudaGetLastError();
+    return -static_cast<int>(err);
+  }
+  return per_sm;
 }
 
 const char* peel_fused_error_string(int code) {

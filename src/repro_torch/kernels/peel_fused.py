@@ -20,6 +20,14 @@ slot of a packed batch by exactly one truss level:
 ``total_iters`` grows by the launch's inner trips, so it legitimately
 differs from the unfused peel's; every other state field is identical.
 
+The kernel computes only what can change the state: the alive lanes of
+slots that are neither done nor latched, from a worklist it compacts in
+scratch; a done slot's ``alive``, ``support`` and ``trussness`` are copied
+from the state in (its fixed point; see the source for why the copy is
+exact).  Lanes whose shorter (compacted) row exceeds :data:`SPLIT_ROW`
+entries are split into :data:`SPLIT_WAYS` work items.  ``block`` is the
+most worklist items a warp claims at a time.
+
 The tensors' device picks the implementation, with no fallback between
 them: :func:`fused_level_cuda` launches the hand-written Hopper kernel
 ``csrc/peel_fused.cu`` on CUDA tensors (or raises);
@@ -34,7 +42,7 @@ import ctypes
 
 import torch
 
-from ..core.eager_fine import FineProblem, support_fine_owner
+from ..core.eager_fine import FineProblem, support_fine_owner, undirected_alive
 from ..errors import DeviceError
 from ..exec.peel import PeelState
 from .build import BuiltLibrary, load_library
@@ -44,10 +52,63 @@ __all__ = [
     "fused_level_torch",
     "fused_level_cuda",
     "load_peel_fused",
+    "scratch_elements",
+    "split_items",
+    "SPLIT_ROW",
+    "SPLIT_WAYS",
+    "NUM_STAMPS",
 ]
 
 SCHEDULES = ("compare", "bsearch")
 _PROBLEM_FIELDS = ("colidx", "edge_row", "urowptr", "udeg", "ucolidx", "u2d")
+
+# A lane whose shorter undirected row has more than SPLIT_ROW entries is
+# split into SPLIT_WAYS work items, chunks of that row that several warps
+# take (rmat-15's hub row has 4,011 entries).  Fixed here, not a knob.
+SPLIT_ROW = 256
+SPLIT_WAYS = 8
+# The kernel's clock readings when ``stamps`` is given (see fused_level_cuda).
+NUM_STAMPS = 6
+# `counts` holds, besides the per-slot counters (changed x 2, left), the
+# item cursor per trip parity (64-bit: four int32 words) and the lengths
+# of the two worklists (unsplit, split) per parity (four words).
+_COUNTER_WORDS = 8
+
+
+def scratch_elements(nnzp: int, unnzp: int, nrows: int, num_slots: int) -> dict[str, int]:
+    """Elements of each scratch buffer of one :func:`fused_level_cuda`
+    launch: the undirected rows compacted at launch (``ccol`` int32,
+    ``calive`` uint8, ``cdeg`` int32 per row), ``lists`` (two worklists of
+    lanes, int32), ``acc`` (split lanes' sums, int32) and ``counts``
+    (int32, zeroed)."""
+    return {
+        "ccol": unnzp,
+        "calive": unnzp,
+        "cdeg": nrows,
+        "lists": 2 * nnzp,
+        "acc": nnzp,
+        "counts": 3 * num_slots + _COUNTER_WORDS,
+    }
+
+
+def split_items(
+    p: FineProblem, alive: torch.Tensor, frozen_live: torch.Tensor | None = None
+) -> tuple[int, int]:
+    """``(unsplit lanes, split lanes)`` of the kernel's first worklist when
+    ``alive`` holds the alive lanes of the live slots and ``frozen_live``
+    the frozen lanes that count as alive.  The launch compacts each
+    undirected row to its entries in ``alive | frozen_live``; a lane is
+    split when it is real and the shorter of its two compacted rows has
+    more than :data:`SPLIT_ROW` entries.  A split lane is
+    :data:`SPLIT_WAYS` work items."""
+    eff = alive if frozen_live is None else alive | frozen_live
+    ualive = undirected_alive(p, eff)
+    cdeg = torch.zeros_like(p.udeg).index_add_(0, p.uedge_row.long(), ualive.to(torch.int32))
+    real = p.colidx != 0
+    short = torch.minimum(cdeg[p.edge_row.long()], cdeg[p.colidx.long()])
+    split = alive & real & (short > SPLIT_ROW)
+    n_split = int(split.sum())
+    return int(alive.sum()) - n_split, n_split
 
 
 def _geometry(p: FineProblem, state: PeelState, block: int) -> tuple[int, int]:
@@ -132,12 +193,15 @@ def load_peel_fused() -> BuiltLibrary:
     built = load_library("peel_fused")
     fn = built.lib.peel_fused_launch
     fn.argtypes = (
-        [ctypes.c_void_p] * 31
+        [ctypes.c_void_p] * 37
         + [ctypes.c_longlong, ctypes.c_longlong]
-        + [ctypes.c_int] * 6
+        + [ctypes.c_int] * 10
         + [ctypes.c_void_p]
     )
     fn.restype = ctypes.c_int
+    occ = built.lib.peel_fused_blocks_per_sm
+    occ.argtypes = [ctypes.c_int, ctypes.c_int]
+    occ.restype = ctypes.c_int
     err = built.lib.peel_fused_error_string
     err.argtypes = [ctypes.c_int]
     err.restype = ctypes.c_char_p
@@ -151,6 +215,7 @@ def _check_cuda_inputs(p, state, frozen, frozen_truss, single_level) -> torch.de
     nnzp, num_slots = p.nnz_pad, int(state.cur_k.shape[0])
     want = {
         "alive": (state.alive, torch.bool, (nnzp,)),
+        "support": (state.support, torch.int32, (nnzp,)),
         "trussness": (state.trussness, torch.int32, (nnzp,)),
         "cur_k": (state.cur_k, torch.int32, (num_slots,)),
         "kmax": (state.kmax, torch.int32, (num_slots,)),
@@ -184,12 +249,32 @@ def fused_level_cuda(
     *,
     block: int,
     schedule: str,
+    trip_log: torch.Tensor | None = None,
+    stamps: torch.Tensor | None = None,
 ) -> PeelState:
     """One truss level of every live slot, by the CUDA kernel (one
     cooperative launch).  A refused or failed launch raises
-    :class:`repro_torch.errors.DeviceError`."""
+    :class:`repro_torch.errors.DeviceError`.
+
+    Two optional diagnostics, CUDA tensors the kernel writes into:
+    ``trip_log`` ((2 * T,) int32) receives for each of the first T inner
+    trips the worklist's unsplit and split lanes; ``stamps`` ((6,) int64)
+    CTA 0's clock (``%globaltimer``, ns) at entry, rows compacted, first
+    worklist built, inner loop done, bookkeeping done and exit."""
     num_slots, slot_nnz = _geometry(p, state, block)
     dev = _check_cuda_inputs(p, state, frozen, frozen_truss, single_level)
+    if trip_log is not None and (
+        trip_log.device != dev or trip_log.dtype != torch.int32 or trip_log.dim() != 1
+        or not trip_log.is_contiguous() or trip_log.numel() % 2
+    ):
+        raise ValueError("trip_log must be a contiguous (2 * T,) int32 tensor on the state's "
+                         "device")
+    if stamps is not None and (
+        stamps.device != dev or stamps.dtype != torch.int64 or stamps.shape != (NUM_STAMPS,)
+        or not stamps.is_contiguous()
+    ):
+        raise ValueError(f"stamps must be a contiguous ({NUM_STAMPS},) int64 tensor on the "
+                         "state's device")
     built = load_peel_fused()
     nnzp, unnzp = p.nnz_pad, int(p.ucolidx.shape[0])
 
@@ -208,33 +293,39 @@ def fused_level_cuda(
         total_iters=i32(()),
         edges_alive=i32(num_slots),
     )
-    # Scratch: frozen-live flags, the undirected alive flags, and per-slot
-    # counters (two parities of `changed`, then `left`).
-    flive = torch.empty(nnzp, dtype=torch.uint8, device=dev)
-    ualive = torch.empty(unnzp, dtype=torch.uint8, device=dev)
-    counts = i32(3 * num_slots)
+    nrows = int(p.udeg.shape[0])
+    n = scratch_elements(nnzp, unnzp, nrows, num_slots)
+    ccol, cdeg = i32(n["ccol"]), i32(n["cdeg"])
+    calive = torch.empty(n["calive"], dtype=torch.uint8, device=dev)
+    lists, acc = i32(n["lists"]), i32(n["acc"])
+    counts = torch.zeros(n["counts"], dtype=torch.int32, device=dev)
     ptrs = [
         x.data_ptr()
         for x in (
             p.colidx, p.edge_row, p.urowptr, p.udeg, p.ucolidx, p.u2d,
-            state.alive, state.trussness, state.cur_k, state.kmax, state.levels,
-            state.iters, state.done, state.edges_alive, state.total_iters,
+            state.alive, state.support, state.trussness, state.cur_k, state.kmax,
+            state.levels, state.iters, state.done, state.edges_alive, state.total_iters,
             frozen, frozen_truss, single_level,
             out.alive, out.support, out.trussness, out.cur_k, out.kmax, out.levels,
             out.iters, out.done, out.total_iters, out.edges_alive,
-            flive, ualive, counts,
+            ccol, calive, cdeg, lists, acc, counts,
         )
     ]
+    ptrs += [x.data_ptr() if x is not None else None for x in (trip_log, stamps)]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = built.lib.peel_fused_launch(
             *ptrs,
             nnzp,
             unnzp,
+            nrows,
             slot_nnz,
             num_slots,
             block,
             slot_nnz + 2,  # inner_limit, as in fused_level_torch
+            SPLIT_ROW,
+            SPLIT_WAYS,
+            trip_log.numel() // 2 if trip_log is not None else 0,
             int(schedule == "bsearch"),
             dev.index if dev.index is not None else torch.cuda.current_device(),
             stream,
@@ -251,7 +342,7 @@ def fused_level_cuda(
 fused_level_cuda.launches = 0
 
 
-def make_fused_level(*, window: int, block: int = 32, schedule: str = "compare"):
+def make_fused_level(*, window: int, block: int = 128, schedule: str = "bsearch"):
     """Build the one-launch-per-level step for one configuration.
 
     Returns ``level_step(p, state, frozen, frozen_truss, single_level) ->

@@ -296,7 +296,7 @@ def test_autotune_store_roundtrip_and_reads_reference_store(tmp_path):
         bucket, slots, rtune.FusedConfig(block=64, schedule="compare", xla_flags=("--x",))
     )
     assert "xla_flags" in json.loads(ref_path.read_text())["configs"]["n32-nnz128-w32/s2"]
-    assert AutotuneStore(ref_path).get(bucket, slots) == FusedConfig(block=64)
+    assert AutotuneStore(ref_path).get(bucket, slots) == FusedConfig(block=64, schedule="compare")
 
 
 def test_autotune_fused_sweeps_and_persists(tmp_path):
@@ -334,7 +334,7 @@ if phase == "tune":
     # from a store miss.
     winner, _ = autotune.autotune_fused(
         bucket, 1, graphs=[g], chunk=64, repeats=1, device="cpu",
-        candidates=(FusedConfig(block=32, schedule="bsearch"),
+        candidates=(FusedConfig(block=16, schedule="compare"),
                     FusedConfig(block=16, schedule="bsearch")),
     )
     print(f"PERSIST_WINNER={winner.signature()}")

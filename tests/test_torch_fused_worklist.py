@@ -1,0 +1,195 @@
+"""The fused level kernel's host-side plan, on the CPU.
+
+``fused_level_cuda`` computes only the alive lanes of live slots from a
+worklist, splits lanes with long rows into several work items, and copies
+a done slot's ``alive``, ``support`` and ``trussness`` from the state in
+instead of recomputing them.  The kernel itself runs only on the card
+(``tests/test_torch_kernels_gpu.py``); here: its scratch sizes, its split
+rule, and the premise of the copy, checked on the plain version
+(``fused_level_torch``, the reference's ``_level_kernel`` replayed) that
+the kernel is held to bit for bit.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import repro.api as ra
+import repro.exec.peel as rpeel
+import repro.graphs as rg
+import repro_torch.exec.peel as tpeel
+import repro_torch.graphs as tg
+from _torch_parity import assert_same, torch_problem
+from repro.core import trussness_numpy
+from repro.kernels.peel_fused import make_fused_level as ref_make_fused_level
+from repro_torch.core import prepare_fine, support_fine_owner
+from repro_torch.kernels.peel_fused import (
+    SPLIT_ROW,
+    SPLIT_WAYS,
+    fused_level_cuda,
+    fused_level_torch,
+    scratch_elements,
+    split_items,
+)
+
+CHUNK = 64
+
+
+def _star_clique(n=400, clique=SPLIT_ROW + 4):
+    """A hub joined to every other vertex; the first ``clique`` of those also
+    form a clique, so every clique lane's shorter row exceeds SPLIT_ROW."""
+    star = [(0, v) for v in range(1, n)]
+    kk = [(i, j) for i in range(1, clique + 1) for j in range(i + 1, clique + 1)]
+    return tg.from_edges(n, np.array(star + kk, dtype=np.int64), name="star-clique")
+
+
+def test_scratch_elements_cover_the_worklists():
+    n = scratch_elements(nnzp=4096, unnzp=8192, nrows=513, num_slots=4)
+    # The undirected rows compacted at launch (an entry and a flag per
+    # undirected lane, a length per row), two worklists (one per trip
+    # parity) of up to every lane each, a sum per lane for split lanes, and
+    # the per-slot counters (changed x 2, left) plus a 64-bit item cursor
+    # and two list lengths per parity.
+    assert n == {"ccol": 8192, "calive": 8192, "cdeg": 513, "lists": 8192, "acc": 4096,
+                 "counts": 20}
+
+
+def test_split_constants_leave_no_empty_chunk():
+    """A split lane's shorter row has more than SPLIT_ROW entries; cut into
+    SPLIT_WAYS chunks of ceil(ds / SPLIT_WAYS), every chunk holds an entry."""
+    assert 1 < SPLIT_WAYS <= 32 and SPLIT_ROW >= SPLIT_WAYS
+    for ds in range(SPLIT_ROW + 1, SPLIT_ROW + 200):
+        size = -(-ds // SPLIT_WAYS)
+        assert (SPLIT_WAYS - 1) * size < ds
+
+
+@pytest.mark.parametrize("hub", [False, True], ids=["rmat", "star_clique"])
+def test_split_items_counts_long_row_pairs(hub):
+    g = _star_clique() if hub else tg.rmat(7, 5, seed=2)
+    p = prepare_fine(g, chunk=CHUNK, device="cpu")
+    alive = p.colidx != 0
+    unsplit, split = split_items(p, alive)
+    # The same rule from the graph's own degrees (1-based in the problem).
+    deg = np.bincount(np.concatenate([g.row_of_edge(), g.colidx]), minlength=g.n)
+    short = np.minimum(deg[g.row_of_edge()], deg[g.colidx])
+    assert split == int((short > SPLIT_ROW).sum())
+    assert unsplit + split == g.nnz
+    if hub:
+        clique = SPLIT_ROW + 4
+        assert split == clique * (clique - 1) // 2 + clique  # clique lanes and hub-clique lanes
+    else:
+        assert split == 0
+    half = alive & (torch.arange(p.nnz_pad) % 2 == 0)
+    assert sum(split_items(p, half)) == int(half.sum())
+    if hub:
+        # Rows are compacted to the alive set at launch: with the hub's own
+        # lanes dead and half the clique's, no shorter row exceeds SPLIT_ROW,
+        # unless the other half counts as frozen-live.
+        rest = half & (p.edge_row != 1)
+        assert split_items(p, rest)[1] == 0
+        assert split_items(p, rest, alive & ~half)[1] > 0
+
+
+def test_fused_level_cuda_refuses_cpu_tensors():
+    p = prepare_fine(tg.rmat(5, 6, seed=1), chunk=CHUNK, device="cpu")
+    slot_ids = torch.zeros(p.nnz_pad, dtype=torch.int32)
+    frozen = torch.zeros(p.nnz_pad, dtype=torch.bool)
+    st = tpeel.init_peel_state(
+        slot_ids, torch.tensor([3], dtype=torch.int32), p.colidx != 0, frozen,
+        torch.zeros(p.nnz_pad, dtype=torch.int32),
+    )
+    before = fused_level_cuda.launches
+    with pytest.raises(ValueError, match="CUDA"):
+        fused_level_cuda(p, st, frozen, st.trussness, torch.zeros(1, dtype=torch.bool),
+                         block=32, schedule="bsearch")
+    assert fused_level_cuda.launches == before
+
+
+def _case(name):
+    """(problem, slot_nnz, window, k0, single, alive0, frozen, frozen_truss)
+    of a batch with a single-level slot that retires while others peel on."""
+    if name == "single_beside_decompose":
+        gs = [rg.rmat(5, 6, seed=1), rg.barabasi(30, 3, seed=0), rg.rmat(5, 6, seed=3)]
+        k0, single = [3, 4, 3], [False, True, False]
+    else:  # the same graph twice: frozen lanes in the decompose slot
+        gs = [rg.rmat(5, 6, seed=3)] * 2
+        k0, single = [3, 4], [False, True]
+    buckets = [ra.bucket_for(g, chunk=CHUNK) for g in gs]
+    nnz_pad = max(b.nnz_pad for b in buckets)
+    pp = rg.pack_problems(gs, slot_n=max(b.n_pad for b in buckets), slot_nnz=nnz_pad,
+                          slots=len(gs), chunk=CHUNK, layout="aligned")
+    p = torch_problem(pp.problem)
+    real = p.colidx != 0
+    lane = torch.arange(p.nnz_pad)
+    ftruss = torch.zeros(p.nnz_pad, dtype=torch.int32)
+    if name == "single_beside_decompose":  # arbitrary frozen lanes in slot 0
+        frozen = real & (lane % 3 == 0) & (lane < nnz_pad)
+        ftruss[frozen] = 4
+    else:  # slot 0's even lanes frozen at the oracle's trussness
+        oracle = torch.from_numpy(trussness_numpy(gs[0]).astype(np.int32))
+        frozen = real & (lane % 2 == 0) & (lane < oracle.numel())
+        ftruss[: oracle.numel()] = oracle
+        ftruss = ftruss * frozen
+    window = max(b.window for b in buckets)
+    return p, nnz_pad, window, k0, single, real & ~frozen, frozen, ftruss
+
+
+@pytest.mark.parametrize("name", ["single_beside_decompose", "frozen"])
+def test_done_slot_state_is_a_fixed_point_of_the_level(name):
+    """What makes the kernel's copy exact: while some slot is live, a level
+    leaves every slot that is done on entry exactly as it found it (alive,
+    support, trussness), though the plain version recomputes its supports."""
+    p, slot_nnz, window, k0, single, alive0, frozen, ftruss = _case(name)
+    slots = len(k0)
+    slot_ids = torch.arange(slots, dtype=torch.int32).repeat_interleave(slot_nnz)
+    single = torch.tensor(single)
+    k0 = torch.tensor(k0, dtype=torch.int32)
+    st = tpeel.init_peel_state(slot_ids, k0, alive0, frozen, ftruss)
+    checked = 0
+    while not bool(st.done.all()):
+        out = fused_level_torch(p, st, frozen, ftruss, single, window=window, block=32)
+        done = st.done.repeat_interleave(slot_nnz)
+        for f in ("alive", "support", "trussness"):
+            assert torch.equal(getattr(out, f)[done], getattr(st, f)[done]), f
+        # The support of a done slot is its alive set's own support, masked.
+        if bool(done.any()):
+            k_lane = st.cur_k.repeat_interleave(slot_nnz)
+            s = support_fine_owner(p, st.alive | (frozen & (ftruss >= k_lane)), window=window,
+                                   chunk=32)
+            assert torch.equal((s * st.alive)[done], st.support[done])
+            checked += 1
+        st = out
+    assert checked > 0
+
+
+def test_all_done_level_prunes_with_zero_support_like_reference():
+    """The one state the copy does not cover: with every slot done no inner
+    trip runs, and the level prunes ahead with s = 0, in the reference's
+    _level_kernel as in fused_level_torch (the kernel does the same)."""
+    g = rg.rmat(5, 6, seed=1)
+    b = ra.bucket_for(g, chunk=CHUNK)
+    pp = rg.pack_problems([g], slot_n=b.n_pad, slot_nnz=b.nnz_pad, slots=1, chunk=CHUNK,
+                          layout="aligned")
+    p = torch_problem(pp.problem)
+    n = p.nnz_pad
+    slot_ids = np.zeros(n, np.int32)
+    k0, single = np.array([3], np.int32), np.array([True])
+    alive0 = np.asarray(pp.problem.colidx) != 0
+    frozen, ftruss = np.zeros(n, bool), np.zeros(n, np.int32)
+    ref_step = ref_make_fused_level(window=b.window, block=32, schedule="bsearch", interpret=True)
+    args = [jnp.asarray(x) for x in (slot_ids, k0, single, alive0, frozen, ftruss)]
+    rst = ref_step(pp.problem, rpeel.init_peel_state(pp.problem, *args), args[4], args[5], args[2])
+    t_args = [torch.from_numpy(x) for x in (slot_ids, k0, alive0, frozen, ftruss)]
+    tst = fused_level_torch(
+        p, tpeel.init_peel_state(*t_args), t_args[3], t_args[4], torch.from_numpy(single),
+        window=b.window, block=32,
+    )
+    assert bool(tst.done.all()) and int(tst.support.sum()) > 0
+    # A second level on the all-done state: no trip, support 0 everywhere.
+    rst2 = ref_step(pp.problem, rst, args[4], args[5], args[2])
+    tst2 = fused_level_torch(p, tst, torch.from_numpy(frozen), torch.from_numpy(ftruss),
+                             torch.from_numpy(single), window=b.window, block=32)
+    for f in rpeel.PeelState._fields:
+        assert_same(getattr(rst2, f), getattr(tst2, f), f)
+    assert int(tst2.support.abs().sum()) == 0 and int(tst2.total_iters) == int(tst.total_iters)

@@ -193,6 +193,108 @@ def test_fused_level_launch_error_raises(cuda):
     assert fused_level_cuda.launches == before
 
 
+def _star_clique():
+    """A hub joined to 1,499 other vertices, 270 of which also form a
+    clique: every clique lane's shorter row has at least 270 entries, more
+    than SPLIT_ROW, so the kernel splits it across warps."""
+    n, clique = 1500, 270
+    star = [(0, v) for v in range(1, n)]
+    kk = [(i, j) for i in range(1, clique + 1) for j in range(i + 1, clique + 1)]
+    return tg.from_edges(n, np.array(star + kk, dtype=np.int64), name="star-clique")
+
+
+def _case(name, cuda):
+    """(problem, window, k0, single, alive0, frozen, frozen_truss) of one
+    whole-peel case of the fused kernel."""
+    from repro_torch.core import trussness_numpy
+
+    if name == "single_beside_decompose":
+        pp, window = _bench_pack(cuda)
+        k0, single = [3, 3, 4, 3], [False, False, True, False]
+        p = pp.problem
+        frozen = torch.zeros(p.nnz_pad, dtype=torch.bool, device=cuda)
+        ftruss = torch.zeros(p.nnz_pad, dtype=torch.int32, device=cuda)
+    else:
+        g = tg.rmat(5, 6, seed=3) if name == "frozen" else _star_clique()
+        b = bucket_for(g, chunk=64)
+        pp = tg.pack_problems(
+            [g, g], slot_n=b.n_pad, slot_nnz=b.nnz_pad, slots=2, chunk=64,
+            layout="aligned", device=cuda,
+        )
+        p, window = pp.problem, b.window
+        if name == "frozen":  # slot 0's even lanes frozen at the oracle's trussness
+            k0, single = [3, 3], [False, False]
+            oracle = trussness_numpy(g)
+            ft = np.zeros(p.nnz_pad, np.int32)
+            ft[: g.nnz] = oracle
+            fz = np.zeros(p.nnz_pad, bool)
+            fz[: g.nnz] = np.arange(g.nnz) % 2 == 0
+            frozen = torch.from_numpy(fz).to(cuda)
+            ftruss = torch.from_numpy(ft * fz).to(cuda)
+        else:  # start the decompose slot near the clique's top level
+            k0, single = [265, 3], [False, True]
+            frozen = torch.zeros(p.nnz_pad, dtype=torch.bool, device=cuda)
+            ftruss = torch.zeros(p.nnz_pad, dtype=torch.int32, device=cuda)
+    slots = len(k0)
+    lanes = torch.arange(slots, dtype=torch.int32, device=cuda)
+    slot_ids = lanes.repeat_interleave(p.nnz_pad // slots)
+    alive0 = (p.colidx != 0) & ~frozen
+    k0 = torch.tensor(k0, dtype=torch.int32, device=cuda)
+    single = torch.tensor(single, device=cuda)
+    return p, window, slot_ids, k0, single, alive0, frozen, ftruss
+
+
+@pytest.mark.parametrize("name", ["single_beside_decompose", "frozen", "split_hub"])
+def test_fused_level_kernel_whole_peel_cases(cuda, name):
+    """Every autotune candidate, level by level over the whole peel: all ten
+    fields equal fused_level_torch's.  A slot done on entry comes out with
+    the state in's alive, support and trussness (the kernel copies them;
+    the plain version recomputes them)."""
+    from repro_torch.exec.peel import init_peel_state
+    from repro_torch.kernels.autotune import candidate_configs
+    from repro_torch.kernels.peel_fused import (
+        SPLIT_WAYS,
+        fused_level_cuda,
+        fused_level_torch,
+        split_items,
+    )
+
+    p, window, slot_ids, k0, single, alive0, frozen, ftruss = _case(name, cuda)
+    slot_nnz = p.nnz_pad // k0.numel()
+    lanes_done = lambda st: st.done.repeat_interleave(slot_nnz)  # noqa: E731
+    for cfg in candidate_configs(slot_nnz):
+        st = init_peel_state(slot_ids, k0, alive0, frozen, ftruss)
+        levels, copied = 0, 0
+        while not bool(st.done.all()):
+            log = torch.full((64,), -1, dtype=torch.int32, device=cuda)
+            got = fused_level_cuda(
+                p, st, frozen, ftruss, single, block=cfg.block, schedule=cfg.schedule, trip_log=log
+            )
+            want = fused_level_torch(p, st, frozen, ftruss, single, window=window, block=cfg.block)
+            for f in got._fields:
+                a, b = getattr(got, f), getattr(want, f)
+                assert a.dtype == b.dtype and torch.equal(a, b), (name, cfg, levels, f)
+            done = lanes_done(st)
+            for f in ("alive", "support", "trussness"):
+                assert torch.equal(getattr(got, f)[done], getattr(st, f)[done]), (name, f)
+            copied += int(done.sum())
+            # The worklist of the first trip: the alive lanes of live slots.
+            live = st.alive & ~done
+            flive = frozen & (ftruss >= st.cur_k.repeat_interleave(slot_nnz))
+            unsplit, split = split_items(p, live, flive)
+            assert log[:2].tolist() == [unsplit, split], (name, cfg, levels)
+            if name == "split_hub" and levels == 0:
+                assert split * SPLIT_WAYS > 0
+            st, levels = got, levels + 1
+        assert levels >= 2, (name, cfg)
+        # On the all-done state no trip runs: the kernel prunes ahead with
+        # s = 0 as the plain version does, instead of copying.
+        got = fused_level_cuda(p, st, frozen, ftruss, single, block=cfg.block, schedule=cfg.schedule)
+        want = fused_level_torch(p, st, frozen, ftruss, single, window=window, block=cfg.block)
+        assert all(torch.equal(getattr(got, f), getattr(want, f)) for f in got._fields), (name, cfg)
+    assert copied > 0 or name == "frozen"
+
+
 # --------------------------------------------------------------------- #
 # The dense kernel (csrc/support_dense.cu) against support_dense_torch,
 # and KTrussEngine through the support kernel
@@ -208,17 +310,26 @@ def _zero_one(v, seed, symmetric):
 
 @pytest.mark.parametrize("symmetric", [True, False], ids=["symmetric", "asymmetric"])
 def test_dense_kernel_matches_plain_version(cuda, symmetric):
+    """V = 128 and 256 give fewer 128 x 256 tiles than SMs, 384 an odd count
+    of 128-tiles (a ragged 256-wide column tile), 4,096 more tiles than
+    SMs (the persistent grid walks several each)."""
     from repro_torch.kernels import ops
-    from repro_torch.kernels.support_dense import support_dense_cuda, support_dense_torch
+    from repro_torch.kernels.support_dense import (
+        support_dense_cuda,
+        support_dense_torch,
+        transpose_cuda,
+    )
 
-    for v in (128, 384):
+    for v in (128, 256, 384, 4096):
         u = torch.from_numpy(_zero_one(v, v, symmetric)).to(cuda)
+        assert symmetric == torch.equal(u, u.t())
         before = support_dense_cuda.launches
         got = support_dense_cuda(u)
         torch.cuda.synchronize()
         assert support_dense_cuda.launches == before + 1
         want = support_dense_torch(u)
         assert got.dtype == torch.float32 and torch.equal(got, want), v
+        assert torch.equal(transpose_cuda(u), u.t().contiguous()), v
     u = _zero_one(1000, 1000, symmetric)  # padded to 1024 by ops.support_dense
     got = ops.support_dense(torch.from_numpy(u).to(cuda))
     want = support_dense_torch(torch.from_numpy(u))
