@@ -16,12 +16,21 @@ Phases (any failure exits non-zero):
    bucket, 3 live); ``support_fine_cuda`` must equal the plain torch
    ``support_fine_owner`` bit for bit on the full alive mask and three
    seeded random masks.  Times the kernel, the plain version and a
-   ``torch.sparse`` yardstick; computes the kernel's bound.
+   ``torch.sparse`` yardstick; computes the kernel's bound; prints the
+   kernel's work items per mask.  After phase 3, the same check and
+   timing on three alive sets of phase 3's peel (its first, middle and
+   last trip), each beside ``support_steps`` and its bound.
 3. the support kernel's path, full size: ``decompose``/``kmax``/
    ``ktruss(k=4)`` of ``rmat-15`` through ``Session`` on CUDA with
    ``backend="fine/pallas/aligned"``; checks one dispatch, that the kernel
    ran once per peel trip, and the results against each other and the
-   numpy oracle.
+   numpy oracle.  Then the same batch through the executor alone, each
+   support pass between CUDA events: the whole peel split into the
+   kernel's passes and the rest of the trips, and the lanes handed to the
+   kernel; and, at the very end of the run (the profiler slows every
+   later launch of the process), once more under ``torch.profiler``: the
+   device's busy share of the peel and the kernels with the most device
+   time.
 4. every ``configs.BENCH_GRAPHS`` graph decomposed through
    ``fine/fused/aligned``, ``fine/pallas/aligned`` and
    ``fine/xla/aligned``; trussness must agree bit for bit, and equal
@@ -63,6 +72,13 @@ Phases (any failure exits non-zero):
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 lists each kernel with its launches on its path and its times.
+
+    python3 chip_smoke.py --support-only --sets FILE [--src DIR]
+
+runs phase 2 and phase 3's split alone, with the ``repro_torch`` under
+``DIR`` (another tree's ``src``, to compare two trees' kernels in one
+session); the peel's alive sets come from ``FILE`` when it exists, and are
+written there otherwise, so that every tree is timed on the same sets.
 Imports nothing of JAX or of the JAX package.  Needs one CUDA card; exits
 non-zero without one, or outside a checkout of the repository.
 """
@@ -224,6 +240,33 @@ def main_path_problem(g, bucket, slots):
     ).problem
 
 
+def worklist_counts(p, alive) -> str:
+    """The kernel's work items and split lanes for ``alive`` (trees whose
+    support kernel has no worklist say so)."""
+    try:
+        from repro_torch.kernels.support_fine import worklist
+    except ImportError:
+        return "items n/a (no worklist in this tree)"
+    wl = worklist(p, alive)
+    return f"items {wl.items} ({wl.unsplit.numel()} unsplit lanes + {wl.split.numel()} split lanes)"
+
+
+def check_support(torch, p, alive, plain, what: str) -> int:
+    """``support_fine_cuda`` against its plain version on ``alive``, bit for
+    bit; returns the max abs error (0) or raises."""
+    from repro_torch.kernels import support_fine_cuda
+
+    got = support_fine_cuda(p, alive)
+    want = plain(alive)
+    torch.cuda.synchronize()
+    e = int((got.long() - want.long()).abs().max())
+    log(f"phase2 {what}: alive={int(alive.sum())} max_abs_err={e} sum={int(got.long().sum())}; "
+        f"{worklist_counts(p, alive)}")
+    if e or not torch.equal(got, want):
+        raise AssertionError(f"support_fine_cuda disagrees with its plain version on {what}")
+    return e
+
+
 def phase_kernel(torch, g, bucket) -> dict:
     import numpy as np
 
@@ -240,14 +283,7 @@ def phase_kernel(torch, g, bucket) -> dict:
     plain = lambda m: support_fine_owner(p, m, window=bucket.window, chunk=1024)  # noqa: E731
     err = 0
     for i, m in enumerate(masks):
-        got = support_fine_cuda(p, m)
-        want = plain(m)
-        torch.cuda.synchronize()
-        e = int((got.long() - want.long()).abs().max())
-        log(f"phase2 mask {i}: alive={int(m.sum())} max_abs_err={e} sum={int(got.long().sum())}")
-        if e or not torch.equal(got, want):
-            raise AssertionError(f"support_fine_cuda disagrees with its plain version on mask {i}")
-        err = max(err, e)
+        err = max(err, check_support(torch, p, m, plain, f"mask {i}"))
     alive = masks[0]
     ms = cuda_ms(lambda: support_fine_cuda(p, alive), reps=20)
     plain_ms = cuda_ms(lambda: plain(alive), reps=2)
@@ -317,6 +353,82 @@ def check_rmat15_results(g, futs) -> None:
         raise AssertionError("a 4-truss edge has support < 2 under the numpy oracle")
 
 
+def main_path_slots(torch, bucket, slots: int = 8):
+    """The main path's batch layout: slot ids per lane, k0 and single_level
+    of decompose, kmax and ktruss(4) in the first three of ``slots``."""
+    slot_ids = torch.arange(slots, dtype=torch.int32, device="cuda").repeat_interleave(bucket.nnz_pad)
+    k0 = torch.tensor([3, 3, 4] + [3] * (slots - 3), dtype=torch.int32, device="cuda")
+    single = torch.tensor([False, False, True] + [False] * (slots - 3), device="cuda")
+    return slot_ids, k0, single
+
+
+def instrumented_peel(torch, g, bucket):
+    """The rmat-15 batch peeled by the ``fine/pallas/aligned`` executor
+    (no ``Session``) with each support pass between two CUDA events.
+    Returns the problem, the executor's whole peel (ms, host clock), the
+    support passes' summed device time (ms), the trips, and the alive set
+    handed to the kernel on each trip (kept as clones, outside the events)."""
+    from repro_torch.exec.peel import PeelExecutor
+    from repro_torch.kernels import ops
+
+    p = main_path_problem(g, bucket, slots=8)
+    slot_ids, k0, single = main_path_slots(torch, bucket)
+    events, handed = [], []
+
+    def support(prob, alive):
+        handed.append(alive.clone())
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = ops.support_fine(prob, alive, window=bucket.window, chunk=256)
+        end.record()
+        events.append((start, end))
+        return out
+
+    exe = PeelExecutor(support=support)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st = exe.peel(p, slot_ids=slot_ids, k0=k0.cpu().numpy(), single_level=single.cpu().numpy())
+    torch.cuda.synchronize()
+    whole_ms = (time.perf_counter() - t0) * 1e3
+    support_ms = sum(a.elapsed_time(b) for a, b in events)
+    if len(events) != int(st.total_iters):
+        raise AssertionError(f"{len(events)} support passes over {int(st.total_iters)} trips")
+    return p, whole_ms, support_ms, len(events), handed
+
+
+def report_peel_split(tag: str, whole_ms, support_ms, trips, handed) -> None:
+    lanes = sum(int(m.sum()) for m in handed)
+    log(f"{tag} executor peel (instrumented, {trips} trips): whole {whole_ms:.1f} ms; support passes "
+        f"{support_ms:.1f} ms of device time (CUDA events, {support_ms / trips:.4f} ms a pass); "
+        f"rest of the trip {whole_ms - support_ms:.1f} ms ({(whole_ms - support_ms) / trips:.3f} ms "
+        f"a trip); lanes handed to the kernel {lanes} over the trips ({lanes / trips:.0f} a trip)")
+
+
+def peel_sets(handed) -> dict:
+    """The alive sets of the first trip, the middle trip and the last trip
+    that handed the kernel any lane (the top level's core: the trips after
+    it prune everything ahead and hand it nothing)."""
+    n = len(handed)
+    last = max(i for i, m in enumerate(handed) if bool(m.any()))
+    return {f"trip {i} of {n}": handed[i] for i in (0, n // 2, last)}
+
+
+def phase_peel_sets(torch, p, bucket, sets: dict) -> None:
+    """``support_fine_cuda`` on alive sets of a real rmat-15 peel: bit for
+    bit against its plain version, then timed beside its bound."""
+    from repro_torch.core import support_fine_owner
+    from repro_torch.kernels import support_fine_cuda
+
+    plain = lambda m: support_fine_owner(p, m, window=bucket.window, chunk=1024)  # noqa: E731
+    for name, alive in sets.items():
+        check_support(torch, p, alive, plain, f"peel {name}")
+        ms = cuda_ms(lambda alive=alive: support_fine_cuda(p, alive), reps=20)
+        bound_ms, bound_by, nbytes, ops = support_bound(p, alive)
+        log(f"phase2 peel {name}: support_fine_cuda {ms:.4f} ms/call; support_steps {ops / 1e6:.2f} M; "
+            f"bound {bound_ms:.5f} ms by {bound_by} ({bound_ms / ms:.1%} of it); "
+            f"{worklist_counts(p, alive)}")
+
+
 def phase_pallas_path(torch, g):
     from repro_torch.kernels import support_fine_cuda
 
@@ -338,7 +450,54 @@ def phase_pallas_path(torch, g):
     if launches != trips or trips == 0:
         raise AssertionError(f"kernel launched {launches} times over {trips} peel trips")
     check_rmat15_results(g, futs)
-    return launches, futs, wall
+    return launches, futs, wall, trips
+
+
+def profiled_peel(torch, g, bucket) -> None:
+    """Phase 3's peel once more under ``torch.profiler`` (device activity
+    only): the device's busy share of the peel's wall, and the kernels that
+    take the most device time.  Run last: once the profiler has been
+    active, later launches in the process are slower."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.exec.peel import PeelExecutor
+
+    p = main_path_problem(g, bucket, slots=8)
+    slot_ids, k0, single = main_path_slots(torch, bucket)
+    exe = PeelExecutor(mode="owner", backend="pallas", window=bucket.window, chunk=256)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        exe.peel(p, slot_ids=slot_ids, k0=k0.cpu().numpy(), single_level=single.cpu().numpy())
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+
+    def device_us(e):
+        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA and device_us(e) > 0]
+    busy_ms = sum(device_us(e) for e in kernels) / 1e3
+    if not kernels:
+        log("phase3 profiled peel: the profiler saw no device time")
+        return
+    top = sorted(kernels, key=device_us, reverse=True)[:5]
+    log(f"phase3 profiled peel: wall {wall_ms:.1f} ms, device busy {busy_ms:.1f} ms "
+        f"({busy_ms / wall_ms:.1%} of the wall; idle {1 - busy_ms / wall_ms:.1%}); top kernels by "
+        "device time: " + "; ".join(
+            f"{e.key[:60]} {device_us(e) / 1e3:.1f} ms in {e.count} launches "
+            f"({device_us(e) / 1e3 / busy_ms:.1%})" for e in top))
+
+
+def phase_peel_split(torch, g, bucket, session_trips: int | None = None):
+    """Phase 3's peel again, through the executor alone, split into the
+    support passes and the rest of each trip; returns the problem and the
+    alive sets handed to the kernel."""
+    p, whole_ms, support_ms, trips, handed = instrumented_peel(torch, g, bucket)
+    if session_trips is not None and trips != session_trips:
+        raise AssertionError(f"executor peel took {trips} trips, the session's {session_trips}")
+    report_peel_split("phase3", whole_ms, support_ms, trips, handed)
+    return p, handed
 
 
 def phase_fused_main(torch, g, pallas_futs, pallas_wall) -> int:
@@ -430,12 +589,9 @@ def phase_fused_kernel(torch, g, bucket) -> dict:
         fused_level_torch,
     )
 
-    slots = 8
-    p = main_path_problem(g, bucket, slots=slots)
+    p = main_path_problem(g, bucket, slots=8)
     dev = p.device
-    slot_ids = torch.arange(slots, dtype=torch.int32, device=dev).repeat_interleave(bucket.nnz_pad)
-    k0 = torch.tensor([3, 3, 4] + [3] * (slots - 3), dtype=torch.int32, device=dev)
-    single = torch.tensor([False, False, True] + [False] * (slots - 3), device=dev)
+    slot_ids, k0, single = main_path_slots(torch, bucket)
     frozen = torch.zeros(p.nnz_pad, dtype=torch.bool, device=dev)
     ftruss = torch.zeros(p.nnz_pad, dtype=torch.int32, device=dev)
     st0 = init_peel_state(slot_ids, k0, p.colidx != 0, frozen, ftruss)
@@ -774,7 +930,39 @@ def phase_engine(torch, g, pallas_futs, smi) -> None:
         f"{time.perf_counter() - t0:.2f}s; card {smi}")
 
 
-def main() -> int:
+def support_only(torch, g, bucket, smi, sets_file: Path) -> int:
+    """Phase 2 and phase 3's kernel/rest split alone, for comparing the
+    support kernel of two trees in one session: the alive sets of the
+    peel are read from ``sets_file`` when it exists (written by an
+    earlier run), else taken from this run's peel and written there."""
+    phase_kernel(torch, g, bucket)
+    p, handed = phase_peel_split(torch, g, bucket)
+    if sets_file.exists():
+        sets = {k: v.cuda() for k, v in torch.load(sets_file).items()}
+        log(f"peel alive sets read from {sets_file}")
+    else:
+        sets = peel_sets(handed)
+        torch.save({k: v.cpu() for k, v in sets.items()}, sets_file)
+        log(f"peel alive sets written to {sets_file}")
+    del handed
+    phase_peel_sets(torch, p, bucket, sets)
+    del p, sets
+    profiled_peel(torch, g, bucket)
+    log(smi)
+    return 0
+
+
+def main(argv: list[str]) -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--support-only", action="store_true",
+                    help="run only the support kernel's phases (2 and 3's split)")
+    ap.add_argument("--src", type=Path, default=ROOT / "src",
+                    help="the src directory whose repro_torch to import (default: this checkout's)")
+    ap.add_argument("--sets", type=Path, default=None,
+                    help="with --support-only: file of the peel's alive sets (read, or written)")
+    args = ap.parse_args(argv)
     try:
         import torch
     except ImportError:
@@ -783,11 +971,14 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
-    if not (ROOT / "src" / "repro_torch").is_dir():
+    if not (args.src / "repro_torch").is_dir():
         print("chip_smoke: run from a checkout of the repository (src/repro_torch missing)",
               file=sys.stderr)
         return 2
-    sys.path.insert(0, str(ROOT / "src"))
+    if args.support_only and args.sets is None:
+        print("chip_smoke: --support-only needs --sets", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(args.src.resolve()))
     from repro_torch.api import bucket_for
     from repro_torch.configs import LARGE_GRAPHS
 
@@ -796,13 +987,21 @@ def main() -> int:
     g = next(b for b in LARGE_GRAPHS if b.name == "rmat-15").build()
     bucket = bucket_for(g, chunk=256)
     log(f"rmat-15: n={g.n} nnz={g.nnz} bucket={tuple(bucket)}")
+    if args.support_only:
+        return support_only(torch, g, bucket, smi, args.sets)
     numbers = phase_kernel(torch, g, bucket)
-    launches, pallas_futs, pallas_wall = phase_pallas_path(torch, g)
+    launches, pallas_futs, pallas_wall, trips = phase_pallas_path(torch, g)
+    p, handed = phase_peel_split(torch, g, bucket, trips)
+    sets = peel_sets(handed)
+    del handed
+    phase_peel_sets(torch, p, bucket, sets)
+    del p, sets
     phase_paths(torch)
     fused_launches = phase_fused_main(torch, g, pallas_futs, pallas_wall)
     fused_numbers = phase_fused_kernel(torch, g, bucket)
     dense_numbers = phase_dense(torch, g)
     phase_engine(torch, g, pallas_futs, smi)
+    profiled_peel(torch, g, bucket)
     kernels = [
         dict(
             name="support_fine_cuda",
@@ -840,4 +1039,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -163,11 +163,18 @@ def _peel_step(
     """One trip: support, prune, per-slot convergence and level bookkeeping."""
     num_slots = int(st.cur_k.shape[0])
     lane_k = st.cur_k[lanes]
+    lane_done = st.done[lanes]
     # Frozen lanes participate in supports exactly while the slot's
     # threshold is inside their truss: at level k the from-scratch k-truss
     # contains a frozen edge iff its trussness >= k.
     eff_alive = st.alive | (frozen & (frozen_truss >= lane_k))
-    s = support(p, eff_alive)
+    # A done slot is a fixed point: its last trip computed s on exactly its
+    # final effective alive set, retiring did not advance cur_k (so its
+    # frozen-live set is unchanged), and st.support holds that s on its
+    # alive lanes (0 elsewhere, where every output masks s out).  So the
+    # support function gets only the live slots' lanes, and a done slot's s
+    # is its st.support: every field stays what recomputing it would give.
+    s = torch.where(lane_done, st.support, support(p, eff_alive & ~lane_done))
     new_alive = st.alive & (s >= lane_k - 2)
     changed = _segment_sum(new_alive ^ st.alive, lanes, num_slots)
     converged = (changed == 0) & ~st.done

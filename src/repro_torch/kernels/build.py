@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by
 ``nvcc`` for Hopper (``sm_90a``) on first use, into ``_build/`` beside this
 file (listed in ``.gitignore``).  The library's file name carries a hash of
-the source and flags, so an edited source is rebuilt and an unchanged one
-is reused.  A failed build raises; nothing falls back.
+the source, the shared headers (``csrc/*.cuh``) and the flags, so an edited
+source or header is rebuilt and an unchanged one is reused.  A failed build
+raises; nothing falls back.
 """
 
 from __future__ import annotations
@@ -73,8 +74,9 @@ def load_library(name: str) -> BuiltLibrary:
         if name in _loaded:
             return _loaded[name]
         src = CSRC / f"{name}.cu"
+        headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
         digest = hashlib.sha256(
-            src.read_bytes() + "\0".join(NVCC_FLAGS).encode()
+            src.read_bytes() + headers + "\0".join(NVCC_FLAGS).encode()
         ).hexdigest()[:16]
         BUILD_DIR.mkdir(exist_ok=True)
         out = BUILD_DIR / f"{name}-{digest}.so"

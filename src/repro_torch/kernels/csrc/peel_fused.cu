@@ -86,14 +86,19 @@
 #include <limits.h>
 #include <stdint.h>
 
+#include "intersect.cuh"
+
 namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kWarp = 32;
+using intersect::count_flat;
+using intersect::kFull;
+using intersect::kWarp;
+using intersect::lower_bound;
+
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / kWarp;
-constexpr unsigned kFull = 0xffffffffu;
 constexpr int kUnroll = 4;  // groups of 32 row entries per step of the compaction
 
 // `counts` (int32, zeroed by the wrapper) holds the item cursors of the two
@@ -179,28 +184,8 @@ __device__ __forceinline__ int32_t row_start(const Args& a, int32_t v) {
   return v > 0 ? a.urowptr[v - 1] : 0;
 }
 
-// First index in [lo, hi) of the strictly ascending entries at `base` that
-// is >= v (hi when none is).  Plain (L1-cached) loads: the compacted rows
-// are written in phase 0 and only read after its grid barrier.
-__device__ __forceinline__ int32_t lower_bound(const int32_t* __restrict__ col, int32_t base,
-                                               int32_t lo, int32_t hi, int32_t v) {
-  while (lo < hi) {
-    const int32_t mid = (lo + hi) >> 1;
-    if (col[base + mid] < v) lo = mid + 1; else hi = mid;
-  }
-  return lo;
-}
-
 __device__ __forceinline__ int warp_sum(int v) {
   for (int offset = kWarp / 2; offset > 0; offset /= 2) v += __shfl_down_sync(kFull, v, offset);
-  return v;
-}
-
-__device__ __forceinline__ int warp_incl_scan(int v, int lane) {
-  for (int offset = 1; offset < kWarp; offset *= 2) {
-    const int n = __shfl_up_sync(kFull, v, offset);
-    if (lane >= offset) v += n;
-  }
   return v;
 }
 
@@ -294,33 +279,9 @@ __device__ void run_items(const Args& a, const int32_t* list, int64_t q0, int64_
   Item mine{-1, 0, 0, 0, 0, 1};
   if (lane < n_items) mine = resolve(a, list, q0 + lane, n_reg, latch);
   if (kBsearch) {
-    // One probe a thread over the items' chunks, flattened.
-    const int incl = warp_incl_scan(mine.n, lane);
-    const int total = __shfl_sync(kFull, incl, kWarp - 1);
-    warp_counts[lane] = 0;
-    __syncwarp();
-    for (int j0 = 0; j0 < total; j0 += kWarp) {  // warp-uniform
-      const int j = j0 + lane;
-      int k = 0;  // the item holding probe j: the first with incl > j
-#pragma unroll
-      for (int step = kWarp / 2; step > 0; step >>= 1)
-        if (__shfl_sync(kFull, incl, k + step - 1) <= j) k += step;
-      const int32_t s0 = __shfl_sync(kFull, mine.s0, k);
-      const int32_t first = __shfl_sync(kFull, incl - mine.n, k);
-      const int32_t l0 = __shfl_sync(kFull, mine.l0, k);
-      const int32_t dl = __shfl_sync(kFull, mine.dl, k);
-      if (j < total) {
-        // The entry's own flag is loaded before the search, which does not
-        // wait for it (a dead entry costs a search, not a serial L2 trip).
-        const int32_t u = s0 + (j - first);
-        const bool live_u = __ldcg(a.calive + u) != 0;
-        const int32_t v = a.ccol[u];
-        const int32_t pos = lower_bound(a.ccol, l0, 0, dl, v);
-        if (live_u && pos < dl && a.ccol[l0 + pos] == v && __ldcg(a.calive + l0 + pos))
-          atomicAdd(warp_counts + k, 1);
-      }
-    }
-    __syncwarp();
+    // One probe a thread over the items' chunks, flattened.  The flags
+    // (calive) are cleared by other CTAs during the launch: read via L2.
+    count_flat<true>(a.ccol, a.calive, mine.s0, mine.n, mine.l0, mine.dl, warp_counts, lane);
     if (lane < n_items) put_result(a, mine, warp_counts[lane]);
     __syncwarp();
   } else {

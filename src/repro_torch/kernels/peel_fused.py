@@ -54,6 +54,7 @@ __all__ = [
     "load_peel_fused",
     "scratch_elements",
     "split_items",
+    "split_lanes",
     "SPLIT_ROW",
     "SPLIT_WAYS",
     "NUM_STAMPS",
@@ -104,11 +105,19 @@ def split_items(
     eff = alive if frozen_live is None else alive | frozen_live
     ualive = undirected_alive(p, eff)
     cdeg = torch.zeros_like(p.udeg).index_add_(0, p.uedge_row.long(), ualive.to(torch.int32))
-    real = p.colidx != 0
-    short = torch.minimum(cdeg[p.edge_row.long()], cdeg[p.colidx.long()])
-    split = alive & real & (short > SPLIT_ROW)
-    n_split = int(split.sum())
+    n_split = int(split_lanes(p, alive, cdeg).sum())
     return int(alive.sum()) - n_split, n_split
+
+
+def split_lanes(p: FineProblem, alive: torch.Tensor, row_len: torch.Tensor) -> torch.Tensor:
+    """The lanes of ``alive`` that become :data:`SPLIT_WAYS` work items: the
+    real lanes whose shorter row has more than :data:`SPLIT_ROW` entries,
+    with ``row_len`` the length per vertex of the rows the kernel walks (the
+    rows compacted at launch here; the whole rows in
+    ``repro_torch.kernels.support_fine``).  The one split rule of both
+    kernels."""
+    short = torch.minimum(row_len[p.edge_row.long()], row_len[p.colidx.long()])
+    return alive & (p.colidx != 0) & (short > SPLIT_ROW)
 
 
 def _geometry(p: FineProblem, state: PeelState, block: int) -> tuple[int, int]:

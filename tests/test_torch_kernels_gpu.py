@@ -63,6 +63,72 @@ def test_kernel_on_aligned_pack_with_pad_lanes_between_rows(cuda):
         assert np.array_equal(got[a:b].cpu().numpy(), support_numpy(g)), g.name
 
 
+def _support_case(name, cuda):
+    """(problem, window, alive) of one edge case of the support kernel."""
+    if name == "split_hub":  # every clique lane's shorter row exceeds SPLIT_ROW
+        g = _star_clique()
+        p = prepare_fine(g, chunk=64, device=cuda)
+        return p, bucket_for(g, chunk=64).window, p.colidx != 0
+    gs = [f() for f in GRAPHS]
+    b = [bucket_for(g, chunk=64) for g in gs]
+    pp = tg.pack_problems(
+        gs, slot_n=max(x.n_pad for x in b), slot_nnz=max(x.nnz_pad for x in b), slots=8,
+        chunk=64, layout="aligned", device=cuda,
+    )
+    p, w = pp.problem, max(x.window for x in b)
+    if name == "all_dead":  # an empty worklist
+        return p, w, torch.zeros(p.nnz_pad, dtype=torch.bool, device=cuda)
+    # one_live_slot: only the barabasi slot (the fourth of eight) is alive
+    a, e = pp.edge_ranges[3]
+    alive = torch.zeros(p.nnz_pad, dtype=torch.bool, device=cuda)
+    alive[a:e] = True
+    return p, w, alive & (p.colidx != 0)
+
+
+@pytest.mark.parametrize("name", ["split_hub", "all_dead", "one_live_slot"])
+def test_kernel_matches_plain_version_on_edge_cases(cuda, name):
+    from repro_torch.kernels.support_fine import worklist
+
+    p, w, alive = _support_case(name, cuda)
+    before = support_fine_cuda.launches
+    got = support_fine_cuda(p, alive)
+    torch.cuda.synchronize()
+    assert support_fine_cuda.launches == before + 1
+    want = support_fine_owner(p, alive, window=w, chunk=64)
+    assert got.dtype == torch.int32 and torch.equal(got, want), name
+    wl = worklist(p, alive)
+    assert (wl.split.numel() > 0) == (name == "split_hub")
+    assert (wl.items == 0) == (name == "all_dead")
+    if name == "all_dead":
+        assert not bool(got.any())
+    if name == "one_live_slot":
+        assert bool(got.any()) and not bool(got[~alive].any())
+
+
+@pytest.mark.parametrize("stage", [0, 1], ids=["worklist", "items"])
+def test_support_launch_error_raises(cuda, monkeypatch, stage):
+    """2,048 threads a block is more than a CTA can have: the runtime refuses
+    that launch, and the wrapper raises instead of returning a support
+    (there is no fallback to the plain version).  Either of the kernel's two
+    launches is checked; a later good call is not charged with the error."""
+    import importlib
+
+    # The module (the package's `support_fine` attribute is the function).
+    sf = importlib.import_module("repro_torch.kernels.support_fine")
+
+    p, w, alive = _support_case("split_hub", cuda)
+    threads = [256, 256]
+    threads[stage] = 2048
+    monkeypatch.setattr(sf, "_LAUNCH_THREADS", tuple(threads))
+    before = support_fine_cuda.launches
+    with pytest.raises(RuntimeError, match="launch failed"):
+        support_fine_cuda(p, alive)
+    assert support_fine_cuda.launches == before
+    monkeypatch.undo()
+    got = support_fine_cuda(p, alive)
+    assert torch.equal(got, support_fine_owner(p, alive, window=w, chunk=64))
+
+
 def test_kernel_refuses_wrong_inputs(cuda):
     g = GRAPHS[0]()
     p = prepare_fine(g, chunk=64, device=cuda)
