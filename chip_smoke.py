@@ -32,9 +32,10 @@ Phases (any failure exits non-zero):
    device's busy share of the peel and the kernels with the most device
    time.
 4. every ``configs.BENCH_GRAPHS`` graph decomposed through
-   ``fine/fused/aligned``, ``fine/pallas/aligned`` and
-   ``fine/xla/aligned``; trussness must agree bit for bit, and equal
-   ``trussness_numpy`` on er-4k and clustered-32x40.  Then each graph's
+   ``fine/fused/aligned`` and ``fine/pallas/aligned``, and those whose
+   bucket window is at most 64 also through ``fine/xla/aligned``;
+   trussness must agree bit for bit, and equal ``trussness_numpy`` on
+   er-4k and clustered-32x40.  Then each graph's
    bucket is swept by ``autotune_fused`` over every autotune candidate,
    timed and not stored.
 5. main path, full size: the same rmat-15 batch through ``Session`` with
@@ -69,6 +70,23 @@ Phases (any failure exits non-zero):
    fine/owner/pallas, bucketed) on ``ENGINE_GRID_GRAPH``: all agree on
    ``ktruss(4)``; each one's ``support()`` time and ME/s (the paper's
    Table I in miniature).
+9. streaming K-truss on rmat-15 (``repro_torch.stream``): ``edge_triangles``
+   on the card, timed, its count (3T) equal to the sum of
+   ``support_fine_cuda`` over every real lane and its triples equal to the
+   CPU's in order; one stream on ``Session(max_batch=8)`` (the auto rule:
+   ``fine/fused/aligned``) seeded by an empty update (its one full
+   enumeration), then two balanced batches at each width 1, 16 and 256,
+   each update bit for bit equal to a from-scratch decompose on
+   ``fine/pallas/aligned``, every edge whose trussness changed inside the
+   frontier (recomputed by a full enumeration), with its wall and spans;
+   ``fused_level_cuda``'s first level and ``support_fine_cuda`` on
+   ``alive | frozen-live`` against their plain versions on two updates'
+   lowered inputs (the first width-256 batch, the first width-1 batch);
+   8 streams' updates on one session coalescing into one dispatch; a
+   checkpoint restored on the card that continues identically without a
+   full enumeration; ``TrussService(backend="pallas")``'s
+   ``submit_stream`` and ``open_stream`` equal to the stream.  The
+   kernels' launches by these stream calls join their ``launches``.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 lists each kernel with its launches on its path and its times.
@@ -96,6 +114,7 @@ MEM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 INT_OPS_PER_S = 67e12  # H100 SXM non-tensor peak, the table's float32 row
 INT8_TENSOR_OPS_PER_S = 1979e12  # H100 SXM dense int8 tensor-core peak
 SEED_MASKS = (101, 202, 303)
+XLA_MAX_WINDOW = 64  # phase 4 runs fine/xla/aligned on buckets this narrow
 ENGINE_GRID_GRAPH = "ba-6k"  # BENCH_GRAPHS: skewed (coarse imbalance 395), coarse O(n·W²) still quick
 
 
@@ -327,15 +346,16 @@ def run_session(torch, g, **kw):
     return session, futs, time.perf_counter() - t0
 
 
-def executor_of(session, g, backend: str):
-    """The session's cached executor for ``g``'s bucket on ``backend``."""
+def executor_of(session, g, backend: str, *, built: bool = True):
+    """The session's executor for ``g``'s bucket on ``backend``: the one its
+    dispatch used (``built``), or the one its next dispatch will use."""
     from repro_torch.api import bucket_for, get_backend
 
     planner = session.planner
     bucket = bucket_for(g, chunk=planner.chunk)
     variant = planner.cache_variant(get_backend(backend).key, bucket, planner.max_batch)
     exe, hit = session.cache.get(bucket, planner.max_batch, variant)
-    if not hit:
+    if built and not hit:
         raise AssertionError(f"no cached {backend} executor for {g.name}")
     return exe
 
@@ -500,7 +520,7 @@ def phase_peel_split(torch, g, bucket, session_trips: int | None = None):
     return p, handed
 
 
-def phase_fused_main(torch, g, pallas_futs, pallas_wall) -> int:
+def phase_fused_main(torch, g, pallas_futs, pallas_wall):
     from repro_torch.kernels import support_fine_cuda
     from repro_torch.kernels.peel_fused import fused_level_cuda
 
@@ -544,7 +564,7 @@ def phase_fused_main(torch, g, pallas_futs, pallas_wall) -> int:
         if not same:
             raise AssertionError(f"{name}: fused and pallas results differ")
     log("phase5 fused results == fine/pallas/aligned results for decompose, kmax, ktruss(4)")
-    return launches
+    return launches, futs
 
 
 def fused_trip_alive_sets(p, st0, frozen, ftruss, trips: int):
@@ -696,25 +716,35 @@ def phase_fused_kernel(torch, g, bucket) -> dict:
 
 
 def phase_paths(torch) -> None:
-    from repro_torch.api import Session, TrussQuery
+    from repro_torch.api import Session, TrussQuery, bucket_for
     from repro_torch.configs import BENCH_GRAPHS
     from repro_torch.core import trussness_numpy
 
     graphs = [b.build() for b in BENCH_GRAPHS]
+    # The torch-ops backend gathers (E, window) per trip: on the skewed
+    # buckets (windows 512 and 1024) it took most of the run's time, so it
+    # runs on the narrow-window graphs only.
+    narrow = [g for g in graphs if bucket_for(g, chunk=256).window <= XLA_MAX_WINDOW]
     out = {}
-    for backend in ("fine/fused/aligned", "fine/pallas/aligned", "fine/xla/aligned"):
+    for backend, members in (("fine/fused/aligned", graphs), ("fine/pallas/aligned", graphs),
+                             ("fine/xla/aligned", narrow)):
         session = Session(max_batch=8, device="cuda", backend=backend)
         t0 = time.perf_counter()
-        out[backend] = session.solve([TrussQuery.decompose(g) for g in graphs])
+        results = session.solve([TrussQuery.decompose(g) for g in members])
+        out[backend] = dict(zip((g.name for g in members), results))
         torch.cuda.synchronize()
-        log(f"phase4 {backend}: {time.perf_counter() - t0:.2f}s, dispatches {session.device_dispatches}")
+        log(f"phase4 {backend}: {time.perf_counter() - t0:.2f}s over {len(members)} graphs, "
+            f"dispatches {session.device_dispatches}")
     ref = out["fine/pallas/aligned"]
     for backend in ("fine/fused/aligned", "fine/xla/aligned"):
-        for g, a, b in zip(graphs, out[backend], ref):
+        for name, a in out[backend].items():
+            b = ref[name]
             if not (a.trussness == b.trussness).all() or (a.kmax, a.levels) != (b.kmax, b.levels):
-                raise AssertionError(f"{g.name}: {backend} and fine/pallas/aligned disagree")
-    for g, a in zip(graphs, ref):
-        log(f"phase4 {g.name}: n={g.n} nnz={g.nnz} kmax={a.kmax} levels={a.levels} agree on all three")
+                raise AssertionError(f"{name}: {backend} and fine/pallas/aligned disagree")
+    for g in graphs:
+        a = ref[g.name]
+        agree = "all three" if g.name in out["fine/xla/aligned"] else "fused and pallas"
+        log(f"phase4 {g.name}: n={g.n} nnz={g.nnz} kmax={a.kmax} levels={a.levels} agree on {agree}")
         if g.name in ("er-4k", "clustered-32x40"):
             if not (a.trussness == trussness_numpy(g)).all():
                 raise AssertionError(f"{g.name}: trussness != numpy oracle")
@@ -930,6 +960,328 @@ def phase_engine(torch, g, pallas_futs, smi) -> None:
         f"{time.perf_counter() - t0:.2f}s; card {smi}")
 
 
+STREAM_WIDTHS = (1, 16, 256)  # the reference stream_bench's batch widths
+STREAM_BATCHES = 2  # per width
+# The update's top-level spans, in order (peel-level spans nest in dispatch).
+STREAM_SPANS = ("stream.delta", "stream.triangles", "stream.frontier", "plan", "pack", "compile",
+                "dispatch", "device-wait", "unpack")
+# Updates whose lowered inputs hold the frozen-lane kernels: the first
+# width-256 batch, and the first width-1 batch (one insert: a small
+# frontier, most lanes frozen and live).
+HELD_UPDATES = ((256, 0), (1, 0))
+
+
+def balanced_batches(rng, g, width: int, count: int):
+    """``count`` balanced, conflict-free batches of ``width`` updates against
+    ``g`` (the reference ``stream_bench``'s rule): half inserts and half
+    deletes, width 1 alternating insert and delete; inserts are fresh
+    pairs, deletes existing edges not deleted by an earlier batch."""
+    from repro_torch.stream import EdgeBatch
+
+    existing = set(map(tuple, (g.edge_list() - 1).tolist()))
+    deletable = sorted(existing)
+    batches, flip = [], False
+    for _ in range(count):
+        n_del = width // 2 if width > 1 else (1 if flip else 0)
+        n_ins = width - n_del
+        flip = not flip
+        ins = []
+        while len(ins) < n_ins:
+            a, b = int(rng.integers(0, g.n)), int(rng.integers(0, g.n))
+            key = (min(a, b), max(a, b))
+            if a != b and key not in existing:
+                ins.append(key)
+                existing.add(key)
+        dels = [deletable[i] for i in sorted(rng.permutation(len(deletable))[:n_del], reverse=True)]
+        for d in dels:
+            deletable.remove(d)
+            existing.discard(d)
+        batches.append(EdgeBatch.of(ins, dels))
+    return batches
+
+
+class LaunchCounts:
+    """Launches of the two peel kernels made by stream-path calls only:
+    each counted call zeroes the kernels' counts just before and reads
+    them just after, so checks between calls are not counted."""
+
+    def __init__(self):
+        self.fused = self.support = 0
+
+    def run(self, fn):
+        from repro_torch.kernels import support_fine_cuda
+        from repro_torch.kernels.peel_fused import fused_level_cuda
+
+        fused_level_cuda.launches = support_fine_cuda.launches = 0
+        out = fn()
+        self.fused += fused_level_cuda.launches
+        self.support += support_fine_cuda.launches
+        return out
+
+
+def scratch_trussness(scratch, graphs):
+    """From-scratch decompose of each graph through ``scratch`` (a session
+    pinned to ``fine/pallas/aligned``), one dispatch."""
+    from repro_torch.api import TrussQuery
+
+    return [r.trussness for r in scratch.solve([TrussQuery.decompose(x) for x in graphs])]
+
+
+def independent_frontier(g_old, t_old, batch):
+    """The update's delta, its frontier by a full enumeration of the union
+    graph on the card (not the session's cache), and the carried
+    trussness on the new graph's edges."""
+    import numpy as np
+
+    from repro_torch.stream import apply_batch, compute_frontier
+
+    delta = apply_batch(g_old, batch)
+    fr = compute_frontier(t_old, delta, device="cuda")
+    carry = np.full(delta.new_graph.nnz, 2, np.int32)
+    shared = delta.new2old >= 0
+    carry[shared] = t_old[delta.new2old[shared]]
+    return delta, fr, carry
+
+
+def check_update(res, fr, carry, want, what: str) -> None:
+    """An update against from-scratch trussness and its frontier."""
+    import numpy as np
+
+    if res.trussness.dtype != np.int32 or not np.array_equal(res.trussness, want):
+        raise AssertionError(f"{what}: trussness != the from-scratch fine/pallas/aligned decompose")
+    if fr.size != res.frontier_size:
+        raise AssertionError(f"{what}: frontier {res.frontier_size} != {fr.size} by a full enumeration")
+    outside = int(((res.trussness != carry) & ~fr.frontier).sum())
+    if outside:
+        raise AssertionError(f"{what}: {outside} edges changed trussness outside the frontier")
+
+
+class PeelCapture:
+    """Records the arguments of one executor's next ``peel`` calls (the
+    lowered stream_update's packed problem and frozen lanes)."""
+
+    def __init__(self, exe):
+        self.exe, self.calls = exe, []
+
+    def __enter__(self):
+        real = self.exe.peel
+
+        def peel(p, **kw):
+            self.calls.append(dict(p=p, **{k: v.clone() if hasattr(v, "clone") else v
+                                           for k, v in kw.items()}))
+            return real(p, **kw)
+
+        self.exe.peel = peel
+        return self
+
+    def __exit__(self, *exc):
+        del self.exe.peel
+
+
+def hold_frozen_kernels(torch, held, window: int, key) -> float:
+    """``fused_level_cuda``'s first level and ``support_fine_cuda`` on
+    ``alive | frozen-live``, on one real stream update's lowered inputs,
+    each bit for bit against its plain version; returns the max abs error."""
+    import numpy as np
+
+    from repro_torch.core import support_fine_owner
+    from repro_torch.exec.peel import init_peel_state
+    from repro_torch.kernels import support_fine_cuda
+    from repro_torch.kernels.peel_fused import fused_level_cuda, fused_level_torch
+
+    call, exe = held
+    p, dev = call["p"], call["p"].device
+    k0 = torch.as_tensor(np.asarray(call["k0"], np.int32), device=dev)
+    single = torch.as_tensor(np.asarray(call["single_level"], bool), device=dev)
+    slot_ids = call["slot_ids"].to(dev, torch.int32)
+    alive0, frozen, ftruss = call["alive0"], call["frozen"], call["frozen_truss"]
+    st0 = init_peel_state(slot_ids, k0, alive0, frozen, ftruss)
+    cfg = exe.fused_config
+    got = fused_level_cuda(p, st0, frozen, ftruss, single, block=cfg.block, schedule=cfg.schedule)
+    want = fused_level_torch(p, st0, frozen, ftruss, single, window=window, block=cfg.block)
+    err = 0
+    for f in got._fields:
+        a, b = getattr(got, f), getattr(want, f)
+        if a.dtype != b.dtype or a.shape != b.shape or not torch.equal(a, b):
+            raise AssertionError(f"fused_level_cuda field {f} != fused_level_torch on frozen lanes")
+        err = max(err, int((a.long() - b.long()).abs().max()) if a.numel() else 0)
+    lanes_k = k0[slot_ids.long()]
+    eff = alive0 | (frozen & (ftruss >= lanes_k))
+    s_got = support_fine_cuda(p, eff)
+    s_want = support_fine_owner(p, eff, window=window, chunk=1024)
+    if not torch.equal(s_got, s_want):
+        raise AssertionError("support_fine_cuda != support_fine_owner on alive | frozen-live")
+    err = max(err, int((s_got.long() - s_want.long()).abs().max()))
+    log(f"phase9 frozen-lane kernels on the width-{key[0]} batch-{key[1]} update's lowered "
+        f"inputs: alive0 {int(alive0.sum())} lanes, frozen {int(frozen.sum())} (live at the first "
+        f"level {int((eff & ~alive0).sum())}); fused_level_cuda first level ({int(got.total_iters)} inner "
+        f"trips, block {cfg.block}/{cfg.schedule}) == fused_level_torch on all {len(got._fields)} "
+        f"fields; support_fine_cuda == support_fine_owner (sum {int(s_got.long().sum())}); "
+        f"max_abs_err {err}")
+    return err
+
+
+def span_ms(tracer) -> dict:
+    """Summed host durations (ms) of the stream spans recorded since the
+    tracer was last cleared."""
+    out = dict.fromkeys(STREAM_SPANS, 0.0)
+    for ev in tracer.events():
+        if ev["name"] in out:
+            out[ev["name"]] += ev["dur"] / 1e3
+    return out
+
+
+def phase_stream(torch, g, dec) -> dict:
+    """Streaming K-truss on the card at full width (rmat-15); returns the
+    stream path's launches of the two peel kernels."""
+    import statistics
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.api import Session, bucket_for
+    from repro_torch.core import prepare_fine
+    from repro_torch.kernels import support_fine_cuda
+    from repro_torch.resilience import restore_session
+    from repro_torch.service import TrussService
+    from repro_torch.stream import ENUM_COUNTS, EdgeBatch, edge_triangles
+
+    counts = LaunchCounts()
+    t_phase = time.perf_counter()
+
+    # 1. The one full enumeration, on the card; its count against the
+    # support kernel and its order against the CPU's.
+    tri_ms = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tri = edge_triangles(g, device="cuda")
+        torch.cuda.synchronize()
+        tri_ms.append((time.perf_counter() - t0) * 1e3)
+    p1 = prepare_fine(g, chunk=256, device="cuda")
+    sup = support_fine_cuda(p1, p1.colidx != 0)
+    total = int(sup[p1.colidx != 0].long().sum())
+    if tri.device.type != "cuda" or 3 * tri.shape[0] != total:
+        raise AssertionError(f"3 x {tri.shape[0]} triangles != {total}, the support kernel's sum")
+    cpu_tri = edge_triangles(g, device="cpu")
+    if not torch.equal(tri.cpu(), cpu_tri):
+        raise AssertionError("edge_triangles on the card != on the CPU (values or order)")
+    log(f"phase9 edge_triangles rmat-15 on the card: {tri.shape[0]} triangles, 3T = {total} = "
+        f"sum of support_fine_cuda over every real lane; == the CPU's, in order; "
+        f"median {statistics.median(tri_ms):.1f} ms of 3 ({', '.join(f'{t:.1f}' for t in tri_ms)})")
+    del p1, sup, tri, cpu_tri
+
+    # 2. One stream on the auto rule, balanced batches by width.
+    session = Session(max_batch=8, device="cuda", trace=True)
+    scratch = Session(max_batch=1, device="cuda", backend="fine/pallas/aligned")
+    stream = session.open_stream(g, trussness=dec.trussness)
+    tracer = session.obs.tracer
+    full0 = ENUM_COUNTS["full"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    seed_res = counts.run(lambda: stream.update(EdgeBatch.of()))  # seeds the triangle cache
+    seed_ms = (time.perf_counter() - t0) * 1e3
+    if seed_res.dispatches or ENUM_COUNTS["full"] != full0 + 1:
+        raise AssertionError("the empty seeding update dispatched or did not enumerate once")
+    log(f"phase9 stream opened on Session(max_batch=8), auto rule; empty update (the one full "
+        f"enumeration + an empty frontier): {seed_ms:.1f} ms, {stream.stats()['cached_triangles']} "
+        f"cached triangles, 0 dispatches; spans " + ", ".join(
+            f"{k} {v:.1f} ms" for k, v in span_ms(tracer).items()))
+    rng = np.random.default_rng(16)
+    held = {}  # (width, batch) -> the update's lowered peel arguments and executor
+    for width in STREAM_WIDTHS:
+        for i, batch in enumerate(balanced_batches(rng, stream.graph, width, STREAM_BATCHES)):
+            g_old, t_old = stream.graph, stream.trussness
+            delta, fr, carry = independent_frontier(g_old, t_old, batch)
+            exe = executor_of(session, delta.new_graph, "fine/fused/aligned", built=False)
+            tracer.clear()
+            with PeelCapture(exe) as cap:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                res = counts.run(lambda b=batch: stream.update(b))
+                torch.cuda.synchronize()
+                wall_ms = (time.perf_counter() - t0) * 1e3
+            spans = span_ms(tracer)
+            want = scratch_trussness(scratch, [delta.new_graph])[0]
+            check_update(res, fr, carry, want, f"width {width} batch {i}")
+            if (width, i) in HELD_UPDATES:
+                if len(cap.calls) != 1:
+                    raise AssertionError(f"the width-{width} update made {len(cap.calls)} peels")
+                held[width, i] = (cap.calls[0], exe)
+            log(f"phase9 width {width} batch {i}: +{res.num_inserts}/-{res.num_deletes}, frontier "
+                f"{res.frontier_size} ({res.frontier_frac:.4f} of {res.num_edges}), closure rounds "
+                f"{fr.rounds}, union triangles {fr.num_triangles}, dispatches {res.dispatches}; "
+                f"update wall {wall_ms:.1f} ms = " + ", ".join(
+                    f"{k} {v:.1f} ms" for k, v in spans.items())
+                + f", outside spans {wall_ms - sum(spans.values()):.1f} ms; "
+                "== from-scratch fine/pallas/aligned")
+    if stream.metrics.value("stream_enumerations", kind="full") != 1:
+        raise AssertionError("the stream enumerated all triangles more than once")
+    if counts.fused == 0:
+        raise AssertionError("the stream updates never launched fused_level_cuda")
+    log(f"phase9 stream: {stream.stats()}; fused_level_cuda launches {counts.fused}")
+
+    # 3. The frozen-lane kernels on real updates' lowered inputs.
+    window = bucket_for(stream.graph, chunk=256).window
+    err = max(hold_frozen_kernels(torch, held[key], window, key) for key in HELD_UPDATES)
+    del held
+
+    # 4. Eight streams' updates coalesce into one dispatch.
+    co = Session(max_batch=8, device="cuda")
+    streams = [co.open_stream(g, trussness=dec.trussness) for _ in range(8)]
+    batches = [balanced_batches(np.random.default_rng(100 + i), g, 16, 1)[0] for i in range(8)]
+    before = co.device_dispatches
+    t0 = time.perf_counter()
+    pend = [s.submit_update(b) for s, b in zip(streams, batches)]
+    counts.run(co.flush)
+    results = [p.result() for p in pend]
+    co_ms = (time.perf_counter() - t0) * 1e3
+    if co.device_dispatches != before + 1:
+        raise AssertionError(f"8 stream updates made {co.device_dispatches - before} dispatches")
+    wants = scratch_trussness(Session(max_batch=8, device="cuda", backend="fine/pallas/aligned"),
+                              [s.graph for s in streams])
+    for i, (r, w) in enumerate(zip(results, wants)):
+        if not np.array_equal(r.trussness, w):
+            raise AssertionError(f"coalesced stream {i} != its from-scratch decompose")
+    log(f"phase9 8 streams on one Session(max_batch=8): submit_update x 8 + flush = 1 dispatch; "
+        f"{co_ms:.1f} ms (8 full enumerations included); frontiers "
+        f"{[r.frontier_size for r in results]}; each == from-scratch")
+    del streams, pend, results, co
+
+    # 5. Checkpoint, restore on the card, continue; the legacy adapter.
+    with tempfile.TemporaryDirectory() as tmp:
+        path = stream.checkpoint(f"{tmp}/stream.npz")
+        restored = restore_session(path, max_batch=8)
+    if restored.device.type != "cuda" or restored._tri_cache.tri_keys.device.type != "cuda":
+        raise AssertionError("the restored stream is not on the card")
+    b1, b2 = balanced_batches(np.random.default_rng(7), stream.graph, 16, 2)
+    full0 = ENUM_COUNTS["full"]
+    ra = counts.run(lambda: stream.update(b1))
+    rb = counts.run(lambda: restored.update(b1))
+    if not np.array_equal(ra.trussness, rb.trussness) or ENUM_COUNTS["full"] != full0:
+        raise AssertionError("the restored stream diverged or re-enumerated")
+    g1, t1 = stream.graph, stream.trussness
+    delta, fr, carry = independent_frontier(g1, t1, b2)
+    r2 = counts.run(lambda: stream.update(b2))
+    svc = TrussService(backend="pallas", max_batch=8)
+    got = counts.run(lambda: svc.submit_stream(
+        delta.new_graph, frontier=fr.frontier,
+        frozen_truss=np.where(fr.frontier, 0, carry).astype(np.int32)).result())
+    opened = svc.open_stream(g1, trussness=t1)
+    got_open = counts.run(lambda: opened.update(b2))
+    for name, t in (("submit_stream", got), ("open_stream", got_open.trussness)):
+        if not np.array_equal(t, r2.trussness):
+            raise AssertionError(f"TrussService(backend='pallas').{name} != the stream's update")
+    if counts.support == 0:
+        raise AssertionError("the pallas adapter's stream path never launched support_fine_cuda")
+    log(f"phase9 checkpoint -> restore_session on the card -> the same batch: identical, no full "
+        f"enumeration; TrussService(backend='pallas') submit_stream and open_stream update == the "
+        f"stream's (frontier {r2.frontier_size}); support_fine_cuda launches {counts.support}")
+    log(f"phase9 stream phase {time.perf_counter() - t_phase:.1f}s; stream-path launches: "
+        f"fused_level_cuda {counts.fused}, support_fine_cuda {counts.support}")
+    return dict(fused=counts.fused, support=counts.support, max_abs_err=err)
+
+
 def support_only(torch, g, bucket, smi, sets_file: Path) -> int:
     """Phase 2 and phase 3's kernel/rest split alone, for comparing the
     support kernel of two trees in one session: the alive sets of the
@@ -997,18 +1349,22 @@ def main(argv: list[str]) -> int:
     phase_peel_sets(torch, p, bucket, sets)
     del p, sets
     phase_paths(torch)
-    fused_launches = phase_fused_main(torch, g, pallas_futs, pallas_wall)
+    fused_launches, fused_futs = phase_fused_main(torch, g, pallas_futs, pallas_wall)
     fused_numbers = phase_fused_kernel(torch, g, bucket)
     dense_numbers = phase_dense(torch, g)
     phase_engine(torch, g, pallas_futs, smi)
+    stream = phase_stream(torch, g, fused_futs[0].result())
+    del fused_futs
     profiled_peel(torch, g, bucket)
+    for nums in (numbers, fused_numbers):  # the frozen-lane checks count too
+        nums["max_abs_err"] = max(nums["max_abs_err"], stream["max_abs_err"])
     kernels = [
         dict(
             name="support_fine_cuda",
             route="cuda",
             source="src/repro_torch/kernels/csrc/support_fine.cu",
             replaces="src/repro/kernels/support_fine.py:86",
-            launches=launches,
+            launches=launches + stream["support"],
             **numbers,
         ),
         dict(
@@ -1016,7 +1372,7 @@ def main(argv: list[str]) -> int:
             route="cuda",
             source="src/repro_torch/kernels/csrc/peel_fused.cu",
             replaces="src/repro/kernels/peel_fused.py:260",
-            launches=fused_launches,
+            launches=fused_launches + stream["fused"],
             **fused_numbers,
         ),
         dict(

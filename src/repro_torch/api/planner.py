@@ -85,6 +85,19 @@ class QueryState:
         deadline), on the observability clock."""
         return obs_clock.remaining(self.submitted_at, self.query.deadline_s)
 
+    # Legacy aliases (the old service Request shape) ------------------- #
+    @property
+    def graph(self):
+        return self.query.graph
+
+    @property
+    def workload(self) -> str:
+        return self.query.workload
+
+    @property
+    def k(self) -> int:
+        return self.query.k
+
 
 @dataclasses.dataclass
 class PlannedBatch:

@@ -18,6 +18,7 @@ import threading
 from collections import deque
 from typing import Any
 
+import numpy as np
 import torch
 
 from ..errors import TrussError
@@ -332,6 +333,26 @@ class Session:
             results = [f.result() for f in futs]
         self.obs.export_trace()  # no-op unless a trace path is configured
         return results
+
+    def open_stream(
+        self,
+        g,
+        trussness: np.ndarray | None = None,
+        *,
+        cache_triangles: bool = True,
+    ):
+        """Open a :class:`repro_torch.stream.StreamingTrussSession` on this
+        session (its triangle state and frontier on this session's device).
+
+        Runs the initial full decompose through the ordinary batched path
+        unless ``trussness`` is supplied; subsequent ``update()`` batches
+        are frontier-bounded ``stream_update`` queries on this queue.
+        """
+        from ..stream.session import StreamingTrussSession  # lazy: no cycle
+
+        return StreamingTrussSession(
+            self, g, trussness=trussness, cache_triangles=cache_triangles
+        )
 
     def executor_for(self, g):
         """The peel executor a query on ``g`` lowers onto, built on first

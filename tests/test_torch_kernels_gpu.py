@@ -433,3 +433,39 @@ def test_engine_pallas_goes_through_the_kernel(cuda):
     assert got.iterations == want.iterations
     assert eng.kmax() == ref.kmax()
     assert np.array_equal(eng.decompose().trussness, ref.decompose().trussness)
+
+
+def test_stream_update_on_the_card_matches_scratch_decompose(cuda):
+    """A real ``StreamingTrussSession`` on a skewed graph (planned on
+    ``fine/fused/aligned``, frozen lanes through ``fused_level_cuda``):
+    every update equals a from-scratch decompose on ``fine/pallas/aligned``,
+    and the card's triangle enumeration equals the CPU's, in order."""
+    from repro_torch.api import Session, TrussQuery
+    from repro_torch.kernels.peel_fused import fused_level_cuda
+    from repro_torch.stream import EdgeBatch, StreamingTrussSession, edge_triangles
+
+    g = tg.rmat(10, seed=0)
+    got = edge_triangles(g, chunk=512, device=cuda)
+    assert got.device.type == "cuda"
+    assert torch.equal(got.cpu(), edge_triangles(g, chunk=512, device="cpu"))
+    sess = StreamingTrussSession.for_graph(g, device=cuda, chunk=256)
+    scratch = Session(device=cuda, backend="fine/pallas/aligned", max_batch=1, chunk=256)
+    rng = np.random.default_rng(3)
+    for width in (1, 1, 16, 64):
+        existing = set(map(tuple, (sess.graph.edge_list() - 1).tolist()))
+        ins = set()
+        while len(ins) < max(width // 2, 1):
+            a, b = sorted(int(x) for x in rng.integers(0, g.n, 2))
+            if a != b and (a, b) not in existing:
+                ins.add((a, b))
+        el = sess.graph.edge_list() - 1
+        dels = [tuple(e) for e in el[rng.permutation(len(el))[: width // 2]]]
+        before = fused_level_cuda.launches
+        res = sess.update(EdgeBatch.of(sorted(ins), dels))
+        assert res.dispatches == 1 and fused_level_cuda.launches > before
+        want = scratch.submit(TrussQuery.decompose(sess.graph)).result().trussness
+        assert np.array_equal(res.trussness, want), width
+    backends = {row["backend"] for row in sess.api.stats()["planner_backends"]}
+    assert backends == {"fine/fused/aligned"}
+    assert sess.metrics.value("stream_enumerations", kind="full") == 1
+    assert sess._tri_cache.tri_keys.device.type == "cuda"
