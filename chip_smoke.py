@@ -87,9 +87,40 @@ Phases (any failure exits non-zero):
    full enumeration; ``TrussService(backend="pallas")``'s
    ``submit_stream`` and ``open_stream`` equal to the stream.  The
    kernels' launches by these stream calls join their ``launches``.
+10. resilience and the serving fleet on the card, rmat-15 at full width.
+   The phase-5 batch through ``Session(max_batch=8)`` (auto rule:
+   ``fine/fused/aligned``) under five faults, each case's answers equal to
+   phase 5's wherever a query succeeds: an injected ``compile`` fault on
+   ``fine/fused/aligned`` (the batch lands on ``fine/pallas/aligned``:
+   ``support_fine_cuda`` runs that peel's trips, the fused kernel none); an
+   injected ``dispatch`` fault (one retry, the fused kernel launched once
+   per level step); the kmax query poisoned (only it fails, typed); and a
+   real kernel fault: the fused library's launch symbol wrapped to return
+   ``cudaErrorCooperativeLaunchTooLarge`` through the wrapper's own error
+   path, so every query fails with ``QueryFailedError`` caused by
+   ``DeviceError(site="fused_level")`` with no retry, no fallback, no
+   support-kernel launch and no call of the plain level, and the same
+   session serves the batch correctly once the symbol is restored; and a
+   real OOM allocating the fused kernel's scratch (its sizing asks for 4
+   TiB), failing every query the same way with nothing else run.  Then
+   ``Fleet(2, device="cuda", max_batch=8)``, both replicas warmed on
+   rmat-15 from the kernel libraries phase 1 built (no new file in
+   ``kernels/_build/``): ``FleetClient.solve`` equal to phase 5, every
+   replica's health report holding rmat-15's bucket, the router's
+   accounting adding up, and a stream on rmat-15 fed one of phase 9's
+   width-16 batches, its owner killed, the second batch applied on the
+   survivor (``seq == 2``) equal to an in-process stream fed both.  The
+   in-process launches of phase 10 join the kernels' ``launches``.
+
+Phases 1-9 must end with no retry, fallback, injected fault or quarantine
+in any session they drive (checked before phase 10 over the process-wide
+metrics registry, which every session's counters add to); the script
+refuses to start when ``REPRO_FAULTS`` is set.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
-lists each kernel with its launches on its path and its times.
+lists each kernel with its launches on its paths (``launches`` is their sum,
+``launches_by_path`` the count of each phase that drove it, each read with
+the counts zeroed just before) and its times.
 
     python3 chip_smoke.py --support-only --sets FILE [--src DIR]
 
@@ -104,6 +135,7 @@ non-zero without one, or outside a checkout of the repository.
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import time
@@ -360,6 +392,19 @@ def executor_of(session, g, backend: str, *, built: bool = True):
     return exe
 
 
+RESILIENCE_KEYS = ("retries", "backend_fallbacks", "faults_injected", "queries_quarantined")
+
+
+def same_result(name: str, a, b) -> bool:
+    """One rmat-15 query's answers equal, bit for bit."""
+    if name == "decompose":
+        return (a.kmax, a.levels) == (b.kmax, b.levels) and bool((a.trussness == b.trussness).all())
+    if name == "kmax":
+        return a == b
+    return (a.iterations, a.edges_remaining) == (b.iterations, b.edges_remaining) and bool(
+        (a.alive == b.alive).all() and (a.support == b.support).all())
+
+
 def check_rmat15_results(g, futs) -> None:
     from repro_torch.core import support_numpy
 
@@ -552,19 +597,11 @@ def phase_fused_main(torch, g, pallas_futs, pallas_wall):
         )
     check_rmat15_results(g, futs)
     for name, f, pf in zip(QUERIES, futs, pallas_futs):
-        a, b = f.result(), pf.result()
         same = (f.stats.rounds, f.stats.iterations) == (pf.stats.rounds, pf.stats.iterations)
-        if name == "decompose":
-            same &= (a.kmax, a.levels) == (b.kmax, b.levels) and bool((a.trussness == b.trussness).all())
-        elif name == "kmax":
-            same &= a == b
-        else:
-            same &= (a.iterations, a.edges_remaining) == (b.iterations, b.edges_remaining)
-            same &= bool((a.alive == b.alive).all() and (a.support == b.support).all())
-        if not same:
+        if not (same and same_result(name, f.result(), pf.result())):
             raise AssertionError(f"{name}: fused and pallas results differ")
     log("phase5 fused results == fine/pallas/aligned results for decompose, kmax, ktruss(4)")
-    return launches, futs
+    return launches, futs, wall
 
 
 def fused_trip_alive_sets(p, st0, frozen, ftruss, trips: int):
@@ -1282,6 +1319,268 @@ def phase_stream(torch, g, dec) -> dict:
     return dict(fused=counts.fused, support=counts.support, max_abs_err=err)
 
 
+def check_phases_clean() -> None:
+    """Every session of phases 1-9 chains its metrics to the process-wide
+    registry, so zero there means zero in each of them."""
+    from repro_torch.obs import get_registry
+
+    counters = get_registry().snapshot()["counters"]
+    moved = {k: v for k, v in counters.items() if k.split("{")[0] in RESILIENCE_KEYS and v}
+    if moved:
+        raise AssertionError(f"phases 1-9 moved resilience counters: {moved}")
+    log("phases 1-9: retries, backend_fallbacks, faults_injected, queries_quarantined all 0 "
+        "over every session (the process-wide registry)")
+
+
+COOPERATIVE_LAUNCH_TOO_LARGE = 720  # cudaError_t cudaErrorCooperativeLaunchTooLarge
+
+
+def resilience_case(torch, g, faults, counts, *, poison_kmax: bool = False):
+    """The phase-5 batch through a fresh ``Session(max_batch=8)`` (auto rule)
+    under ``faults``: the session, its futures, its wall, its launches."""
+    from repro_torch.api import Session
+    from repro_torch.resilience import parse_faults
+
+    session = Session(device="cuda", max_batch=8, faults=parse_faults(faults) if faults else None)
+    futs = [session.submit(q) for q in rmat15_queries(g)]
+    if poison_kmax:
+        session.faults = parse_faults(f"poison:times=*:where.query={futs[1].request.id}")
+    case = LaunchCounts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    case.run(session.flush)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts.fused += case.fused
+    counts.support += case.support
+    return session, futs, wall, case
+
+
+def report_case(tag: str, session, wall: float, case) -> None:
+    st = session.stats()
+    log(f"phase10 {tag}: {wall:.2f}s wall; " + ", ".join(
+        f"{k} {st[k]}" for k in RESILIENCE_KEYS + ("batch_bisects", "queries_failed"))
+        + f"; launches fused_level_cuda {case.fused}, support_fine_cuda {case.support}")
+
+
+def check_case_results(tag: str, futs, want, skip=()) -> None:
+    for i, (name, f, w) in enumerate(zip(QUERIES, futs, want)):
+        if i not in skip and not same_result(name, f.result(), w):
+            raise AssertionError(f"phase10 {tag}: {name} != phase 5's")
+
+
+def phase_resilience(torch, g, want, level_steps: int) -> dict:
+    """Five faults through the main path's session on the card; returns the
+    phase's in-process launches of the two peel kernels."""
+    import repro_torch.kernels.peel_fused as kpf
+    from repro_torch.api import QueryFailedError
+    from repro_torch.errors import DeviceError, InvalidGraphError
+
+    counts = LaunchCounts()
+
+    # 1. An injected compile fault on the fused backend: one step down.
+    s, futs, wall, case = resilience_case(
+        torch, g, "compile:times=1:where.backend=fine/fused/aligned", counts)
+    report_case("compile fault on fine/fused/aligned", s, wall, case)
+    ran = {str(f.stats.backend) for f in futs}
+    trips = futs[0].stats.dispatch_trips
+    if ran != {"fine/pallas/aligned"} or s.backend_fallbacks != 1 or s.retries:
+        raise AssertionError(f"compile fault: ran on {ran}, {s.stats()}")
+    if case.support != trips or trips == 0 or case.fused:
+        raise AssertionError(f"compile fault: support launches {case.support} over {trips} trips, "
+                             f"fused {case.fused}")
+    check_case_results("compile fault", futs, want)
+
+    # 2. An injected dispatch fault: one retry on the same backend.
+    s, futs, wall, case = resilience_case(torch, g, "dispatch:times=1", counts)
+    report_case("dispatch fault", s, wall, case)
+    steps = int(s.obs.metrics.value("peel_fused_levels"))
+    if s.retries != 1 or s.backend_fallbacks or {str(f.stats.backend) for f in futs} != {
+            "fine/fused/aligned"}:
+        raise AssertionError(f"dispatch fault: {s.stats()}")
+    if case.fused != steps or steps != level_steps or case.support:
+        raise AssertionError(f"dispatch fault: fused launches {case.fused}, level steps {steps} "
+                             f"(phase 5: {level_steps}), support {case.support}")
+    check_case_results("dispatch fault", futs, want)
+
+    # 3. The kmax query poisoned: it alone fails, typed.
+    s, futs, wall, case = resilience_case(torch, g, None, counts, poison_kmax=True)
+    report_case("kmax poisoned", s, wall, case)
+    try:
+        futs[1].result()
+        raise AssertionError("the poisoned kmax query resolved")
+    except QueryFailedError as e:
+        if e.query_id != futs[1].request.id or not isinstance(e.cause, InvalidGraphError) \
+                or not e.cause.injected:
+            raise AssertionError(f"poisoned kmax failed as {e!r} (cause {e.cause!r})") from e
+    if s.queries_quarantined != 1 or s.queries_failed != 1:
+        raise AssertionError(f"kmax poisoned: {s.stats()}")
+    check_case_results("kmax poisoned", futs, want, skip=(1,))
+
+    # 4. A real kernel fault: the fused launch refused, through the wrapper's
+    # own error path; no retry, no fallback, no plain level.
+    built = kpf.load_peel_fused()
+    launch, plain = built.lib.peel_fused_launch, kpf.fused_level_torch
+    plain_calls = []
+
+    def refused(*args):
+        return COOPERATIVE_LAUNCH_TOO_LARGE
+
+    def plain_spy(*args, **kwargs):
+        plain_calls.append(1)
+        raise AssertionError("the fused level's plain version ran")
+
+    built.lib.peel_fused_launch, kpf.fused_level_torch = refused, plain_spy
+    try:
+        s, futs, wall, case = resilience_case(torch, g, None, counts)
+    finally:
+        built.lib.peel_fused_launch, kpf.fused_level_torch = launch, plain
+    report_case("fused launch refused (cudaError 720)", s, wall, case)
+    causes = []
+    for f in futs:
+        try:
+            f.result()
+            raise AssertionError("a query resolved although its launch was refused")
+        except QueryFailedError as e:
+            causes.append(e.cause)
+            if not isinstance(e.cause, DeviceError) or e.cause.site != "fused_level" \
+                    or e.cause.injected or not e.cause.kernel_fault \
+                    or [str(b) for b in e.backends_tried] != [
+                        "fine/fused/aligned"]:
+                raise AssertionError(f"kernel fault surfaced as {e!r} (cause {e.cause!r}, "
+                                     f"backends {e.backends_tried})") from e
+    if s.retries or s.backend_fallbacks or s.batch_bisects or case.support or case.fused \
+            or plain_calls:
+        raise AssertionError(f"kernel fault was retried or answered elsewhere: {s.stats()}, "
+                             f"launches {case.fused}/{case.support}, plain {len(plain_calls)}")
+    log(f"phase10 kernel fault: every query QueryFailedError <- {causes[0]}")
+    again = [s.submit(q) for q in rmat15_queries(g)]
+    case = LaunchCounts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    case.run(s.flush)
+    torch.cuda.synchronize()
+    counts.fused += case.fused
+    check_case_results("served again after the kernel fault", again, want)
+    if case.fused != level_steps:
+        raise AssertionError(f"served again: {case.fused} fused launches, expected {level_steps}")
+    log(f"phase10 the same session serves the batch again: {time.perf_counter() - t0:.2f}s, "
+        f"{case.fused} fused launches, == phase 5")
+
+    # 5. A real OOM allocating the fused kernel's scratch (its sizing asks
+    # for 4 TiB): a kernel fault too, with no plain level and no step down.
+    sizing = kpf.scratch_elements
+    kpf.scratch_elements = lambda *a: {**sizing(*a), "acc": 1 << 40}
+    kpf.fused_level_torch = plain_spy
+    try:
+        s, futs, wall, case = resilience_case(torch, g, None, counts)
+    finally:
+        kpf.scratch_elements, kpf.fused_level_torch = sizing, plain
+    report_case("fused scratch OOM", s, wall, case)
+    for f in futs:
+        try:
+            f.result()
+            raise AssertionError("a query resolved although its kernel's scratch was refused")
+        except QueryFailedError as e:
+            if not isinstance(e.cause, DeviceError) or not e.cause.oom \
+                    or not e.cause.kernel_fault \
+                    or not isinstance(e.cause.cause, torch.OutOfMemoryError) \
+                    or [str(b) for b in e.backends_tried] != ["fine/fused/aligned"]:
+                raise AssertionError(f"scratch OOM surfaced as {e!r} (cause {e.cause!r}, "
+                                     f"backends {e.backends_tried})") from e
+    if s.retries or s.backend_fallbacks or s.batch_bisects or case.support or case.fused \
+            or plain_calls:
+        raise AssertionError(f"scratch OOM was retried or answered elsewhere: {s.stats()}, "
+                             f"launches {case.fused}/{case.support}, plain {len(plain_calls)}")
+    log("phase10 scratch OOM: every query QueryFailedError <- DeviceError(oom=True) "
+        "<- torch.OutOfMemoryError, nothing else ran")
+    return dict(fused=counts.fused, support=counts.support)
+
+
+FLEET_WARMUP = {"kind": "rmat", "scale": 15, "edge_factor": 8, "seed": 21}  # rmat-15
+
+
+def phase_fleet(torch, g, want, p5_wall: float) -> None:
+    """Two replica processes on the card: solve, health, a stream handed off."""
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.api import Session, bucket_for, bucket_str
+    from repro_torch.kernels.build import BUILD_DIR
+    from repro_torch.serve import Fleet, FleetClient
+
+    libs = sorted(p.name for p in BUILD_DIR.iterdir())
+    b1, b2 = balanced_batches(np.random.default_rng(7), g, 16, 2)  # phase 9's width-16 pair
+    local = Session(max_batch=8, device="cuda").open_stream(g, trussness=want[0].trussness)
+    local.update(b1)
+    lres = local.update(b2)
+    with tempfile.TemporaryDirectory() as tmp:  # what each fleet update also writes
+        t0 = time.perf_counter()
+        local.checkpoint(f"{tmp}/stream.npz")
+        ckpt_s = time.perf_counter() - t0
+    del local
+    torch.cuda.empty_cache()
+    label = bucket_str(bucket_for(g, chunk=256))
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        with Fleet(2, workdir=tmp, device="cuda", max_batch=8, warmup=[FLEET_WARMUP],
+                   warmup_all=True) as fleet:
+            start_s = time.perf_counter() - t0
+            client = FleetClient(fleet)
+            t0 = time.perf_counter()
+            got = client.solve(rmat15_queries(g))
+            solve_s = time.perf_counter() - t0
+            for name, r, w in zip(QUERIES, got, want):
+                if not same_result(name, r, w):
+                    raise AssertionError(f"fleet {name} != phase 5's")
+            reports = fleet.router.poll_health()
+            for name, rep in sorted(reports.items()):
+                if label not in rep.compiled_buckets or rep.warmup_queries != 1:
+                    raise AssertionError(f"{name}: buckets {rep.compiled_buckets}, "
+                                         f"warmup {rep.warmup_queries}")
+                if rep.retries or rep.queries_quarantined or rep.queries_failed:
+                    raise AssertionError(f"{name}: {rep}")
+            if len(reports) != 2:
+                raise AssertionError(f"health from {sorted(reports)} only")
+            st = client.stats()
+            if st["routed"] != st["affinity_hits"] + st["spillovers"] + st["cold_assignments"]:
+                raise AssertionError(f"router accounting: {st}")
+            log(f"phase10 fleet: 2 replicas up in {start_s:.2f}s (spawn, CUDA init, rmat-15 "
+                f"warmup each); solve {solve_s:.2f}s through the fleet vs {p5_wall:.2f}s "
+                f"in-process (phase 5), == phase 5; both replicas hold {label}; routed "
+                f"{st['routed']} = {st['affinity_hits']} affinity + {st['spillovers']} spill + "
+                f"{st['cold_assignments']} cold")
+            t0 = time.perf_counter()
+            stream = client.open_stream(g)
+            open_s = time.perf_counter() - t0
+            owner = stream.owner
+            t0 = time.perf_counter()
+            stream.update(b1)
+            update_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            fleet.kill(owner)
+            kill_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            reply = stream.update(b2)
+            handoff_s = time.perf_counter() - t0
+            handoffs = int(fleet.router.metrics.value("fleet_stream_handoffs",
+                                                      stream=stream.stream_id))
+            if stream.owner == owner or stream.seq != 2 or reply["seq"] != 2 or handoffs < 1:
+                raise AssertionError(f"handoff: owner {owner} -> {stream.owner}, seq "
+                                     f"{stream.seq}, handoffs {handoffs}")
+            if not np.array_equal(stream.trussness, lres.trussness) or stream.kmax != lres.kmax:
+                raise AssertionError("the handed-off stream != the in-process stream")
+            log(f"phase10 fleet stream: open {open_s:.2f}s, width-16 update {update_s:.2f}s on "
+                f"{owner}; kill + warm restore on the survivor {kill_s:.2f}s; the second update "
+                f"{handoff_s:.2f}s on {stream.owner} (seq 2, frontier {reply['frontier_size']}), "
+                f"== the in-process stream; fleet_stream_handoffs {handoffs}; each replica "
+                f"update also writes a checkpoint: {ckpt_s:.2f}s for the same state in process")
+    if sorted(p.name for p in BUILD_DIR.iterdir()) != libs:
+        raise AssertionError("a replica built a kernel library (phase 1's should be reused)")
+    log(f"phase10 replicas reused phase 1's libraries: kernels/_build/ unchanged ({len(libs)} files)")
+
+
 def support_only(torch, g, bucket, smi, sets_file: Path) -> int:
     """Phase 2 and phase 3's kernel/rest split alone, for comparing the
     support kernel of two trees in one session: the alive sets of the
@@ -1330,6 +1629,10 @@ def main(argv: list[str]) -> int:
     if args.support_only and args.sets is None:
         print("chip_smoke: --support-only needs --sets", file=sys.stderr)
         return 2
+    if os.environ.get("REPRO_FAULTS"):
+        print("chip_smoke: REPRO_FAULTS is set; no fault may be injected into the smoke run",
+              file=sys.stderr)
+        return 2
     sys.path.insert(0, str(args.src.resolve()))
     from repro_torch.api import bucket_for
     from repro_torch.configs import LARGE_GRAPHS
@@ -1349,12 +1652,19 @@ def main(argv: list[str]) -> int:
     phase_peel_sets(torch, p, bucket, sets)
     del p, sets
     phase_paths(torch)
-    fused_launches, fused_futs = phase_fused_main(torch, g, pallas_futs, pallas_wall)
+    fused_launches, fused_futs, fused_wall = phase_fused_main(torch, g, pallas_futs, pallas_wall)
     fused_numbers = phase_fused_kernel(torch, g, bucket)
     dense_numbers = phase_dense(torch, g)
     phase_engine(torch, g, pallas_futs, smi)
     stream = phase_stream(torch, g, fused_futs[0].result())
+    want = [f.result() for f in fused_futs]
     del fused_futs
+    check_phases_clean()
+    t10 = time.perf_counter()
+    resilience = phase_resilience(torch, g, want, fused_launches)
+    phase_fleet(torch, g, want, fused_wall)
+    log(f"phase10 {time.perf_counter() - t10:.1f}s")
+    del want
     profiled_peel(torch, g, bucket)
     for nums in (numbers, fused_numbers):  # the frozen-lane checks count too
         nums["max_abs_err"] = max(nums["max_abs_err"], stream["max_abs_err"])
@@ -1364,7 +1674,10 @@ def main(argv: list[str]) -> int:
             route="cuda",
             source="src/repro_torch/kernels/csrc/support_fine.cu",
             replaces="src/repro/kernels/support_fine.py:86",
-            launches=launches + stream["support"],
+            launches=launches + stream["support"] + resilience["support"],
+            launches_by_path=dict(
+                phase3=launches, phase9=stream["support"], phase10=resilience["support"]
+            ),
             **numbers,
         ),
         dict(
@@ -1372,7 +1685,10 @@ def main(argv: list[str]) -> int:
             route="cuda",
             source="src/repro_torch/kernels/csrc/peel_fused.cu",
             replaces="src/repro/kernels/peel_fused.py:260",
-            launches=fused_launches + stream["fused"],
+            launches=fused_launches + stream["fused"] + resilience["fused"],
+            launches_by_path=dict(
+                phase5=fused_launches, phase9=stream["fused"], phase10=resilience["fused"]
+            ),
             **fused_numbers,
         ),
         dict(
@@ -1380,6 +1696,7 @@ def main(argv: list[str]) -> int:
             route="cuda",
             source="src/repro_torch/kernels/csrc/support_dense.cu",
             replaces="src/repro/kernels/support_dense.py:45",
+            launches_by_path=dict(phase7=dense_numbers["launches"]),
             **dense_numbers,
         ),
     ]

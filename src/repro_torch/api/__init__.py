@@ -38,6 +38,7 @@ from .registry import (
     available_backends,
     choose_backend,
     default_kernel,
+    fallback_backends,
     get_backend,
     register_backend,
 )
@@ -77,6 +78,7 @@ __all__ = [
     "available_backends",
     "choose_backend",
     "default_kernel",
+    "fallback_backends",
     # shape buckets + executor cache
     "Bucket",
     "bucket_for",

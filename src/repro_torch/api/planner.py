@@ -33,14 +33,21 @@ import torch
 
 from ..core.truss import KTrussResult, TrussDecomposition
 from ..device import resolve_device
-from ..errors import DeviceError, TrussError
+from ..errors import DeviceError, InvalidGraphError, TrussError
 from ..graphs.pack import pack_problems
 from ..graphs.stats import imbalance_stats
 from ..obs import clock as obs_clock
 from ..obs import current_tracer, record_peel_batch
+from ..resilience.faults import inject
 from .cache import Bucket, CompileCache, bucket_for
 from .query import TrussQuery
-from .registry import BackendKey, choose_backend, default_kernel, get_backend
+from .registry import (
+    BackendKey,
+    choose_backend,
+    default_kernel,
+    get_backend,
+    runs_hand_kernel,
+)
 
 __all__ = ["RequestStats", "QueryState", "PlannedBatch", "Plan", "Planner"]
 
@@ -289,6 +296,38 @@ class Planner:
             ids[a:b] = i
         return torch.from_numpy(ids).to(self.device)
 
+    def _typed_fault(self, err: Exception, bucket: Bucket, backend: BackendKey) -> TrussError:
+        """``err`` as the resilience runner receives it: typed, and marked
+        ``kernel_fault`` under the port's kernel-fault rule.
+
+        The rule is decided here and nowhere else.  A failure raised while
+        a hand-written CUDA kernel's backend runs on the card
+        (:func:`~repro_torch.api.registry.runs_hand_kernel`) is a kernel
+        fault unless it was injected, is bad input, or is the peel's
+        iteration cap (``site="peel"``): a wrapper's typed launch error,
+        ``nvcc`` missing or failing, and anything raw on the way (an OOM
+        allocating a kernel's scratch, a wrapper's argument check).  The
+        runner fails the batch at once on it, with no retry and no
+        fallback (``repro_torch.resilience.runner``).  Raw failures of any
+        backend become typed device faults.
+        """
+        if not isinstance(err, TrussError):
+            err = DeviceError(
+                f"peel dispatch failed on backend {backend}: {err}",
+                bucket=bucket,
+                backend=backend,
+                oom=isinstance(err, torch.OutOfMemoryError),
+                cause=err,
+            )
+        if (
+            runs_hand_kernel(backend, self.device)
+            and not err.injected
+            and not isinstance(err, InvalidGraphError)
+            and not (isinstance(err, DeviceError) and err.site == "peel")
+        ):
+            err.kernel_fault = True
+        return err
+
     def execute(self, batch: PlannedBatch, cache: CompileCache) -> list[Any]:
         """Run one planned batch — ONE dispatch — and unpack results.
 
@@ -298,6 +337,19 @@ class Planner:
         """
         bucket, backend, queries = batch.bucket, batch.backend, batch.queries
         tracer = current_tracer()
+        qids = tuple(st.id for st in queries)
+        # Fault sites (repro_torch.resilience.faults), the reference's:
+        # no-ops without an active FaultPlan; under one, these are where the
+        # chaos suite makes the dispatch fail in every taxonomy-distinct way.
+        for i, st in enumerate(queries):
+            inject(
+                "poison",
+                slot=i,
+                query=st.id,
+                queries=qids,
+                bucket=bucket,
+                backend=str(backend),
+            )
         t0 = obs_clock.now()
         with tracer.span(
             "pack", members=len(queries), slots=batch.slots, layout=backend.layout
@@ -313,9 +365,13 @@ class Planner:
             )
         pack_dt = obs_clock.now() - t0
         with tracer.span("compile", backend=str(backend)) as span:
-            exe, hit = cache.get(
-                bucket, batch.slots, self.cache_variant(backend, bucket, batch.slots)
-            )
+            inject("compile", bucket=bucket, backend=str(backend), queries=qids)
+            try:
+                exe, hit = cache.get(
+                    bucket, batch.slots, self.cache_variant(backend, bucket, batch.slots)
+                )
+            except TrussError as e:
+                raise self._typed_fault(e, bucket, backend)
             span.attrs["hit"] = hit
         for st in queries:
             st.stats.pack_time_s = pack_dt
@@ -354,6 +410,9 @@ class Planner:
 
         # peel() synchronizes (its loop reads back the done flags), so dt
         # covers the whole dispatch.
+        inject("clock_skew", bucket=bucket, backend=str(backend), queries=qids)
+        inject("device_oom", bucket=bucket, backend=str(backend), queries=qids)
+        inject("dispatch", bucket=bucket, backend=str(backend), queries=qids)
         t0 = obs_clock.now()
         try:
             st_dev = exe.peel(
@@ -365,18 +424,11 @@ class Planner:
                 frozen=frozen,
                 frozen_truss=frozen_truss,
             )
-        except TrussError:
-            raise  # already typed (iteration cap)
         except Exception as e:
-            # Raw kernel/torch failures (a CUDA kernel that fails to build or
-            # launch included) become typed device faults — raised, never
-            # hidden behind another backend.
-            raise DeviceError(
-                f"peel dispatch failed on backend {backend}: {e}",
-                bucket=bucket,
-                backend=backend,
-                cause=e,
-            ) from e
+            fault = self._typed_fault(e, bucket, backend)
+            if fault is e:
+                raise
+            raise fault from e
         dt = obs_clock.now() - t0
 
         with tracer.span("unpack", members=len(queries)):

@@ -45,6 +45,8 @@ __all__ = [
     "available_backends",
     "choose_backend",
     "default_kernel",
+    "fallback_backends",
+    "runs_hand_kernel",
 ]
 
 FORMULATIONS = ("coarse", "fine")
@@ -192,6 +194,57 @@ def choose_backend(
     if key not in _REGISTRY:
         raise KeyError(f"auto-chosen backend {key} is not registered")
     return key
+
+
+# The kernels whose backends run one of the port's hand-written CUDA
+# kernels: ``pallas`` the support kernel, ``fused`` the fused level kernel.
+HAND_KERNELS = ("pallas", "fused")
+
+
+def runs_hand_kernel(key: Union[BackendKey, str, tuple], device) -> bool:
+    """Does ``key`` launch a hand-written CUDA kernel on ``device``?
+
+    On the CPU every backend runs its plain torch version, so only a CUDA
+    device counts.  The port's kernel-fault rule and its fallback chain
+    both read this one predicate (``Planner.execute``, :func:`fallback_backends`).
+    """
+    return get_backend(key).key.kernel in HAND_KERNELS and torch.device(device).type == "cuda"
+
+
+def fallback_backends(
+    key: Union[BackendKey, str, tuple], *, device=None
+) -> tuple[BackendKey, ...]:
+    """The degradation chain below ``key``, most-capable first.
+
+    The reference's chain, step for step: every registered backend is
+    bit-identical, so falling down it on a compile/kernel fault trades
+    performance for availability, never correctness.  The chain steps down
+    one axis at a time and **preserves the layout**:
+
+    1. ``fused -> pallas`` — same formulation, same layout: the fused
+       level kernel's unfused twin, the hand-written support kernel;
+    2. ``pallas -> xla`` — same formulation, same layout: the torch-ops
+       twin;
+    3. ``fine -> coarse`` on ``xla`` — the row-task formulation as the
+       last resort.
+
+    Only registered keys are returned, and never ``key`` itself.  On a
+    CUDA ``device`` a hand-kernel backend never steps down to a torch-ops
+    one: its chain keeps only hand-kernel backends (``fused -> pallas``),
+    so no fault, injected or not, is answered by a plain version on the
+    card.  ``device=None`` gives the reference's chain.
+    """
+    key = get_backend(key).key
+    chain: list[BackendKey] = []
+    if key.kernel == "fused":
+        chain.append(BackendKey(key.formulation, "pallas", key.layout))
+    if key.kernel in ("pallas", "fused"):
+        chain.append(BackendKey(key.formulation, "xla", key.layout))
+    if key.formulation == "fine":
+        chain.append(BackendKey("coarse", "xla", key.layout))
+    if device is not None and runs_hand_kernel(key, device):
+        chain = [k for k in chain if k.kernel in HAND_KERNELS]
+    return tuple(k for k in chain if k != key and k in _REGISTRY)
 
 
 def _register_defaults() -> None:

@@ -14,6 +14,7 @@ lives in :class:`repro_torch.api.Planner`.
 
 from __future__ import annotations
 
+import contextlib
 import threading
 from collections import deque
 from typing import Any
@@ -21,9 +22,11 @@ from typing import Any
 import numpy as np
 import torch
 
-from ..errors import TrussError
 from ..obs import MetricsRegistry, Observability
 from ..obs import clock as obs_clock
+from ..resilience.faults import FaultPlan, use_plan
+from ..resilience.retry import RetryPolicy
+from ..resilience.runner import ResilientRunner
 from .cache import CompileCache, bucket_for, enable_persistent_cache
 from .errors import TrussTimeoutError
 from .planner import PlannedBatch, Planner, QueryState
@@ -211,12 +214,21 @@ class Session:
         ``solve()``/``flush()``; ``None`` consults ``REPRO_TRACE``.
       metrics: route this session's metrics into an existing
         :class:`repro_torch.obs.MetricsRegistry`.
+      faults: a :class:`repro_torch.resilience.FaultPlan` injected at the
+        planner's fault sites for this session's dispatches (``None``
+        consults the ``REPRO_FAULTS`` env var; production leaves both
+        unset — the hooks are no-ops).
+      retry: the :class:`repro_torch.resilience.RetryPolicy` governing
+        retry/backoff, registry fallback, and batch bisection (default
+        policy: 3 attempts, exponential backoff, fallback + bisect on).
       shed_on_timeout: when a ``result(timeout=...)`` expires, mark the
         query dead and reclaim its queue slot (default).
 
-    A dispatch that raises a typed :class:`repro_torch.errors.TrussError`
-    fails every future of its batch with that error; any other exception
-    fails them and propagates.
+    Dispatches run through a :class:`repro_torch.resilience.ResilientRunner`:
+    typed faults become per-query outcomes (quarantine, retry, fallback,
+    bisect), except that a real launch or build failure of a hand-written
+    CUDA kernel fails its batch's queries at once, with no retry and no
+    fallback; any non-taxonomy exception fails the batch and propagates.
     """
 
     def __init__(
@@ -233,6 +245,8 @@ class Session:
         cache_dir: str | None = None,
         trace: bool | str | None = None,
         metrics: MetricsRegistry | None = None,
+        faults: FaultPlan | None = None,
+        retry: RetryPolicy | None = None,
         shed_on_timeout: bool = True,
     ):
         if cache_dir is not None:
@@ -258,7 +272,15 @@ class Session:
         self.queue = QueryQueue(max_batch=max_batch)  # guarded-by: _cv
         self._futures: dict[int, TrussFuture] = {}  # guarded-by: _cv
         self._inflight: set[int] = set()  # guarded-by: _cv
+        self.faults = faults if faults is not None else FaultPlan.from_env()
+        self.retry = retry or RetryPolicy()
         self.shed_on_timeout = bool(shed_on_timeout)
+        self.runner = ResilientRunner(
+            self._dispatch_once,
+            policy=self.retry,
+            metrics=self.obs.metrics,
+            device=self.planner.device,
+        )
 
     # Convenience mirrors of the planner's config ----------------------- #
     @property
@@ -297,6 +319,38 @@ class Session:
     @property
     def queries_shed(self) -> int:
         return int(self.obs.metrics.value("queries_shed"))
+
+    def _counter_total(self, name: str) -> int:
+        """Sum a counter across every label series (e.g. retries{backend=})."""
+        prefix = name + "{"
+        return int(
+            sum(
+                v
+                for k, v in self.obs.metrics.snapshot()["counters"].items()
+                if k == name or k.startswith(prefix)
+            )
+        )
+
+    # Resilience counters (repro_torch.resilience.runner / faults) ------ #
+    @property
+    def retries(self) -> int:
+        return self._counter_total("retries")
+
+    @property
+    def backend_fallbacks(self) -> int:
+        return self._counter_total("backend_fallbacks")
+
+    @property
+    def queries_quarantined(self) -> int:
+        return int(self.obs.metrics.value("queries_quarantined"))
+
+    @property
+    def batch_bisects(self) -> int:
+        return int(self.obs.metrics.value("batch_bisects"))
+
+    @property
+    def faults_injected(self) -> int:
+        return self._counter_total("faults_injected")
 
     # ------------------------------------------------------------------ #
     # Submission
@@ -396,6 +450,22 @@ class Session:
         self.obs.export_trace()  # no-op unless a trace path is configured
         return n
 
+    def drain(self, timeout_s: float | None = None) -> int:
+        """Serve everything pending to completion — the serving tier's
+        pre-shutdown hook.  Flushes the queue, then waits out batches in
+        flight on other threads (up to ``timeout_s``; ``None`` = until
+        they resolve).  Returns how many queries this call resolved."""
+        n = self.flush()
+        deadline = (
+            obs_clock.now() + timeout_s if timeout_s is not None else None
+        )
+        with self._cv:
+            while self._inflight:
+                if deadline is not None and obs_clock.now() >= deadline:
+                    break
+                self._cv.wait(timeout=0.05)
+        return n
+
     def _form_batch(self, group=None) -> list[QueryState]:
         """Atomically dequeue one micro-batch and mark it in flight."""
         with self._cv:
@@ -412,10 +482,18 @@ class Session:
             slots=self.planner.max_batch,
         )
 
-    def _dispatch(self, planned: PlannedBatch) -> list[Any]:
-        """One packed dispatch under the session's obs sinks; counts the
-        per-dispatch serving metrics on success."""
-        with self.obs.activate():
+    def _dispatch_once(self, planned: PlannedBatch) -> list[Any]:
+        """One attempt at one packed dispatch (the runner's retry unit).
+
+        Activates the session's obs sinks and fault plan around the
+        planner, and counts the per-dispatch serving metrics only on
+        success — a retried dispatch is one dispatch, not two.
+        """
+        ctx = contextlib.ExitStack()
+        ctx.enter_context(self.obs.activate())
+        if self.faults is not None:
+            ctx.enter_context(use_plan(self.faults))
+        with ctx:
             results = self.planner.execute(planned, self.cache)
         batch = planned.queries
         m = self.obs.metrics
@@ -444,37 +522,39 @@ class Session:
         self.obs.metrics.inc("queries_shed")
         self.obs.metrics.set_gauge("queue_depth", depth)
 
-    def _finish(self, batch: list[QueryState], results=None, error=None) -> None:
-        """Resolve (or fail) every still-owned future of a dequeued batch."""
+    def _run_batch(self, planned: PlannedBatch) -> int:
+        batch = planned.queries
+        # The batch was already dequeued, so its futures must always end
+        # up resolved or failed.  The runner turns member/device/compile
+        # faults into per-query outcomes (quarantine, retry, fallback,
+        # bisect; a hand kernel's own fault fails the batch at once);
+        # anything non-taxonomy still fails everyone and propagates.
+        try:
+            outcomes = self.runner.run(planned)
+        except Exception as e:
+            with self._cv:
+                for st in batch:
+                    fut = self._futures.pop(st.id, None)
+                    self._inflight.discard(st.id)
+                    if fut is not None:
+                        fut._fail(e)
+                self._cv.notify_all()
+            raise
+        m = self.obs.metrics
         with self._cv:
-            for i, st in enumerate(batch):
-                fut = self._futures.pop(st.id, None)
-                self._inflight.discard(st.id)
+            for out in outcomes:
+                fut = self._futures.pop(out.state.id, None)
+                self._inflight.discard(out.state.id)
                 if fut is None:
                     continue  # shed mid-flight: its future already failed
-                if error is None:
-                    fut._resolve(results[i])
+                if out.ok:
+                    fut._resolve(out.result)
                 else:
-                    fut._fail(error)
+                    m.inc("queries_failed")
+                    fut._fail(out.error)
             depth = len(self.queue)
             self._cv.notify_all()
-        self.obs.metrics.set_gauge("queue_depth", depth)
-
-    def _run_batch(self, planned: PlannedBatch) -> int:
-        # The batch was already dequeued, so its futures must always end up
-        # resolved or failed.  A typed failure fails the batch's futures
-        # (each result() re-raises it); anything else also propagates.
-        batch = planned.queries
-        try:
-            results = self._dispatch(planned)
-        except TrussError as e:
-            self.obs.metrics.inc("queries_failed", len(batch))
-            self._finish(batch, error=e)
-            return len(batch)
-        except Exception as e:
-            self._finish(batch, error=e)
-            raise
-        self._finish(batch, results=results)
+        m.set_gauge("queue_depth", depth)
         return len(batch)
 
     def _record_deadline_miss(self, state: QueryState, waited_s: float) -> None:
@@ -498,8 +578,13 @@ class Session:
             "deadline_misses": self.deadline_misses,
             "pending": self.queue_depth(),
             "device_time_s": round(self.device_time_s, 6),
+            "retries": self.retries,
+            "backend_fallbacks": self.backend_fallbacks,
+            "queries_quarantined": self.queries_quarantined,
+            "batch_bisects": self.batch_bisects,
             "queries_failed": self.queries_failed,
             "queries_shed": self.queries_shed,
+            "faults_injected": self.faults_injected,
             **{f"cache_{k}": v for k, v in self.cache.stats.row().items()},
             **{f"planner_{k}": v for k, v in self.planner.stats().items()},
         }

@@ -54,7 +54,15 @@ class TrussError(Exception):
     quarantines on.  ``injected=True`` marks faults raised by the
     fault-injection harness (``repro.resilience.faults``), which the
     chaos suite uses to tell injected failures from organic ones.
+
+    ``kernel_fault=True`` is the port's own marker: the planner sets it on
+    a real failure raised while a hand-written CUDA kernel's backend ran on
+    the card, and the resilience runner fails the batch at once on it
+    (``repro_torch.api.planner.Planner.execute``).  It is not part of the
+    wire format.
     """
+
+    kernel_fault = False
 
     def __init__(
         self,

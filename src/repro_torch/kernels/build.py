@@ -5,7 +5,8 @@ Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by
 file (listed in ``.gitignore``).  The library's file name carries a hash of
 the source, the shared headers (``csrc/*.cuh``) and the flags, so an edited
 source or header is rebuilt and an unchanged one is reused.  A failed build
-raises; nothing falls back.
+raises :class:`~repro_torch.errors.CompileError` (``site="kernel_build"``);
+nothing falls back.
 """
 
 from __future__ import annotations
@@ -19,6 +20,8 @@ import subprocess
 import threading
 import time
 from pathlib import Path
+
+from ..errors import CompileError
 
 __all__ = ["BuiltLibrary", "NVCC_FLAGS", "load_library"]
 
@@ -59,7 +62,11 @@ def _nvcc() -> str:
         cand = os.path.join(CUDA_HOME, "bin", "nvcc")
         found = cand if os.path.exists(cand) else None
     if found is None:
-        raise RuntimeError("nvcc not found (on PATH or under CUDA_HOME/bin)")
+        raise CompileError(
+            "nvcc not found (on PATH or under CUDA_HOME/bin)",
+            site="kernel_build",
+            cause=FileNotFoundError("nvcc"),
+        )
     return found
 
 
@@ -96,8 +103,10 @@ def load_library(name: str) -> BuiltLibrary:
             log = proc.stdout + proc.stderr
             if proc.returncode:
                 tmp.unlink(missing_ok=True)
-                raise RuntimeError(
-                    f"nvcc failed building {src.name} (exit {proc.returncode}):\n{log}"
+                raise CompileError(
+                    f"nvcc failed building {src.name} (exit {proc.returncode}):\n{log}",
+                    site="kernel_build",
+                    cause=subprocess.CalledProcessError(proc.returncode, proc.args, log),
                 )
             log_path.write_text(log)
             os.replace(tmp, out)

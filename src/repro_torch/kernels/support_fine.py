@@ -34,6 +34,7 @@ from typing import NamedTuple
 import torch
 
 from ..core.eager_fine import FineProblem, undirected_alive
+from ..errors import DeviceError
 from .build import BuiltLibrary, load_library
 from .peel_fused import SPLIT_ROW, SPLIT_WAYS, split_lanes
 
@@ -212,7 +213,9 @@ def support_fine_cuda(p: FineProblem, alive: torch.Tensor) -> torch.Tensor:
         )
     if rc:
         msg = built.lib.support_fine_error_string(rc).decode()
-        raise RuntimeError(f"support_fine kernel launch failed: {msg} (cudaError {rc})")
+        raise DeviceError(
+            f"support_fine kernel launch failed: {msg} (cudaError {rc})", site="support_fine"
+        )
     support_fine_cuda.launches += 1
     return out
 

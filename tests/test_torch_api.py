@@ -102,13 +102,28 @@ def test_entry_points_default_to_cuda_and_never_fall_back(monkeypatch):
 
 
 def test_typed_dispatch_failure_fails_the_batch_futures():
+    """Under the resilience runner (the reference's semantics, reference
+    ``tests/test_resilience.py::test_peel_iteration_cap_is_a_typed_device_error``)
+    each future fails with a terminal ``QueryFailedError`` whose cause is the
+    peel's iteration-cap ``DeviceError``."""
+    from repro_torch.resilience import RetryPolicy
+
     _, gt = small_pairs()[0]
-    s = ta.Session(device="cpu", max_iters=1, **KW)
+    s = ta.Session(
+        device="cpu",
+        max_iters=1,
+        retry=RetryPolicy(max_attempts=1, backoff_base_s=0.0, fallback=False),
+        **KW,
+    )
     futs = [s.submit(ta.TrussQuery.decompose(gt)), s.submit(ta.TrussQuery.kmax(gt))]
     s.flush()
     for f in futs:
-        with pytest.raises(ta.DeviceError, match="iteration cap"):
+        with pytest.raises(ta.QueryFailedError) as ei:
             f.result()
+        assert ei.value.query_id == f.request.id
+        assert isinstance(ei.value.cause, ta.DeviceError)
+        assert ei.value.cause.site == "peel" and not ei.value.cause.injected
+        assert "iteration cap" in str(ei.value.cause)
     assert s.stats()["queries_failed"] == 2
 
 

@@ -469,3 +469,136 @@ def test_stream_update_on_the_card_matches_scratch_decompose(cuda):
     assert backends == {"fine/fused/aligned"}
     assert sess.metrics.value("stream_enumerations", kind="full") == 1
     assert sess._tri_cache.tri_keys.device.type == "cuda"
+
+
+def test_session_fused_launch_failure_is_terminal_and_loud(cuda, monkeypatch):
+    """A nonzero code from the fused library's launch (here the runtime's
+    ``cudaErrorCooperativeLaunchTooLarge``, returned by a wrapper around the
+    loaded symbol, so the wrapper's real ``if rc:`` path raises) fails every
+    query of the batch with ``QueryFailedError``: no retry, no step down the
+    fallback chain, and neither the support kernel nor the level's plain
+    version runs.  The same session serves once the launch works again."""
+    import repro_torch.kernels.peel_fused as kpf
+    from repro_torch.api import QueryFailedError, Session, TrussQuery
+
+    built = kpf.load_peel_fused()
+    plain_calls = []
+    monkeypatch.setattr(kpf, "fused_level_torch", lambda *a, **k: plain_calls.append(1))
+    monkeypatch.setattr(built.lib, "peel_fused_launch", lambda *a: 720)
+    g = GRAPHS[2]()
+    s = Session(device=cuda, backend="fine/fused/aligned", max_batch=4, chunk=64)
+    before = (kpf.fused_level_cuda.launches, support_fine_cuda.launches)
+    futs = [s.submit(TrussQuery.decompose(g)), s.submit(TrussQuery.kmax(g))]
+    s.flush()
+    for f in futs:
+        with pytest.raises(QueryFailedError) as ei:
+            f.result()
+        e = ei.value
+        assert type(e.cause).__name__ == "DeviceError" and e.cause.site == "fused_level"
+        assert not e.cause.injected and "cudaError 720" in str(e.cause)
+        assert [str(b) for b in e.backends_tried] == ["fine/fused/aligned"]
+    assert (s.retries, s.backend_fallbacks, s.batch_bisects, s.queries_failed) == (0, 0, 0, 2)
+    assert (kpf.fused_level_cuda.launches, support_fine_cuda.launches) == before
+    assert not plain_calls
+    monkeypatch.undo()
+    dec = s.solve([TrussQuery.decompose(g)])[0]
+    want = Session(device="cpu", backend="fine/fused/aligned", max_batch=4, chunk=64).solve(
+        [TrussQuery.decompose(g)])[0]
+    assert np.array_equal(dec.trussness, want.trussness)
+    assert kpf.fused_level_cuda.launches > before[0]
+
+
+def test_session_support_launch_failure_is_terminal_and_loud(cuda, monkeypatch):
+    """A refused launch of ``support_fine_cuda`` (2,048 threads a block) on
+    ``fine/pallas/aligned`` fails the batch typed, with no fallback to the
+    torch-ops twin; the session serves again afterwards."""
+    import importlib
+
+    from repro_torch.api import QueryFailedError, Session, TrussQuery
+
+    sf = importlib.import_module("repro_torch.kernels.support_fine")
+    monkeypatch.setattr(sf, "_LAUNCH_THREADS", (2048, 256))
+    g = GRAPHS[0]()
+    s = Session(device=cuda, backend="fine/pallas/aligned", max_batch=2, chunk=64)
+    fut = s.submit(TrussQuery.decompose(g))
+    s.flush()
+    with pytest.raises(QueryFailedError) as ei:
+        fut.result()
+    assert ei.value.cause.site == "support_fine" and not ei.value.cause.injected
+    assert [str(b) for b in ei.value.backends_tried] == ["fine/pallas/aligned"]
+    assert (s.retries, s.backend_fallbacks) == (0, 0)
+    assert s.cache.stats.compiles == 1  # no other backend's executor was built
+    monkeypatch.undo()
+    got = s.solve([TrussQuery.decompose(g)])[0]
+    assert np.array_equal(got.trussness, _numpy_trussness(g))
+
+
+@pytest.mark.parametrize("backend", ["fine/fused/aligned", "fine/pallas/aligned"])
+def test_session_kernel_scratch_oom_is_terminal_and_loud(cuda, monkeypatch, backend):
+    """A real ``torch.OutOfMemoryError`` from a hand kernel's scratch
+    allocation (its sizing asks for 4 TiB) is a kernel fault on the card:
+    every query fails typed, with no retry, no step down the chain and no
+    plain version run.  The session serves again afterwards."""
+    import importlib
+
+    import repro_torch.kernels.ops as kops
+    import repro_torch.kernels.peel_fused as kpf
+    from repro_torch.api import QueryFailedError, Session, TrussQuery
+
+    sf = importlib.import_module("repro_torch.kernels.support_fine")  # not the function
+    g = GRAPHS[2]()
+    want = _numpy_trussness(g)
+    s = Session(device=cuda, backend=backend, max_batch=4, chunk=64)
+    assert np.array_equal(s.solve([TrussQuery.decompose(g)])[0].trussness, want)  # warm
+    plain_calls = []
+    monkeypatch.setattr(kpf, "fused_level_torch", lambda *a, **k: plain_calls.append(1))
+    monkeypatch.setattr(kops, "support_fine_owner", lambda *a, **k: plain_calls.append(1))
+    if backend == "fine/fused/aligned":
+        real, key = kpf.scratch_elements, "acc"
+        monkeypatch.setattr(kpf, "scratch_elements", lambda *a: {**real(*a), key: 1 << 40})
+    else:
+        real, key = sf.worklist_elements, "list"
+        monkeypatch.setattr(sf, "worklist_elements", lambda *a: {**real(*a), key: 1 << 40})
+    before = (kpf.fused_level_cuda.launches, support_fine_cuda.launches)
+    futs = [s.submit(TrussQuery.decompose(g)), s.submit(TrussQuery.kmax(g))]
+    s.flush()
+    for f in futs:
+        with pytest.raises(QueryFailedError) as ei:
+            f.result()
+        e = ei.value
+        assert type(e.cause).__name__ == "DeviceError" and e.cause.oom and e.cause.kernel_fault
+        assert isinstance(e.cause.cause, torch.OutOfMemoryError)
+        assert [str(b) for b in e.backends_tried] == [backend]
+    assert (s.retries, s.backend_fallbacks, s.batch_bisects) == (0, 0, 0)
+    assert s.obs.metrics.value("dispatch_failures", site="oom") == 1
+    assert (kpf.fused_level_cuda.launches, support_fine_cuda.launches) == before
+    assert not plain_calls and s.cache.stats.compiles == 1
+    monkeypatch.undo()
+    assert np.array_equal(s.solve([TrussQuery.decompose(g)])[0].trussness, want)
+
+
+def _numpy_trussness(g):
+    from repro_torch.core import trussness_numpy
+
+    return trussness_numpy(g).astype(np.int32)
+
+
+def test_two_replica_fleet_on_the_card(cuda, tmp_path):
+    """Two replica processes, each with its own CUDA context on the one
+    card, answer like an in-process session on the CPU."""
+    from repro_torch.api import TrussQuery, solve
+    from repro_torch.serve import Fleet, FleetClient
+
+    g = tg.rmat(9, 8, seed=4)
+    qs = [TrussQuery.decompose(g), TrussQuery.kmax(g), TrussQuery.ktruss(g, k=4)]
+    want = solve(list(qs), device="cpu", max_batch=4)
+    warm = [{"kind": "rmat", "scale": 9, "edge_factor": 8, "seed": 4}]
+    with Fleet(2, workdir=str(tmp_path / "fleet"), device="cuda", max_batch=4,
+               warmup=warm, warmup_all=True) as fleet:
+        got = FleetClient(fleet).solve(list(qs))
+        for name in fleet.router.replica_names:
+            rep = fleet.router.last_health(name)
+            assert rep.warmup_queries == 1 and rep.retries == 0
+    assert np.array_equal(got[0].trussness, want[0].trussness)
+    assert got[1] == want[1]
+    assert np.array_equal(got[2].alive, want[2].alive)
