@@ -111,6 +111,25 @@ Phases (any failure exits non-zero):
    width-16 batches, its owner killed, the second batch applied on the
    survivor (``seq == 2``) equal to an in-process stream fed both.  The
    in-process launches of phase 10 join the kernels' ``launches``.
+11. the mesh path (``repro_torch.distributed``) on rmat-15: the phase-5
+   batch on ``Session(max_batch=8, mesh=slot_mesh())`` (the auto rule
+   must plan ``fine/pallas/aligned``: a mesh refuses the fused kernel);
+   the batch twice over (6 live slots) on ``slot_mesh()`` and on two
+   shards of ``cuda:0``, 4 slots each; the batch through
+   ``TrussService(backend="pallas", mesh=slot_mesh())``; and width-16
+   stream updates on a mesh session (one stream on ``slot_mesh()``, then
+   two streams coalesced on two shards of ``cuda:0``, one slot each, so
+   that a rebased shard's frozen lanes reach the kernel), each equal to a
+   from-scratch
+   ``fine/pallas/aligned`` decompose.  Each case is one dispatch whose
+   answers equal phase 5's bit for bit, with ``support_fine_cuda``
+   launched once per trip of every shard that holds a member (a shard's
+   trips: the longest run of its slots), and no fused launch; each
+   case's wall is printed beside phase 3's.  Then the recompile sentinel
+   (``repro_torch.analysis.sentinel``): phase 5's batch on a fresh session
+   builds one executor and no kernel, its warm repeat builds nothing;
+   and ``python -m repro_torch.analysis`` exits 0 on this copy of the
+   tree.  The launches of phase 11 join ``support_fine_cuda``'s.
 
 Phases 1-9 must end with no retry, fallback, injected fault or quarantine
 in any session they drive (checked before phase 10 over the process-wide
@@ -121,6 +140,13 @@ The last line is ``{"ok": true, "device": {...}}``; the line before it
 lists each kernel with its launches on its paths (``launches`` is their sum,
 ``launches_by_path`` the count of each phase that drove it, each read with
 the counts zeroed just before) and its times.
+
+    python3 chip_smoke.py --mesh-only
+
+runs phases 1, 3, 5 and 11 alone; on a machine with several cards,
+``slot_mesh()`` spans them all.  It is for timing the mesh path only: it
+holds no kernel against its plain version and prints neither the
+``kernels`` line nor the ``{"ok": true, ...}`` line.
 
     python3 chip_smoke.py --support-only --sets FILE [--src DIR]
 
@@ -1581,6 +1607,202 @@ def phase_fleet(torch, g, want, p5_wall: float) -> None:
     log(f"phase10 replicas reused phase 1's libraries: kernels/_build/ unchanged ({len(libs)} files)")
 
 
+def shard_trips(session, g) -> list:
+    """Wrap ``session``'s ``fine/pallas/aligned`` executor for ``g``'s bucket
+    so that each dispatch appends its per-shard trips: a shard's trips are
+    the longest run of its slots (the lock step stops it there)."""
+    exe = executor_of(session, g, "fine/pallas/aligned", built=False)
+    d, peel, seen = session.mesh.size, exe.peel, []
+
+    def counted(*args, **kw):
+        st = peel(*args, **kw)
+        trips = st.iters.view(d, -1).max(1).values.tolist()
+        if int(st.total_iters) != max(trips):
+            raise AssertionError(f"total_iters {int(st.total_iters)} != the longest shard {trips}")
+        seen.append(trips)
+        return st
+
+    exe.peel = counted
+    return seen
+
+
+def check_mesh_case(tag: str, session, futs, want, trips, counts, wall: float, p3_wall: float):
+    """One mesh case: one fine/pallas/aligned dispatch, the support kernel
+    launched once per trip of every shard, no fused launch, every shard
+    that holds a member (slots from 0) taking trips and no other, and
+    every answer equal to phase 5's."""
+    st = session.stats()
+    backends = {row["backend"] for row in st["planner_backends"]}
+    log(f"phase11 {tag}: {wall:.2f}s wall (phase 3: {p3_wall:.2f}s), {session.mesh.size} "
+        f"shard(s) on {[str(d) for d in session.mesh.devices]}, backend {sorted(backends)}, "
+        f"dispatches {st['device_dispatches']}, trips per shard {trips}, support_fine_cuda "
+        f"launches {counts.support}, fused launches {counts.fused}")
+    if backends != {"fine/pallas/aligned"}:
+        raise AssertionError(f"phase11 {tag}: planner chose {backends}")
+    if st["device_dispatches"] != 1 or len(trips) != 1:
+        raise AssertionError(f"phase11 {tag}: {st['device_dispatches']} dispatches")
+    per_shard = session.max_batch // session.mesh.size
+    live = [j * per_shard < len(futs) for j in range(session.mesh.size)]
+    if counts.fused or counts.support != sum(trips[0]) or [t > 0 for t in trips[0]] != live:
+        raise AssertionError(f"phase11 {tag}: {counts.support} support launches over the shards' "
+                             f"trips {trips[0]} ({counts.fused} fused launches)")
+    for i, f in enumerate(futs):
+        name = QUERIES[i % len(QUERIES)]
+        if not same_result(name, f.result(), want[i % len(QUERIES)]):
+            raise AssertionError(f"phase11 {tag}: {name} != phase 5's")
+
+
+def phase_mesh(torch, g, want, p3_wall: float) -> dict:
+    """The mesh path on the card: ``Session(mesh=)``, a two-shard mesh on one
+    card, ``TrussService(mesh=)``, a stream update on a mesh session; then
+    the recompile sentinel on a warm repeat of phase 5, and the analysis
+    suite.  Returns the support kernel's launches on these paths."""
+    import functools
+
+    import numpy as np
+
+    from repro_torch.analysis.sentinel import assert_no_compiles, count_compiles
+    from repro_torch.api import Session
+    from repro_torch.distributed import slot_mesh
+    from repro_torch.service import TrussService
+    from repro_torch.stream import apply_batch
+
+    t11 = time.perf_counter()
+    counts = LaunchCounts()
+
+    def batch_on(session, queries):
+        futs = [session.submit(q) for q in queries]
+        session.flush()
+        return futs
+
+    # A. Session(max_batch=8, mesh=slot_mesh()): the auto rule steps
+    # fine/fused/aligned down to fine/pallas/aligned.
+    session = Session(max_batch=8, mesh=slot_mesh())
+    trips = shard_trips(session, g)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    futs = counts.run(lambda: batch_on(session, rmat15_queries(g)))
+    torch.cuda.synchronize()
+    check_mesh_case("A Session(mesh=slot_mesh())", session, futs, want, trips, counts,
+                    time.perf_counter() - t0, p3_wall)
+    a_support = counts.support
+
+    # B. The batch twice over (slots 0-5), first on every visible card,
+    # then on two shards of one card, 4 slots each, so that both shards
+    # hold live members.  Shards on one card run one after the other on
+    # its default stream.
+    b_support = 0
+    for tag, mesh in (("B1 the batch twice, slot_mesh()", slot_mesh()),
+                      ("B2 the batch twice, two shards on cuda:0",
+                       slot_mesh(devices=("cuda:0", "cuda:0")))):
+        counts = LaunchCounts()
+        session = Session(max_batch=8, mesh=mesh)
+        trips = shard_trips(session, g)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        futs = counts.run(functools.partial(batch_on, session, 2 * rmat15_queries(g)))
+        torch.cuda.synchronize()
+        check_mesh_case(tag, session, futs, want, trips, counts, time.perf_counter() - t0, p3_wall)
+        b_support += counts.support
+
+    # C. The legacy adapter on a mesh.
+    counts = LaunchCounts()
+    svc = TrussService(backend="pallas", mesh=slot_mesh())
+    if svc.mesh is not svc.session.mesh:
+        raise AssertionError("TrussService.mesh is not its session's")
+    trips = shard_trips(svc.session, g)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+
+    def service_batch():
+        futs = [svc.submit_decompose(g), svc.submit_kmax(g), svc.submit_ktruss(g, 4)]
+        svc.flush()
+        return futs
+
+    futs = counts.run(service_batch)
+    torch.cuda.synchronize()
+    check_mesh_case("C TrussService(backend='pallas', mesh=slot_mesh())", svc.session, futs,
+                    want, trips, counts, time.perf_counter() - t0, p3_wall)
+    c_support = counts.support
+    del svc, session, futs
+
+    # D. Width-16 stream updates on a mesh session: one stream on
+    # slot_mesh(); then two streams on two shards of cuda:0, one slot each,
+    # their updates coalesced into one dispatch, so that the second shard's
+    # frozen lanes are rebased and go through the support kernel.
+    d_support = 0
+    for tag, mesh, max_batch, seeds in (
+            ("D1 one stream, slot_mesh()", slot_mesh(), 8, (7,)),
+            ("D2 two streams, two shards on cuda:0", slot_mesh(devices=("cuda:0", "cuda:0")), 2,
+             (100, 101))):
+        counts = LaunchCounts()
+        session = Session(max_batch=max_batch, mesh=mesh)
+        streams = [session.open_stream(g, trussness=want[0].trussness) for _ in seeds]
+        batches = [balanced_batches(np.random.default_rng(s), g, 16, 1)[0] for s in seeds]
+        trips = shard_trips(session, apply_batch(g, batches[0]).new_graph)  # the update's bucket
+        torch.cuda.synchronize()
+        before = session.device_dispatches
+        t0 = time.perf_counter()
+        pend = [st.submit_update(b) for st, b in zip(streams, batches)]
+        counts.run(session.flush)
+        results = [pu.result() for pu in pend]
+        wall = time.perf_counter() - t0
+        scratch = scratch_trussness(
+            Session(max_batch=8, device="cuda", backend="fine/pallas/aligned"),
+            [st.graph for st in streams])
+        dispatches = session.device_dispatches - before
+        log(f"phase11 {tag}: stream update (width 16) on Session(mesh=), {wall:.2f}s wall, "
+            f"frontiers {[r.frontier_size for r in results]}, dispatches {dispatches}, "
+            f"trips per shard {trips}, support_fine_cuda launches {counts.support}, "
+            f"fused launches {counts.fused}")
+        per_shard = max_batch // mesh.size
+        live = [j * per_shard < len(seeds) for j in range(mesh.size)]
+        if (dispatches != 1 or len(trips) != 1 or counts.fused or counts.support != sum(trips[0])
+                or [t > 0 for t in trips[0]] != live):
+            raise AssertionError(f"phase11 {tag}: {dispatches} dispatches, trips {trips}, "
+                                 f"{counts.support} support launches, {counts.fused} fused")
+        for r, w in zip(results, scratch):
+            if not np.array_equal(r.trussness, w):
+                raise AssertionError(f"phase11 {tag}: an update != a from-scratch "
+                                     "fine/pallas/aligned decompose")
+        d_support += counts.support
+        del streams, pend, results, session
+
+    # The recompile sentinel: phase 5's batch on a fresh session builds its
+    # executor and no kernel (phase 1 built them); the warm repeat builds
+    # nothing.
+    session = Session(max_batch=8, device="cuda")
+    with count_compiles() as cold:
+        session.solve(rmat15_queries(g))
+    t0 = time.perf_counter()
+    with assert_no_compiles("phase 5's batch, warm"):
+        again = session.solve(rmat15_queries(g))
+    warm = time.perf_counter() - t0
+    if (cold.kernel_builds, cold.executor_builds) != (0, 1):
+        raise AssertionError(f"phase11 cold run: {cold.kernel_builds} kernel builds, "
+                             f"{cold.executor_builds} executor builds (want 0, 1)")
+    for name, a, b in zip(QUERIES, again, want):
+        if not same_result(name, a, b):
+            raise AssertionError(f"phase11 warm repeat: {name} != phase 5's")
+    log(f"phase11 sentinel: cold run {cold.kernel_builds} kernel builds, {cold.executor_builds} "
+        f"executor build; warm repeat {warm:.2f}s, 0 builds, == phase 5")
+    del session, again
+
+    # The port's analysis suite on this copy of the tree.
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.analysis", "--root", str(ROOT)],
+        cwd=ROOT, env={**os.environ, "PYTHONPATH": str(ROOT / "src")},
+        capture_output=True, text=True, timeout=300,
+    )
+    log(f"phase11 python -m repro_torch.analysis: exit {proc.returncode} in "
+        f"{time.perf_counter() - t0:.1f}s: {proc.stdout.strip().splitlines()}")
+    if proc.returncode:
+        raise AssertionError(f"repro_torch.analysis failed:\n{proc.stdout}{proc.stderr}")
+    log(f"phase11 {time.perf_counter() - t11:.1f}s")
+    return {"support": a_support + b_support + c_support + d_support}
+
+
 def support_only(torch, g, bucket, smi, sets_file: Path) -> int:
     """Phase 2 and phase 3's kernel/rest split alone, for comparing the
     support kernel of two trees in one session: the alive sets of the
@@ -1613,6 +1835,9 @@ def main(argv: list[str]) -> int:
                     help="the src directory whose repro_torch to import (default: this checkout's)")
     ap.add_argument("--sets", type=Path, default=None,
                     help="with --support-only: file of the peel's alive sets (read, or written)")
+    ap.add_argument("--mesh-only", action="store_true",
+                    help="time only phases 1, 3, 5 and 11 (the mesh path, on every visible card); "
+                         "no kernel check, no result line")
     args = ap.parse_args(argv)
     try:
         import torch
@@ -1644,6 +1869,12 @@ def main(argv: list[str]) -> int:
     log(f"rmat-15: n={g.n} nnz={g.nnz} bucket={tuple(bucket)}")
     if args.support_only:
         return support_only(torch, g, bucket, smi, args.sets)
+    if args.mesh_only:
+        _, pallas_futs, pallas_wall, _ = phase_pallas_path(torch, g)
+        _, fused_futs, _ = phase_fused_main(torch, g, pallas_futs, pallas_wall)
+        phase_mesh(torch, g, [f.result() for f in fused_futs], pallas_wall)
+        log(smi)
+        return 0
     numbers = phase_kernel(torch, g, bucket)
     launches, pallas_futs, pallas_wall, trips = phase_pallas_path(torch, g)
     p, handed = phase_peel_split(torch, g, bucket, trips)
@@ -1664,6 +1895,7 @@ def main(argv: list[str]) -> int:
     resilience = phase_resilience(torch, g, want, fused_launches)
     phase_fleet(torch, g, want, fused_wall)
     log(f"phase10 {time.perf_counter() - t10:.1f}s")
+    mesh = phase_mesh(torch, g, want, pallas_wall)
     del want
     profiled_peel(torch, g, bucket)
     for nums in (numbers, fused_numbers):  # the frozen-lane checks count too
@@ -1674,9 +1906,10 @@ def main(argv: list[str]) -> int:
             route="cuda",
             source="src/repro_torch/kernels/csrc/support_fine.cu",
             replaces="src/repro/kernels/support_fine.py:86",
-            launches=launches + stream["support"] + resilience["support"],
+            launches=launches + stream["support"] + resilience["support"] + mesh["support"],
             launches_by_path=dict(
-                phase3=launches, phase9=stream["support"], phase10=resilience["support"]
+                phase3=launches, phase9=stream["support"], phase10=resilience["support"],
+                phase11=mesh["support"],
             ),
             **numbers,
         ),

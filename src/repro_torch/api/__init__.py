@@ -17,7 +17,14 @@ one-launch-per-level kernel; ``xla`` runs torch ops::
 """
 
 from ..core.truss import KTrussResult, TrussDecomposition
-from .cache import Bucket, CompileCache, bucket_for, bucket_str, enable_persistent_cache
+from .cache import (
+    Bucket,
+    CompileCache,
+    bucket_for,
+    bucket_str,
+    build_peel,
+    enable_persistent_cache,
+)
 from .errors import (
     CheckpointError,
     CompileError,
@@ -83,6 +90,7 @@ __all__ = [
     "Bucket",
     "bucket_for",
     "bucket_str",
+    "build_peel",
     "CompileCache",
     "enable_persistent_cache",
     # result types

@@ -26,11 +26,13 @@ import numpy as np
 from ..errors import CompileError, TrussError
 from ..graphs.csr import CSRGraph
 from ..obs import MetricsRegistry
+from ..obs.events import EXECUTOR_BUILD, record_event
 
 __all__ = [
     "Bucket",
     "bucket_for",
     "bucket_str",
+    "build_peel",
     "CacheStats",
     "CompileCache",
     "enable_persistent_cache",
@@ -101,6 +103,46 @@ def bucket_str(bucket: Bucket) -> str:
     return f"n{bucket.n_pad}-nnz{bucket.nnz_pad}-w{bucket.window}"
 
 
+def build_peel(
+    *,
+    mode: str = "eager",
+    backend: str = "xla",
+    window: int,
+    chunk: int = 256,
+    max_iters: int | None = None,
+    mesh=None,
+    device=None,
+):
+    """Cache-ready peel executor for one shape bucket.
+
+    Legacy bucket-config adapter over the exec layer (the registry's
+    :meth:`repro_torch.api.BackendSpec.make_executor` is the first-class
+    path), kept as the reference keeps it.  An executor runs where the
+    problems it is handed live; ``device`` is checked here so a wrong one
+    fails at build time: CUDA unless ``"cpu"`` is passed (``RuntimeError``
+    without a card), and with a mesh it must be the mesh's first device
+    (``None`` takes it).
+    """
+    from ..device import resolve_device
+    from ..distributed.ktruss import canonical_device
+    from ..exec.peel import PeelExecutor
+
+    if mesh is None:
+        resolve_device(device)
+    elif device is not None and canonical_device(device) != mesh.devices[0]:
+        raise ValueError(
+            f"device={device!r} is not the mesh's first device {mesh.devices[0]}"
+        )
+    return PeelExecutor(
+        mode=mode,
+        backend=backend,
+        window=window,
+        chunk=chunk,
+        max_iters=max_iters,
+        mesh=mesh,
+    )
+
+
 class CacheStats:
     """Compile-cache hit/miss counters — a view over the metrics registry.
 
@@ -160,7 +202,8 @@ class CompileCache:
 
     Each key maps to one peel executor built by ``builder(key)``;
     ``compiles`` counts builder calls (executor builds; a CUDA kernel
-    library is built once per process on its first launch).  ``variant``
+    library is built once per process on its first launch), and each is an
+    ``EXECUTOR_BUILD`` event (:mod:`repro_torch.obs.events`).  ``variant``
     folds in whatever else specializes the executor — the backend key and
     dataflow mode.  ``metrics`` routes the hit/miss counters into the owning
     session's registry (default: a private one).
@@ -201,6 +244,7 @@ class CompileCache:
                     cause=e,
                 ) from e
             self.stats.record_compile(bucket)
+            record_event(EXECUTOR_BUILD, bucket=bucket, slots=int(slots))
             return exe, False
 
     def buckets(self) -> tuple[str, ...]:

@@ -33,6 +33,7 @@ import torch
 
 from ..core.truss import KTrussResult, TrussDecomposition
 from ..device import resolve_device
+from ..distributed.ktruss import canonical_device
 from ..errors import DeviceError, InvalidGraphError, TrussError
 from ..graphs.pack import pack_problems
 from ..graphs.stats import imbalance_stats
@@ -134,7 +135,15 @@ class Plan:
 
 class Planner:
     """Lowers queries onto ``(bucket, backend)`` batches and executes them
-    on ``device`` (``None`` = CUDA; raises when CUDA is absent)."""
+    on ``device`` (``None`` = CUDA; raises when CUDA is absent).
+
+    With ``mesh=`` (``repro_torch.distributed.slot_mesh``) each batch's
+    slot blocks are split across the mesh's devices at dispatch.  The mesh
+    forces the aligned layout and refuses the fused backend, as the
+    reference's does.  The pack and the unpack live on the mesh's first
+    device, which is the planner's ``device``: ``device=None`` takes it,
+    and any other ``device=`` raises.
+    """
 
     def __init__(
         self,
@@ -146,12 +155,40 @@ class Planner:
         backend: BackendKey | str | None = None,
         mode: str | None = None,
         max_iters: int | None = None,
+        mesh=None,
         device: str | torch.device | None = None,
     ):
         if chunk & (chunk - 1):
             raise ValueError(f"chunk={chunk} must be a power of two")
         if max_batch < 1:
             raise ValueError("max_batch must be >= 1")
+        self.mesh = mesh
+        if mesh is not None:
+            if layout is not None and layout != "aligned":
+                raise ValueError(
+                    "mesh sharding needs layout='aligned' (slot blocks are "
+                    "the shard boundaries)"
+                )
+            layout = "aligned"
+            first = mesh.devices[0]
+            # The type is compared first: making "cuda" canonical needs a card.
+            if device is not None and (
+                torch.device(device).type != first.type or canonical_device(device) != first
+            ):
+                raise ValueError(
+                    f"device={device!r} is not the mesh's first device {first}: "
+                    "the pack and the unpack live there"
+                )
+            device = first
+            # The hashable fold of the mesh for the cache key: the devices
+            # decide where an executor's shards run.
+            self._mesh_key = (
+                tuple(mesh.axis_names),
+                mesh.size,
+                tuple(str(d) for d in mesh.devices),
+            )
+        else:
+            self._mesh_key = None
         self.device = resolve_device(device)
         self.max_batch = int(max_batch)
         self.chunk = int(chunk)
@@ -163,6 +200,16 @@ class Planner:
         self.layout = layout or "aligned"
         # Forced backend for every query (None = per-query auto rule).
         self.backend = get_backend(backend).key if backend is not None else None
+        if mesh is not None and self.backend is not None and self.backend.layout != "aligned":
+            raise ValueError(
+                f"backend {self.backend} has layout={self.backend.layout!r}, "
+                "but mesh sharding needs layout='aligned'"
+            )
+        if mesh is not None and self.backend is not None and self.backend.kernel == "fused":
+            raise ValueError(
+                f"backend {self.backend} keeps peel state kernel-resident "
+                "and cannot shard across a mesh; use fine/pallas/aligned"
+            )
         # Concurrent submitters all assign through one planner, so
         # everything mutable below is lock-guarded.
         self._stats_lock = threading.Lock()
@@ -179,8 +226,13 @@ class Planner:
         t0 = obs_clock.now()
         with current_tracer().span("plan", workload=query.workload) as span:
             bucket = bucket_for(query.graph, chunk=self.chunk)
-            if query.placement == "sharded":
+            if query.placement == "sharded" and self.mesh is None:
                 raise ValueError("placement='sharded' needs a session mesh")
+            if query.placement == "replicated" and self.mesh is not None:
+                raise ValueError(
+                    "placement='replicated' conflicts with the session mesh "
+                    "(placement is per-session; open a mesh-less session)"
+                )
             key = query.backend if query.backend is not None else self.backend
             if key is None:
                 key = choose_backend(
@@ -188,8 +240,26 @@ class Planner:
                     kernel=self.kernel,
                     layout=self.layout,
                 )
+                if self.mesh is not None and key.kernel == "fused":
+                    # The auto rule upgraded to the kernel-resident fused
+                    # kernel, but a mesh session must shard: step down to
+                    # the unfused support kernel (bit-identical).
+                    key = BackendKey(key.formulation, "pallas", key.layout)
             else:
                 key = get_backend(key).key
+            if self.mesh is not None and key.layout != "aligned":
+                # The aligned layout is what makes slot boundaries shard
+                # boundaries; a contig backend on a mesh would split member
+                # graphs across devices.
+                raise ValueError(
+                    f"backend {key} has layout={key.layout!r}, but mesh "
+                    "sharding needs layout='aligned'"
+                )
+            if self.mesh is not None and key.kernel == "fused":
+                raise ValueError(
+                    f"backend {key} keeps peel state kernel-resident and "
+                    "cannot shard across a mesh; use fine/pallas/aligned"
+                )
             span.attrs["backend"] = str(key)
         dt = obs_clock.now() - t0
         with self._stats_lock:
@@ -239,15 +309,19 @@ class Planner:
         """What beyond (bucket, slots) specializes the executor.
 
         Every planner attribute ``build_executor`` reads MUST be folded in
-        here — a scalar missing from this tuple would let two configs
-        share one cache row.  Fused backends also fold in the bucket's
+        here (``mesh`` rides as its hashable ``_mesh_key``: axis names,
+        shape and devices) — an attribute missing from this tuple would
+        let two configs share one cache row; the R2 rule
+        (``repro_torch.analysis.rules_recompile``) checks it.  The device
+        needs no fold: an executor holds no tensor, and the problem it is
+        handed decides where it runs.  Fused backends also fold in the bucket's
         autotuned kernel config (``repro_torch.kernels.autotune.lookup``),
         so a newly tuned block/schedule builds its own executor instead of
         reusing a stale one."""
         fused_sig = None
         if backend.kernel == "fused" and bucket is not None:
             fused_sig = self.fused_config_for(bucket, slots or self.max_batch).signature()
-        return (backend, self.mode, self.chunk, self.max_iters, fused_sig)
+        return (backend, self.mode, self._mesh_key, self.chunk, self.max_iters, fused_sig)
 
     def fused_config_for(self, bucket: Bucket, slots: int):
         """The fused tuning point for one (bucket, slots): the persisted
@@ -258,9 +332,10 @@ class Planner:
         return autotune.lookup(bucket, slots).clamp(bucket.nnz_pad)
 
     def build_executor(self, key: tuple[Bucket, int, Any]):
-        """Cache builder: one peel executor per cache key (everything it
-        depends on arrives through the key)."""
-        bucket, _slots, (backend, mode, chunk, max_iters, fused_sig) = key
+        """Cache builder: one peel executor per cache key.  Everything it
+        depends on arrives through the key but ``self.mesh``, the one
+        object it reads (unhashable), keyed by its ``_mesh_key`` fold."""
+        bucket, _slots, (backend, mode, _mesh_key, chunk, max_iters, fused_sig) = key
         fused_config = None
         if fused_sig is not None:
             from ..kernels.autotune import FusedConfig
@@ -270,6 +345,7 @@ class Planner:
             window=bucket.window,
             chunk=chunk,
             max_iters=max_iters,
+            mesh=self.mesh,
             mode=mode,
             fused_config=fused_config,
         )

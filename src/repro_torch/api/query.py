@@ -22,9 +22,8 @@ __all__ = ["WORKLOADS", "PLACEMENTS", "TrussQuery"]
 
 WORKLOADS = ("ktruss", "kmax", "decompose", "stream_update")
 
-# auto: let the session place; replicated / sharded force the choice and
-# fail loudly when the session cannot honor it (the port has no mesh yet,
-# so "sharded" is refused).
+# auto: let the session place (sharded iff it has a mesh); replicated /
+# sharded force the choice and fail loudly when the session cannot honor it.
 PLACEMENTS = ("auto", "replicated", "sharded")
 
 

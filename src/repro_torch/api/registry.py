@@ -17,8 +17,9 @@ string names the same point in both packages:
                     (``repro_torch.kernels.peel_fused``), one launch per
                     truss level, autotuned per bucket;
 * ``layout``      — ``contig`` (prefix-sum packed lanes) | ``aligned``
-                    (slot-aligned lanes; the only layout whose slot-banded
-                    lane geometry the fused kernel can tile).
+                    (slot-aligned lanes, shardable across a mesh; the only
+                    layout whose slot-banded lane geometry the fused kernel
+                    can tile).
 
 Every registered backend is *semantically identical* — bit-identical
 ``trussness`` on any graph — so :func:`choose_backend` is purely a
@@ -84,13 +85,16 @@ class BackendSpec:
         window: int,
         chunk: int = 256,
         max_iters: int | None = None,
+        mesh=None,
         mode: str | None = None,
         fused_config=None,
     ):
         """Build this backend's :class:`repro_torch.exec.PeelExecutor` for
-        one shape bucket.  ``mode`` overrides the spec's dataflow;
-        ``fused_config`` is the ``kernel="fused"`` tuning point
-        (``repro_torch.kernels.autotune``), ignored by the other kernels."""
+        one shape bucket.  ``mesh`` splits each packed batch's slot blocks
+        across devices (``repro_torch.distributed.slot_mesh``);
+        ``mode`` overrides the spec's dataflow; ``fused_config`` is the
+        ``kernel="fused"`` tuning point (``repro_torch.kernels.autotune``),
+        ignored by the other kernels."""
         from ..exec.peel import PeelExecutor  # lazy: registry stays import-light
 
         return PeelExecutor(
@@ -100,6 +104,7 @@ class BackendSpec:
             window=window,
             chunk=chunk,
             max_iters=max_iters,
+            mesh=mesh,
             fused_config=fused_config,
         )
 
@@ -219,7 +224,8 @@ def fallback_backends(
     The reference's chain, step for step: every registered backend is
     bit-identical, so falling down it on a compile/kernel fault trades
     performance for availability, never correctness.  The chain steps down
-    one axis at a time and **preserves the layout**:
+    one axis at a time and **preserves the layout** (a mesh session needs
+    ``aligned``; re-packing stays shape-compatible):
 
     1. ``fused -> pallas`` — same formulation, same layout: the fused
        level kernel's unfused twin, the hand-written support kernel;

@@ -206,6 +206,9 @@ class Session:
       max_batch: packed slots per dispatch (batches pad to this).
       chunk: task-chunk width (power of two).
       max_iters: explicit peel iteration cap (None = provable bound).
+      mesh: split packed slot blocks across devices
+        (``repro_torch.distributed.slot_mesh``); forces the aligned layout,
+        and the mesh's first device is where packs and results live.
       cache_dir: keep the fused kernel's autotune store at
         ``<cache_dir>/autotune.json``, so tuned configs outlive the
         process (:func:`repro_torch.api.cache.enable_persistent_cache`).
@@ -242,6 +245,7 @@ class Session:
         max_batch: int = 8,
         chunk: int = 256,
         max_iters: int | None = None,
+        mesh=None,
         cache_dir: str | None = None,
         trace: bool | str | None = None,
         metrics: MetricsRegistry | None = None,
@@ -249,6 +253,11 @@ class Session:
         retry: RetryPolicy | None = None,
         shed_on_timeout: bool = True,
     ):
+        if mesh is not None and max_batch % mesh.size:
+            raise ValueError(
+                f"max_batch={max_batch} must divide evenly over the "
+                f"mesh's {mesh.size} devices (slots shard whole)"
+            )
         if cache_dir is not None:
             enable_persistent_cache(cache_dir)
         self.obs = Observability(trace=trace, metrics=metrics)
@@ -260,6 +269,7 @@ class Session:
             backend=backend,
             mode=mode,
             max_iters=max_iters,
+            mesh=mesh,
             device=device,
         )
         self.cache = CompileCache(
@@ -290,6 +300,10 @@ class Session:
     @property
     def chunk(self) -> int:
         return self.planner.chunk
+
+    @property
+    def mesh(self):
+        return self.planner.mesh
 
     # Serving counters — views over the session's metrics registry ------ #
     @property

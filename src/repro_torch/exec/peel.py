@@ -24,8 +24,12 @@ lanes) is exact.
 :func:`build_fused_peel` is the fused form: each level's support→prune
 fixed point runs inside one launch of the fused level kernel
 (``repro_torch.kernels.peel_fused``), and the host loop steps levels with
-one readback per level instead of one per trip.  Mesh placement is not
-ported yet.
+one readback per level instead of one per trip.
+
+With a mesh (``repro_torch.distributed``), :class:`PeelExecutor` splits a
+packed batch into per-device blocks of whole slots and runs the blocks in
+lock step (:meth:`_Peel.lock_step`); the concatenated state equals the
+unsharded peel's, field for field.
 """
 
 from __future__ import annotations
@@ -206,6 +210,13 @@ def _peel_step(
     )
 
 
+def trip_cap(max_iters: int | None, p: FineProblem, alive0: torch.Tensor) -> int:
+    """The peel's trip cap: ``max_iters``, or the provable bound
+    ``nnz_pad + n + 4`` of the whole (unsharded) problem (see
+    :func:`build_peel`)."""
+    return int(alive0.shape[0]) + p.n + 4 if max_iters is None else int(max_iters)
+
+
 class _Peel:
     """The peel callable :func:`build_peel` returns (see there)."""
 
@@ -224,19 +235,44 @@ class _Peel:
         frozen: torch.Tensor,
         frozen_truss: torch.Tensor,
     ) -> PeelState:
-        limit = (
-            int(alive0.shape[0]) + p.n + 4 if self.max_iters is None else int(self.max_iters)
-        )
-        lanes = slot_ids.long()
-        st = init_peel_state(slot_ids, k0, alive0, frozen, frozen_truss)
+        # The unsharded peel is the lock step of one shard.
+        args = (p, slot_ids, k0, single_level, alive0, frozen, frozen_truss)
+        return self.lock_step([args], trip_cap(self.max_iters, p, alive0))[0]
+
+    def lock_step(self, shards, limit: int) -> list[PeelState]:
+        """Peel every shard's inputs (``shard_peel_args``' sets) in lock step.
+
+        Each trip launches the step of every unfinished shard, then reads
+        back every one of their ``done`` flags; a finished shard takes no
+        more trips.  A done slot is a fixed point of the step (see
+        :func:`_peel_step`), so leaving a finished shard alone gives every
+        per-slot field the value the unsharded loop would, and each
+        shard's ``total_iters`` is its own trip count.  ``limit`` is the
+        unsharded peel's cap.  Launches go to each shard's device on its
+        current stream: shards on different devices overlap, shards on
+        one device run one after another."""
+        states: list[PeelState] = []
+        steps = []
+        for p, slot_ids, k0, single_level, alive0, frozen, frozen_truss in shards:
+            states.append(init_peel_state(slot_ids, k0, alive0, frozen, frozen_truss))
+            lanes = slot_ids.long()
+            steps.append((p, lanes, single_level, frozen, frozen_truss))
+        live = list(range(len(states)))
         trips = 0
-        while trips < limit:
-            self.host_syncs += 1
-            if bool(st.done.all()):
+        while True:
+            unfinished = []
+            for j in live:
+                self.host_syncs += 1
+                # The loop condition: one readback per live shard a trip.
+                if not bool(states[j].done.all()):  # trusslint: disable=R1
+                    unfinished.append(j)
+            live = unfinished
+            if not live or trips >= limit:
                 break
-            st = _peel_step(self.support, p, lanes, single_level, frozen, frozen_truss, st)
+            for j in live:
+                states[j] = _peel_step(self.support, *steps[j], states[j])
             trips += 1
-        return st
+        return states
 
 
 def build_peel(support: SupportFn, *, max_iters: int | None = None) -> _Peel:
@@ -281,9 +317,7 @@ class _FusedPeel:
         frozen_truss: torch.Tensor,
     ) -> PeelState:
         num_slots = int(k0.shape[0])
-        limit = (
-            int(alive0.shape[0]) + p.n + 4 if self.max_iters is None else int(self.max_iters)
-        )
+        limit = trip_cap(self.max_iters, p, alive0)
         st = init_peel_state(slot_ids, k0, alive0, frozen, frozen_truss)
         tracer = current_tracer()
         registry = current_registry()
@@ -291,7 +325,7 @@ class _FusedPeel:
         while True:
             # One readback per level: the loop condition and the cap check.
             self.host_syncs += 1
-            all_done, trips = torch.stack(
+            all_done, trips = torch.stack(  # trusslint: disable=R1
                 [st.done.all().to(torch.int32), st.total_iters]
             ).tolist()
             if all_done or trips >= limit:
@@ -341,8 +375,16 @@ class PeelExecutor:
     (``repro_torch.kernels.autotune.FusedConfig``; default the stock
     config), and validates each pack's tiling before dispatch.
 
-    ``dispatches`` counts :meth:`peel` calls (one per packed batch);
-    ``host_syncs`` counts the device→host readbacks they made.
+    With ``mesh=`` (``repro_torch.distributed.slot_mesh``) the packed slot
+    blocks are split across the mesh's devices before dispatch
+    (``shard_peel_args``), peeled in lock step, and their states
+    concatenated in slot order on the problem's device.  The fused backend
+    keeps its state kernel-resident and refuses a mesh, as the reference's
+    does.
+
+    ``dispatches`` counts :meth:`peel` calls (one per packed batch,
+    however many shards); ``host_syncs`` counts the device→host readbacks
+    they made, every shard's.
     """
 
     def __init__(
@@ -354,6 +396,7 @@ class PeelExecutor:
         window: int | None = None,
         chunk: int = 256,
         max_iters: int | None = None,
+        mesh=None,
         support: SupportFn | None = None,
         fused_config=None,
     ):
@@ -362,6 +405,11 @@ class PeelExecutor:
         self.dispatches = 0
         self._belt_syncs = 0
         if backend == "fused":
+            if mesh is not None:
+                raise ValueError(
+                    "the fused backend keeps peel state kernel-resident and "
+                    "does not shard; use fine/pallas/aligned under a mesh"
+                )
             if granularity != "fine":
                 raise ValueError("fused backend implements the fine granularity")
             if window is None:
@@ -371,6 +419,7 @@ class PeelExecutor:
             cfg = fused_config if fused_config is not None else FusedConfig()
             self.fused_config = cfg
             self.support = None
+            self.mesh = None
             self._peel = build_fused_peel(
                 window=window, block=cfg.block, schedule=cfg.schedule, max_iters=max_iters
             )
@@ -386,6 +435,7 @@ class PeelExecutor:
                 chunk=chunk,
             )
         self.support = support
+        self.mesh = mesh
         self._peel = build_peel(support, max_iters=max_iters)
 
     @property
@@ -441,13 +491,19 @@ class PeelExecutor:
         # "dispatch" covers every trip: the loop reads the done flags back
         # each trip, so the span ends when the device has finished.
         with tracer.span("dispatch", slots=num_slots):
-            st = self._peel(p, slot_ids, k0, single_level, alive0, frozen, frozen_truss)
+            if self.mesh is None:
+                st = self._peel(p, slot_ids, k0, single_level, alive0, frozen, frozen_truss)
+            else:
+                st = self._peel_sharded(
+                    p, slot_ids, k0, single_level, alive0, frozen, frozen_truss
+                )
         # Belt: the iteration cap is provably unreachable (see build_peel),
         # so an un-done slot means a peel bug — fail loudly rather than
         # letting callers read back a truncated state as final.
         with tracer.span("device-wait"):
             self._belt_syncs += 1
-            all_done = bool(st.done.all())
+            # The belt: one readback per dispatch, after the loop's own.
+            all_done = bool(st.done.all())  # trusslint: disable=R1
         if not all_done:
             raise DeviceError(
                 f"peel hit the iteration cap after {int(st.total_iters)} "
@@ -455,3 +511,25 @@ class PeelExecutor:
                 site="peel",
             )
         return st
+
+    def _peel_sharded(
+        self, p, slot_ids, k0, single_level, alive0, frozen, frozen_truss
+    ) -> PeelState:
+        """The mesh path of :meth:`peel`: split, lock step, concatenate."""
+        from ..distributed.ktruss import shard_peel_args  # lazy: exec stays dep-light
+
+        shards = shard_peel_args(
+            self.mesh, p, slot_ids, k0, single_level, alive0, frozen, frozen_truss
+        )
+        self._belt_syncs += len(shards)  # shard_peel_args' alignment check
+        states = self._peel.lock_step(shards, trip_cap(self._peel.max_iters, p, alive0))
+        dev = p.device
+
+        def joined(field):
+            return [getattr(s, field).to(dev) for s in states]
+
+        return PeelState(
+            **{f: torch.cat(joined(f)) for f in PeelState._fields if f != "total_iters"},
+            total_iters=torch.stack(joined("total_iters")).max(),
+        )
+

@@ -6,7 +6,8 @@ file (listed in ``.gitignore``).  The library's file name carries a hash of
 the source, the shared headers (``csrc/*.cuh``) and the flags, so an edited
 source or header is rebuilt and an unchanged one is reused.  A failed build
 raises :class:`~repro_torch.errors.CompileError` (``site="kernel_build"``);
-nothing falls back.
+nothing falls back.  Every ``nvcc`` run is a ``KERNEL_BUILD`` event
+(:mod:`repro_torch.obs.events`), which the recompile sentinel counts.
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ import time
 from pathlib import Path
 
 from ..errors import CompileError
+from ..obs.events import KERNEL_BUILD, record_event
 
 __all__ = ["BuiltLibrary", "NVCC_FLAGS", "load_library"]
 
@@ -100,6 +102,7 @@ def load_library(name: str) -> BuiltLibrary:
                 text=True,
             )
             build_s = time.perf_counter() - t0
+            record_event(KERNEL_BUILD, library=name)
             log = proc.stdout + proc.stderr
             if proc.returncode:
                 tmp.unlink(missing_ok=True)

@@ -15,7 +15,7 @@
     through the single ``repro_torch.api`` lowering path.  ``TrussFuture``
     *is* :class:`repro_torch.api.TrussFuture` (re-exported).  The
     arguments are the JAX package's adapter's, with ``device=`` (CUDA
-    unless ``"cpu"`` is passed) and without ``mesh=``.
+    unless ``"cpu"`` is passed).
 """
 
 from __future__ import annotations
@@ -50,6 +50,7 @@ class TrussService:
         max_batch: int = 8,
         chunk: int = 256,
         max_iters: int | None = None,
+        mesh=None,
         cache_dir: str | None = None,
         device: str | torch.device | None = None,
     ):
@@ -61,6 +62,7 @@ class TrussService:
             max_batch=max_batch,
             chunk=chunk,
             max_iters=max_iters,
+            mesh=mesh,
             cache_dir=cache_dir,
             device=device,
         )
@@ -82,6 +84,10 @@ class TrussService:
     @property
     def chunk(self) -> int:
         return self._session.chunk
+
+    @property
+    def mesh(self):
+        return self._session.mesh
 
     @property
     def requests_served(self) -> int:
