@@ -130,6 +130,28 @@ Phases (any failure exits non-zero):
    builds one executor and no kernel, its warm repeat builds nothing;
    and ``python -m repro_torch.analysis`` exits 0 on this copy of the
    tree.  The launches of phase 11 join ``support_fine_cuda``'s.
+12. the five example twins (``repro_torch.examples``) on the card: (a) each
+   one's ``main(device="cuda")`` at the example's own size, with its own
+   checks (the quickstart grid agrees on ``ktruss(4)``, every stream step
+   equals a from-scratch decompose) and the answers of
+   ``declarative_queries`` and ``tracing`` against ``trussness_numpy``;
+   each one's output, planner backends and launches of the two peel
+   kernels are printed; the one-shot solve of ``declarative_queries`` must
+   launch ``fused_level_cuda`` once a level and ``quickstart``'s
+   ``fine/owner/pallas`` ``support_fine_cuda`` once a ``ktruss(4)`` trip
+   and once for its timed pass; (b) ``ktruss_scaling.sweep`` over every
+   ``configs.BENCH_GRAPHS`` graph with ``coarse/eager/xla``,
+   ``fine/eager/xla`` and ``fine/owner/pallas`` (each coarse pass's padded
+   size printed first; median of 3 warm support passes, CUDA events), the
+   three settings equal on ``ktruss(4)``, ``support_fine_cuda`` launched
+   once a trip and once a timed pass, each graph's coarse/fine ratios
+   beside ``max_degree / avg_degree`` and ``coarse_imbalance``; (c)
+   ``tracing.traced_solve`` on phase 5's batch in a fresh traced
+   ``Session(max_batch=8)`` (auto rule: ``fine/fused/aligned``), cold then
+   warm, each span's ms and ``solve`` outside its child spans, the answers
+   equal to phase 5's, one fused launch a level, no retry and no fallback.
+   No resilience counter may move over phase 12.  Phase 12's launches are
+   the kernels' ``launches_by_path["examples"]``.
 
 Phases 1-9 must end with no retry, fallback, injected fault or quarantine
 in any session they drive (checked before phase 10 over the process-wide
@@ -206,26 +228,6 @@ def support_steps(p, alive) -> float:
     db = p.udeg[p.colidx[live].long()].double()
     lo, hi = torch.minimum(da, db), torch.maximum(da, db)
     return float(torch.minimum(da + db, lo * torch.ceil(torch.log2(hi + 1))).sum())
-
-
-def median_ms(fn, reps: int) -> float:
-    """Median device time of one ``fn`` call over ``reps`` calls (CUDA
-    events around each), after one warm-up call."""
-    import statistics
-
-    import torch
-
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
 
 
 def roofline(nbytes: float, ops: float, ops_per_s: float = INT_OPS_PER_S) -> tuple[float, str]:
@@ -875,7 +877,9 @@ def phase_dense(torch, g) -> dict:
         support_dense_torch,
         transpose_cuda,
     )
+    from repro_torch.examples import median_ms
 
+    cuda = torch.device("cuda")  # every timed call below has already run once
     n1 = g.n + 1
     vp = -(-n1 // TILE) * TILE
     up, rows, cols = dense_adjacency(torch, g, vp)
@@ -921,8 +925,8 @@ def phase_dense(torch, g) -> dict:
     err = max(err_full, err_asym)
     del ga, wa, ua
 
-    ms = median_ms(lambda: support_dense_cuda(up), reps=7)
-    plain_ms = median_ms(lambda: support_dense_torch(up), reps=3)
+    ms = median_ms(lambda: support_dense_cuda(up), cuda, 7)
+    plain_ms = median_ms(lambda: support_dense_torch(up), cuda, 3)
 
     # The yardstick: cuBLAS's int8 product, then the mask.  With the second
     # operand column-major (its layout for int8) it is several times faster
@@ -939,12 +943,12 @@ def phase_dense(torch, g) -> dict:
             raise AssertionError(f"the {fn.__name__} yardstick disagrees with the kernel")
         del lib
     del got
-    library_ms = median_ms(library, reps=5)
-    row_major_ms = median_ms(library_row_major, reps=5)
+    library_ms = median_ms(library, cuda, 5)
+    row_major_ms = median_ms(library_row_major, cuda, 5)
     if not torch.equal(transpose_cuda(up), up.t().contiguous()):
         raise AssertionError("the library's transpose disagrees with u.t().contiguous()")
-    transpose_ms = median_ms(lambda: transpose_cuda(up), reps=7)
-    torch_transpose_ms = median_ms(lambda: up.t().contiguous(), reps=3)
+    transpose_ms = median_ms(lambda: transpose_cuda(up), cuda, 7)
+    torch_transpose_ms = median_ms(lambda: up.t().contiguous(), cuda, 3)
     nbytes = 6.0 * vp * vp  # U and UT read once (1 byte each), S written once (4 bytes)
     ops_count = 2.0 * vp**3
     bound_ms, bound_by = roofline(nbytes, ops_count, INT8_TENSOR_OPS_PER_S)
@@ -971,6 +975,7 @@ ENGINE_COMBOS = (
 def phase_engine(torch, g, pallas_futs, smi) -> None:
     from repro_torch.configs import BENCH_GRAPHS
     from repro_torch.core import KTrussEngine
+    from repro_torch.examples.quickstart import grid
     from repro_torch.kernels import support_fine_cuda
 
     dec, kmax, kt = (f.result() for f in pallas_futs)
@@ -1005,20 +1010,15 @@ def phase_engine(torch, g, pallas_futs, smi) -> None:
     # The quickstart's grid: the paper's Table I in miniature.
     gg = next(b for b in BENCH_GRAPHS if b.name == ENGINE_GRID_GRAPH).build()
     t0 = time.perf_counter()
-    base = None
-    for gran, mode, backend, bucketed in ENGINE_COMBOS:
-        e = KTrussEngine(gg, granularity=gran, mode=mode, backend=backend, bucketed=bucketed,
-                         device="cuda")
-        res = e.ktruss(4)
-        alive = e.initial_alive()
-        ms = median_ms(lambda e=e, alive=alive: e.support(alive), reps=3)
-        tag = f"{gran}/{mode}/{backend}" + ("/bucketed" if bucketed else "")
-        log(f"phase8 {ENGINE_GRID_GRAPH} {tag:28s} support {ms:9.3f} ms "
-            f"({gg.nnz / ms / 1e3:8.2f} ME/s); 4-truss edges {res.edges_remaining}, "
+    rows = grid(gg, ENGINE_COMBOS, device="cuda")
+    base = rows[0].result
+    for row in rows:
+        res = row.result
+        log(f"phase8 {ENGINE_GRID_GRAPH} {row.tag:28s} support {row.ms:9.3f} ms "
+            f"({gg.nnz / row.ms / 1e3:8.2f} ME/s); 4-truss edges {res.edges_remaining}, "
             f"{res.iterations} trips")
-        base = res if base is None else base
         if not ((res.alive == base.alive).all() and (res.support == base.support).all()):
-            raise AssertionError(f"{tag} disagrees on ktruss(4)")
+            raise AssertionError(f"{row.tag} disagrees on ktruss(4)")
     log(f"phase8 grid on {ENGINE_GRID_GRAPH} (n={gg.n}, nnz={gg.nnz}): all agree on ktruss(4); "
         f"{time.perf_counter() - t0:.2f}s; card {smi}")
 
@@ -1345,13 +1345,19 @@ def phase_stream(torch, g, dec) -> dict:
     return dict(fused=counts.fused, support=counts.support, max_abs_err=err)
 
 
-def check_phases_clean() -> None:
-    """Every session of phases 1-9 chains its metrics to the process-wide
-    registry, so zero there means zero in each of them."""
+def resilience_counters() -> dict:
+    """The process-wide registry's resilience counters (every session
+    chains to it)."""
     from repro_torch.obs import get_registry
 
     counters = get_registry().snapshot()["counters"]
-    moved = {k: v for k, v in counters.items() if k.split("{")[0] in RESILIENCE_KEYS and v}
+    return {k: v for k, v in counters.items() if k.split("{")[0] in RESILIENCE_KEYS}
+
+
+def check_phases_clean() -> None:
+    """Every session of phases 1-9 chains its metrics to the process-wide
+    registry, so zero there means zero in each of them."""
+    moved = {k: v for k, v in resilience_counters().items() if v}
     if moved:
         raise AssertionError(f"phases 1-9 moved resilience counters: {moved}")
     log("phases 1-9: retries, backend_fallbacks, faults_injected, queries_quarantined all 0 "
@@ -1803,6 +1809,173 @@ def phase_mesh(torch, g, want, p3_wall: float) -> dict:
     return {"support": a_support + b_support + c_support + d_support}
 
 
+EXAMPLES = ("declarative_queries", "quickstart", "ktruss_scaling", "tracing", "streaming_updates")
+def check_oracle(queries, results, what: str) -> None:
+    """Each answer against ``trussness_numpy`` of its graph (small graphs)."""
+    from repro_torch.core import trussness_numpy
+
+    for q, r in zip(queries, results):
+        t = trussness_numpy(q.graph)
+        kmax = int(t.max()) if t.size else 0
+        if q.workload == "decompose":
+            ok = (r.kmax, bool((r.trussness == t).all())) == (kmax, True)
+        elif q.workload == "kmax":
+            ok = r == (kmax if kmax >= 3 else 0)
+        else:
+            ok = bool((r.alive == (t >= q.k)).all())
+        if not ok:
+            raise AssertionError(
+                f"phase12 {what}: {q.workload} on {q.graph.name} != trussness_numpy")
+
+
+def phase_examples(torch, g, want) -> dict:
+    """The five example twins on the card: (a) each ``main(device="cuda")``
+    at the example's own size; (b) the scaling sweep over every
+    BENCH_GRAPHS graph at full width; (c) the main path's span split,
+    cold and warm, on rmat-15's phase-5 batch.  No session of the phase
+    may retry, fall back or see a fault.  Returns the launches of the two
+    peel kernels."""
+    import contextlib
+    import importlib
+    import io
+    import tempfile
+
+    from repro_torch.api import Session, TrussQuery
+    from repro_torch.configs import BENCH_GRAPHS
+    from repro_torch.examples.ktruss_scaling import SETTINGS, sweep
+    from repro_torch.examples.tracing import SPANS, traced_solve
+
+    t12 = time.perf_counter()
+    counters0 = resilience_counters()
+    counts = LaunchCounts()
+    tmp = tempfile.TemporaryDirectory()
+
+    # (a) Each twin as a user runs it, with the example's own checks.
+    for name in EXAMPLES:
+        mod = importlib.import_module(f"repro_torch.examples.{name}")
+        kw = {"trace": str(Path(tmp.name) / "trace.json")} if name == "tracing" else {}
+        support0, fused0 = counts.support, counts.fused
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            got = counts.run(lambda: mod.main(device="cuda", **kw))
+        wall = time.perf_counter() - t0
+        for line in out.getvalue().splitlines():
+            log(f"phase12 {name} | {line}")
+        if name == "declarative_queries":
+            backends = got["planner_backends"]
+            check_oracle([TrussQuery.decompose(mod.one_shot_graph())] + mod.mixed_queries(),
+                         [got["one_shot"]] + got["results"], name)
+            # The one-shot solve alone runs a hand kernel here (the session asks
+            # for kernel="xla"): on rmat8 (skewed) the auto rule's fused kernel,
+            # one launch per level.
+            if counts.fused - fused0 != got["one_shot"].levels:
+                raise AssertionError(f"phase12 {name}: {counts.fused - fused0} fused launches, "
+                                     f"{got['one_shot'].levels} levels")
+        elif name == "quickstart":
+            backends = "none (KTrussEngine's ktruss and support run no Session)"
+            # fine/owner/pallas: one support_fine_cuda launch per ktruss(4)
+            # trip and one timed call.
+            trips = got["ktruss4"]["fine/owner/pallas"].iterations
+            if counts.support - support0 != trips + 1:
+                raise AssertionError(f"phase12 {name}: {counts.support - support0} "
+                                     f"support_fine_cuda launches, not {trips} trips + 1")
+        elif name == "tracing":
+            backends = [f"{r['bucket']} -> {r['backend']}" for r in got["imbalance"]]
+            check_oracle(mod.example_queries(), got["results"], name)
+        elif name == "streaming_updates":
+            backends = got["service"]["planner_backends"]
+        else:
+            backends = "none (KTrussEngine's ktruss and support run no Session)"
+        log(f"phase12 {name}: {wall:.2f}s; planner_backends {backends}; support_fine_cuda "
+            f"launches {counts.support - support0}, fused_level_cuda launches "
+            f"{counts.fused - fused0}")
+    part_a = (counts.support, counts.fused)
+
+    # (b) The scaling sweep at full width: every BENCH_GRAPHS graph, the
+    # reference example's two engines and the hand kernel.
+    settings = SETTINGS + (("fine", "owner", "pallas"),)
+    tags = ["/".join(s) for s in settings]
+    reps = 3
+    t0 = time.perf_counter()
+    for b in BENCH_GRAPHS:
+        gb = b.build()
+        # The coarse pass pads every row to W (KTrussEngine's coarse window:
+        # the largest out-degree rounded up to 8) in both dimensions, and
+        # support_coarse_eager walks it in blocks of at most 2^22 lanes for
+        # any W up to 2048, so its memory does not grow with the graph and
+        # no BENCH_GRAPHS graph is too large for the card; the peak below
+        # is measured.
+        w = max(8, -(-gb.max_degree() // 8) * 8)
+        lanes = gb.n * w * w
+        log(f"phase12 sweep {b.name} coarse pass: W {w}, {lanes:.3g} padded lanes, "
+            f"{8 * lanes / 1e9:.2f} GB read a pass (an int32 query and window entry each)")
+        torch.cuda.reset_peak_memory_stats()
+        tg = time.perf_counter()
+        support0 = counts.support
+        (row,) = counts.run(lambda: sweep([gb], settings, device="cuda", reps=reps))
+        kt = [row.ktruss[t] for t in tags]
+        if not all((r.alive == kt[0].alive).all() and (r.support == kt[0].support).all()
+                   and r.iterations == kt[0].iterations for r in kt):
+            raise AssertionError(f"phase12 sweep {b.name}: the settings disagree on ktruss(4)")
+        # Only the fine/owner/pallas column launches the hand kernel: once per
+        # ktruss(4) trip and once per timed call.
+        if counts.support - support0 != kt[-1].iterations + reps:
+            raise AssertionError(f"phase12 sweep {b.name}: {counts.support - support0} "
+                                 f"support_fine_cuda launches, not {kt[-1].iterations} "
+                                 f"trips + {reps}")
+        times = ", ".join(f"{t} {row.ms[t]:.3f} ms" for t in tags)
+        ratios = ", ".join(f"{tags[0]} / {t} {row.ms[tags[0]] / row.ms[t]:.1f}x"
+                           for t in tags[1:])
+        log(f"phase12 sweep {b.name}: n={row.n} nnz={row.nnz} maxdeg/avg {row.pred:.1f} "
+            f"coarse_imbalance {row.coarse_imbalance:.1f}; {times}; {ratios}; ktruss(4) "
+            f"{kt[0].edges_remaining} edges in {kt[0].iterations} trips, all agree; "
+            f"support_fine_cuda launches {counts.support - support0}; "
+            f"{time.perf_counter() - tg:.1f}s, "
+            f"peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    log(f"phase12 sweep: {time.perf_counter() - t0:.1f}s over {len(BENCH_GRAPHS)} graphs; "
+        f"support_fine_cuda launches {counts.support - part_a[0]}")
+    part_b = (counts.support, counts.fused)
+
+    # (c) The main path's span split: rmat-15's phase-5 batch, cold then warm,
+    # on fine/fused/aligned alone: one fused launch per level step, no
+    # support kernel, no retry, no step down.
+    session = Session(max_batch=8, device="cuda", trace=str(Path(tmp.name) / "rmat15.json"))
+    for run in ("cold", "warm"):
+        fused0, support0 = counts.fused, counts.support
+        levels0 = session.obs.metrics.value("peel_fused_levels")
+        results, _, ms = counts.run(lambda: traced_solve(session, rmat15_queries(g)))
+        fused = counts.fused - fused0
+        level_steps = int(session.obs.metrics.value("peel_fused_levels") - levels0)
+        for name, a, b in zip(QUERIES, results, want):
+            if not same_result(name, a, b):
+                raise AssertionError(f"phase12 span split ({run}): {name} != phase 5's")
+        st = session.stats()
+        backends = [c["backend"] for c in st["planner_backends"]]
+        if backends != ["fine/fused/aligned"] or st["retries"] or st["backend_fallbacks"]:
+            raise AssertionError(f"phase12 span split ({run}): planned on {backends}, "
+                                 f"{st['retries']} retries, {st['backend_fallbacks']} fallbacks")
+        if not (fused == level_steps == results[0].levels) or counts.support != support0:
+            raise AssertionError(
+                f"phase12 span split ({run}): {fused} fused launches over {level_steps} level "
+                f"steps ({results[0].levels} levels), {counts.support - support0} support "
+                f"launches")
+        log(f"phase12 rmat-15 span split ({run}): " + ", ".join(
+            f"{s} {ms[s]:.2f}" for s in SPANS + ("outside",)) + f" ms; fused_level_cuda "
+            f"launches {fused} == level steps == levels; 0 retries, 0 fallbacks; == phase 5")
+    tmp.cleanup()
+
+    moved = {k: v - counters0.get(k, 0) for k, v in resilience_counters().items()
+             if v != counters0.get(k, 0)}
+    if moved:
+        raise AssertionError(f"phase12 moved resilience counters: {moved}")
+    log(f"phase12 examples: {time.perf_counter() - t12:.1f}s; launches (a) support "
+        f"{part_a[0]} fused {part_a[1]}, (b) support {part_b[0] - part_a[0]}, (c) fused "
+        f"{counts.fused - part_b[1]} support {counts.support - part_b[0]}; retries, "
+        f"backend_fallbacks, faults_injected, queries_quarantined unmoved over every session")
+    return {"support": counts.support, "fused": counts.fused}
+
+
 def support_only(torch, g, bucket, smi, sets_file: Path) -> int:
     """Phase 2 and phase 3's kernel/rest split alone, for comparing the
     support kernel of two trees in one session: the alive sets of the
@@ -1896,6 +2069,7 @@ def main(argv: list[str]) -> int:
     phase_fleet(torch, g, want, fused_wall)
     log(f"phase10 {time.perf_counter() - t10:.1f}s")
     mesh = phase_mesh(torch, g, want, pallas_wall)
+    examples = phase_examples(torch, g, want)
     del want
     profiled_peel(torch, g, bucket)
     for nums in (numbers, fused_numbers):  # the frozen-lane checks count too
@@ -1906,10 +2080,11 @@ def main(argv: list[str]) -> int:
             route="cuda",
             source="src/repro_torch/kernels/csrc/support_fine.cu",
             replaces="src/repro/kernels/support_fine.py:86",
-            launches=launches + stream["support"] + resilience["support"] + mesh["support"],
+            launches=launches + stream["support"] + resilience["support"] + mesh["support"]
+            + examples["support"],
             launches_by_path=dict(
                 phase3=launches, phase9=stream["support"], phase10=resilience["support"],
-                phase11=mesh["support"],
+                phase11=mesh["support"], examples=examples["support"],
             ),
             **numbers,
         ),
@@ -1918,9 +2093,10 @@ def main(argv: list[str]) -> int:
             route="cuda",
             source="src/repro_torch/kernels/csrc/peel_fused.cu",
             replaces="src/repro/kernels/peel_fused.py:260",
-            launches=fused_launches + stream["fused"] + resilience["fused"],
+            launches=fused_launches + stream["fused"] + resilience["fused"] + examples["fused"],
             launches_by_path=dict(
-                phase5=fused_launches, phase9=stream["fused"], phase10=resilience["fused"]
+                phase5=fused_launches, phase9=stream["fused"], phase10=resilience["fused"],
+                examples=examples["fused"],
             ),
             **fused_numbers,
         ),
