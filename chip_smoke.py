@@ -26,11 +26,15 @@ Phases (any failure exits non-zero):
    ran once per peel trip, and the results against each other and the
    numpy oracle.  Then the same batch through the executor alone, each
    support pass between CUDA events: the whole peel split into the
-   kernel's passes and the rest of the trips, and the lanes handed to the
-   kernel; and, at the very end of the run (the profiler slows every
-   later launch of the process), once more under ``torch.profiler``: the
-   device's busy share of the peel and the kernels with the most device
-   time.
+   kernel's passes and the rest of the trips, the lanes handed to the
+   kernel and the executor's readbacks; the readback sweep (the peel with
+   its ``done`` flags read back every 1, 2, 4, 8, 16 and 32 trips, a
+   cadence the port does not adopt, beside the executor's own, each state
+   equal to the executor's); and, at the very end of the run (the
+   profiler slows every later launch of the process), once more under
+   ``torch.profiler``: the device's busy share of the peel, its readbacks
+   and the kernels with the most device time, none of them
+   ``index_add_``'s (the per-slot sums are row sums).
 4. every ``configs.BENCH_GRAPHS`` graph decomposed through
    ``fine/fused/aligned`` and ``fine/pallas/aligned``, and those whose
    bucket window is at most 64 also through ``fine/xla/aligned``;
@@ -152,6 +156,13 @@ Phases (any failure exits non-zero):
    equal to phase 5's, one fused launch a level, no retry and no fallback.
    No resilience counter may move over phase 12.  Phase 12's launches are
    the kernels' ``launches_by_path["examples"]``.
+13. the balanced-graph main path at full width: ``road-512``
+   (``configs.LARGE_GRAPHS``: 262,144 vertices, 536,383 edges) and its
+   three-query batch through ``Session(max_batch=8)`` with the auto rule,
+   which must plan ``fine/pallas/aligned`` (one dispatch,
+   ``support_fine_cuda`` once a trip); the answers against
+   ``trussness_numpy``; the wall, trips and readbacks; then the peel's
+   split and the readback sweep as in phase 3.
 
 Phases 1-9 must end with no retry, fallback, injected fault or quarantine
 in any session they drive (checked before phase 10 over the process-wide
@@ -456,11 +467,12 @@ def main_path_slots(torch, bucket, slots: int = 8):
 
 
 def instrumented_peel(torch, g, bucket):
-    """The rmat-15 batch peeled by the ``fine/pallas/aligned`` executor
-    (no ``Session``) with each support pass between two CUDA events.
-    Returns the problem, the executor's whole peel (ms, host clock), the
-    support passes' summed device time (ms), the trips, and the alive set
-    handed to the kernel on each trip (kept as clones, outside the events)."""
+    """``g``'s three-query batch peeled by the ``fine/pallas/aligned``
+    executor (no ``Session``) with each support pass between two CUDA
+    events.  Returns the problem, the executor's whole peel (ms, host
+    clock), the support passes' summed device time (ms), the trips, the
+    executor's readbacks, and the alive set handed to the kernel on each
+    trip (kept as clones, outside the events)."""
     from repro_torch.exec.peel import PeelExecutor
     from repro_torch.kernels import ops
 
@@ -484,17 +496,19 @@ def instrumented_peel(torch, g, bucket):
     torch.cuda.synchronize()
     whole_ms = (time.perf_counter() - t0) * 1e3
     support_ms = sum(a.elapsed_time(b) for a, b in events)
-    if len(events) != int(st.total_iters):
-        raise AssertionError(f"{len(events)} support passes over {int(st.total_iters)} trips")
-    return p, whole_ms, support_ms, len(events), handed
+    trips = int(st.total_iters)
+    if len(events) != trips:
+        raise AssertionError(f"{len(events)} support passes over {trips} trips")
+    return p, whole_ms, support_ms, trips, exe.host_syncs, handed
 
 
-def report_peel_split(tag: str, whole_ms, support_ms, trips, handed) -> None:
+def report_peel_split(tag: str, whole_ms, support_ms, trips, syncs, handed) -> None:
     lanes = sum(int(m.sum()) for m in handed)
-    log(f"{tag} executor peel (instrumented, {trips} trips): whole {whole_ms:.1f} ms; support passes "
-        f"{support_ms:.1f} ms of device time (CUDA events, {support_ms / trips:.4f} ms a pass); "
-        f"rest of the trip {whole_ms - support_ms:.1f} ms ({(whole_ms - support_ms) / trips:.3f} ms "
-        f"a trip); lanes handed to the kernel {lanes} over the trips ({lanes / trips:.0f} a trip)")
+    log(f"{tag} executor peel (instrumented, {trips} trips, {syncs} host syncs): whole "
+        f"{whole_ms:.1f} ms; support passes {support_ms:.1f} ms of device time (CUDA events, "
+        f"{support_ms / trips:.4f} ms a pass); rest of the trips {whole_ms - support_ms:.1f} ms "
+        f"({(whole_ms - support_ms) / trips:.3f} ms a trip); lanes handed to the kernel {lanes} "
+        f"over the trips ({lanes / trips:.0f} a trip)")
 
 
 def peel_sets(handed) -> dict:
@@ -546,11 +560,13 @@ def phase_pallas_path(torch, g):
     return launches, futs, wall, trips
 
 
-def profiled_peel(torch, g, bucket) -> None:
+def profiled_peel(torch, g, bucket, *, check: bool = True) -> None:
     """Phase 3's peel once more under ``torch.profiler`` (device activity
-    only): the device's busy share of the peel's wall, and the kernels that
-    take the most device time.  Run last: once the profiler has been
-    active, later launches in the process are slower."""
+    only): the device's busy share of the peel's wall, the readbacks, and
+    the kernels that take the most device time.  With ``check``, no
+    ``index_add_`` kernel may run on the trip (the per-slot sums are row
+    sums).  Run last: once the profiler has been active, later launches in
+    the process are slower."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.exec.peel import PeelExecutor
@@ -571,26 +587,146 @@ def profiled_peel(torch, g, bucket) -> None:
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA and device_us(e) > 0]
     busy_ms = sum(device_us(e) for e in kernels) / 1e3
+    tag = f"phase3 profiled peel ({exe.host_syncs} host syncs)"
     if not kernels:
-        log("phase3 profiled peel: the profiler saw no device time")
+        log(f"{tag}: the profiler saw no device time")
         return
     top = sorted(kernels, key=device_us, reverse=True)[:5]
-    log(f"phase3 profiled peel: wall {wall_ms:.1f} ms, device busy {busy_ms:.1f} ms "
+    log(f"{tag}: wall {wall_ms:.1f} ms, device busy {busy_ms:.1f} ms "
         f"({busy_ms / wall_ms:.1%} of the wall; idle {1 - busy_ms / wall_ms:.1%}); top kernels by "
         "device time: " + "; ".join(
             f"{e.key[:60]} {device_us(e) / 1e3:.1f} ms in {e.count} launches "
             f"({device_us(e) / 1e3 / busy_ms:.1%})" for e in top))
+    # index_add_'s CUDA kernels are indexFuncSmallIndex / indexFuncLargeIndex.
+    atomics = [e.key for e in kernels if "indexFunc" in e.key or "index_add" in e.key]
+    if check and atomics:
+        raise AssertionError(f"phase3 profiled peel: index_add_ kernels on the trip: {atomics}")
+
+
+SWEEP_CHECKS = (1, 2, 4, 8, 16, 32)
+
+
+def chunked_peel(exe, p, slot_ids, k0, single, k: int):
+    """The executor's unfused peel of an aligned batch with its ``done``
+    flags read back once every ``k`` trips instead of once a trip: the
+    readback cadence measured here and not adopted (PERF.md §6).  A trip
+    on an all-done state changes no per-slot field, so the trips a chunk
+    runs past the last retirement hand the kernel an empty mask; the
+    count of real trips, ``total_iters``, is then the longest slot's
+    ``iters``.  Returns the state and the readbacks."""
+    import torch
+
+    from repro_torch.exec import peel as pm
+
+    alive0 = p.colidx != 0
+    frozen = torch.zeros_like(alive0)
+    ftruss = torch.zeros(alive0.shape, dtype=torch.int32, device=alive0.device)
+    sums = pm._SlotSums(slot_ids, int(k0.shape[0]), aligned=True)
+    st = pm.init_peel_state(slot_ids, k0, alive0, frozen, ftruss, sums=sums)
+    lanes, syncs = slot_ids.long(), 1
+    while not bool(st.done.all()):
+        for _ in range(k):
+            st = pm._peel_step(exe.support, p, lanes, sums, single, frozen, ftruss, st)
+        syncs += 1
+    return st._replace(total_iters=st.iters.max()), syncs
+
+
+def sweep_checks(torch, tag: str, g, bucket, rounds: int = 5) -> None:
+    """``g``'s three-query batch peeled on ``fine/pallas/aligned`` by
+    :func:`chunked_peel` at each readback cadence of ``SWEEP_CHECKS`` and by
+    the executor itself (host clock between synchronisations), ``rounds``
+    times in turns (forward, then backward), every state equal to the
+    executor's."""
+    from repro_torch.exec.peel import PeelExecutor
+
+    p = main_path_problem(g, bucket, slots=8)
+    slot_ids, k0, single = main_path_slots(torch, bucket)
+    exe = PeelExecutor(mode="owner", backend="pallas", window=bucket.window, chunk=256)
+    k0_np, single_np = k0.cpu().numpy(), single.cpu().numpy()
+    want = exe.peel(p, slot_ids=slot_ids, k0=k0_np, single_level=single_np)
+
+    def executor():
+        before = exe.host_syncs
+        st = exe.peel(p, slot_ids=slot_ids, k0=k0_np, single_level=single_np)
+        return st, exe.host_syncs - before
+
+    runs = {"executor": executor}
+    for k in SWEEP_CHECKS:
+        runs[k] = lambda k=k: chunked_peel(exe, p, slot_ids, k0, single, k)
+    walls, syncs = {name: [] for name in runs}, {}
+    for r in range(rounds):
+        for name in list(runs) if r % 2 == 0 else list(runs)[::-1]:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            st, syncs[name] = runs[name]()
+            torch.cuda.synchronize()
+            walls[name].append((time.perf_counter() - t0) * 1e3)
+            if not all(torch.equal(a, b) for a, b in zip(want, st)):
+                raise AssertionError(f"{tag} sweep: the peel read back every {name} != the executor's")
+    log(f"{tag} readback sweep ({int(want.total_iters)} trips; peel ms by trips between "
+        f"readbacks, host clock, {rounds} runs each: median [min-max], readbacks): " + "; ".join(
+            f"{name}: {sorted(w)[len(w) // 2]:.1f} [{min(w):.1f}-{max(w):.1f}], {syncs[name]}"
+            for name, w in walls.items()))
 
 
 def phase_peel_split(torch, g, bucket, session_trips: int | None = None):
     """Phase 3's peel again, through the executor alone, split into the
     support passes and the rest of each trip; returns the problem and the
     alive sets handed to the kernel."""
-    p, whole_ms, support_ms, trips, handed = instrumented_peel(torch, g, bucket)
+    p, whole_ms, support_ms, trips, syncs, handed = instrumented_peel(torch, g, bucket)
     if session_trips is not None and trips != session_trips:
         raise AssertionError(f"executor peel took {trips} trips, the session's {session_trips}")
-    report_peel_split("phase3", whole_ms, support_ms, trips, handed)
+    report_peel_split("phase3", whole_ms, support_ms, trips, syncs, handed)
     return p, handed
+
+
+def phase_road(torch) -> int:
+    """Phase 13: ``road-512`` (``configs.LARGE_GRAPHS``), the balanced-graph
+    main path: its three-query batch through ``Session(max_batch=8)`` with
+    the auto rule, which must plan ``fine/pallas/aligned``; the answers
+    against ``trussness_numpy``; ``support_fine_cuda`` launched once per
+    trip.  Then the peel's split and the readback sweep.  Returns the
+    session's launches."""
+    import numpy as np
+
+    from repro_torch.api import bucket_for
+    from repro_torch.configs import LARGE_GRAPHS
+    from repro_torch.core import trussness_numpy
+    from repro_torch.kernels import support_fine_cuda
+
+    g = next(b for b in LARGE_GRAPHS if b.name == "road-512").build()
+    bucket = bucket_for(g, chunk=256)
+    t0 = time.perf_counter()
+    want = trussness_numpy(g)
+    log(f"phase13 road-512: n={g.n} nnz={g.nnz} bucket={tuple(bucket)}; trussness_numpy "
+        f"{time.perf_counter() - t0:.1f}s")
+    support_fine_cuda.launches = 0
+    session, futs, wall = run_session(torch, g, max_batch=8)
+    launches = support_fine_cuda.launches
+    st = session.stats()
+    backends = {row["backend"] for row in st["planner_backends"]}
+    trips = futs[0].stats.dispatch_trips
+    dec, kmax, kt = (f.result() for f in futs)
+    log(f"phase13 road-512 Session(max_batch=8), auto rule: {wall:.2f}s wall, backend "
+        f"{sorted(backends)}, dispatches {st['device_dispatches']}, total_iters {trips}, "
+        f"support_fine_cuda launches {launches}, host syncs "
+        f"{executor_of(session, g, 'fine/pallas/aligned').host_syncs}, levels {dec.levels}, "
+        f"kmax {dec.kmax}, ktruss(4) edges {kt.edges_remaining}")
+    if backends != {"fine/pallas/aligned"} or st["device_dispatches"] != 1:
+        raise AssertionError(f"phase13: {st['device_dispatches']} dispatches on {backends}")
+    if launches != trips or trips == 0:
+        raise AssertionError(f"phase13: {launches} support launches over {trips} trips")
+    if not np.array_equal(dec.trussness, want) or kmax != (int(want.max()) if want.max() >= 3 else 0):
+        raise AssertionError("phase13: decompose/kmax != trussness_numpy")
+    check_rmat15_results(g, futs)
+    del session, futs, dec, kt
+    p, whole_ms, support_ms, trips2, syncs, handed = instrumented_peel(torch, g, bucket)
+    if trips2 != trips:
+        raise AssertionError(f"phase13: executor peel took {trips2} trips, the session's {trips}")
+    report_peel_split("phase13", whole_ms, support_ms, trips2, syncs, handed)
+    del p, handed
+    sweep_checks(torch, "phase13", g, bucket)
+    return launches
 
 
 def phase_fused_main(torch, g, pallas_futs, pallas_wall):
@@ -1993,7 +2129,7 @@ def support_only(torch, g, bucket, smi, sets_file: Path) -> int:
     del handed
     phase_peel_sets(torch, p, bucket, sets)
     del p, sets
-    profiled_peel(torch, g, bucket)
+    profiled_peel(torch, g, bucket, check=False)
     log(smi)
     return 0
 
@@ -2055,6 +2191,7 @@ def main(argv: list[str]) -> int:
     del handed
     phase_peel_sets(torch, p, bucket, sets)
     del p, sets
+    sweep_checks(torch, "phase3", g, bucket)
     phase_paths(torch)
     fused_launches, fused_futs, fused_wall = phase_fused_main(torch, g, pallas_futs, pallas_wall)
     fused_numbers = phase_fused_kernel(torch, g, bucket)
@@ -2071,6 +2208,9 @@ def main(argv: list[str]) -> int:
     mesh = phase_mesh(torch, g, want, pallas_wall)
     examples = phase_examples(torch, g, want)
     del want
+    t13 = time.perf_counter()
+    road = phase_road(torch)
+    log(f"phase13 {time.perf_counter() - t13:.1f}s")
     profiled_peel(torch, g, bucket)
     for nums in (numbers, fused_numbers):  # the frozen-lane checks count too
         nums["max_abs_err"] = max(nums["max_abs_err"], stream["max_abs_err"])
@@ -2081,10 +2221,10 @@ def main(argv: list[str]) -> int:
             source="src/repro_torch/kernels/csrc/support_fine.cu",
             replaces="src/repro/kernels/support_fine.py:86",
             launches=launches + stream["support"] + resilience["support"] + mesh["support"]
-            + examples["support"],
+            + examples["support"] + road,
             launches_by_path=dict(
                 phase3=launches, phase9=stream["support"], phase10=resilience["support"],
-                phase11=mesh["support"], examples=examples["support"],
+                phase11=mesh["support"], examples=examples["support"], phase13=road,
             ),
             **numbers,
         ),

@@ -8,23 +8,28 @@ trussness at ``cur_k``, bumps the slot's kmax/level counters, and advances
 its threshold to ``cur_k + 1`` (or retires the slot when its level
 emptied, or at once for single-level ``ktruss(k)`` members).
 
-The reference runs the trips inside one ``lax.while_loop``; here they are
-a Python loop of device operations.  Its one device→host readback per
-trip is the ``done.all()`` test of the loop condition; the executor counts
-every readback in ``host_syncs``.  A **dispatch** is one
+The reference runs the trips inside one ``lax.while_loop`` whose
+condition the device evaluates; here they are a Python loop of device
+operations.  Its readbacks are one before the first trip (is any lane
+alive, and are the slot ids the aligned layout) and the ``done.all()``
+test of the loop condition after each trip: ``1 + trips``; the executor
+counts every readback in ``host_syncs``.  (Reading ``done`` back only
+every few trips, with no-op trips past the last retirement, saved less
+than the run-to-run spread of the peel on the H100: the host's launches,
+not the readbacks, set its pace.)  A **dispatch** is one
 :meth:`PeelExecutor.peel` call: one packed batch peeled to completion,
 however many trips and readbacks it takes.  ``total_iters`` counts trips
 exactly as the reference's loop counter does.
 
 Slots are the block-diagonal members of ``repro_torch.graphs.pack``;
 because the packing is a disjoint union, each slot's fixed point is
-independent and a per-slot convergence test (a segment sum of changed
-lanes) is exact.
+independent and a per-slot convergence test (a sum of changed lanes per
+slot, :class:`_SlotSums`) is exact.
 
 :func:`build_fused_peel` is the fused form: each level's support→prune
 fixed point runs inside one launch of the fused level kernel
 (``repro_torch.kernels.peel_fused``), and the host loop steps levels with
-one readback per level instead of one per trip.
+one readback per level.
 
 With a mesh (``repro_torch.distributed``), :class:`PeelExecutor` splits a
 packed batch into per-device blocks of whole slots and runs the blocks in
@@ -118,10 +123,45 @@ def make_problem_support(
     raise ValueError(f"unknown mode {mode!r}")
 
 
-def _segment_sum(x: torch.Tensor, slot_ids: torch.Tensor, num_slots: int) -> torch.Tensor:
-    """Per-slot int32 sums of ``x`` (``slot_ids`` int64; exact on any device)."""
-    out = torch.zeros(num_slots, dtype=torch.int32, device=x.device)
-    return out.index_add_(0, slot_ids, x.to(torch.int32))
+class _SlotSums:
+    """Exact per-slot int32 sums of a lane mask, with no atomics.
+
+    Built once per peel from the slot ids, on their device.  In the
+    aligned layout (lane block ``s`` of ``nnz_pad / slots`` lanes is slot
+    ``s``: ``arange(slots).repeat_interleave(...)``, the planner's aligned
+    pack and every mesh shard) a sum is a reshape to ``(slots, -1)`` and a
+    row sum.  Any other ids (the contig layout, whose pad tail is parked
+    on slot 0 after the last member) are stably sorted once; a sum is then
+    the lanes' cumulative sum in that order, differenced at each slot's
+    end.  Both are exact for every input.
+    """
+
+    def __init__(self, slot_ids: torch.Tensor, num_slots: int, *, aligned: bool):
+        self.num_slots = num_slots
+        self.order = None
+        if aligned:
+            return
+        ids = slot_ids.to(torch.int32)
+        self.order = torch.argsort(ids, stable=True)
+        slots = torch.arange(num_slots, dtype=torch.int32, device=ids.device)
+        ends = torch.searchsorted(ids[self.order], slots, right=True)
+        self.last = (ends - 1).clamp(min=0)  # each slot's last lane in sorted order
+        self.nonempty = ends > 0
+
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        if self.order is None:
+            return x.reshape(self.num_slots, -1).sum(1, dtype=torch.int32)
+        csum = x[self.order].cumsum(0, dtype=torch.int32)
+        upto = torch.where(self.nonempty, csum[self.last], 0)  # lanes of slots <= s
+        return torch.diff(upto, prepend=upto.new_zeros(1))
+
+
+def _is_aligned(slot_ids: torch.Tensor, num_slots: int) -> torch.Tensor:
+    """() bool on the ids' device: are the ids the aligned layout?"""
+    if num_slots == 0 or slot_ids.numel() % num_slots:
+        return torch.zeros((), dtype=torch.bool, device=slot_ids.device)
+    slots = torch.arange(num_slots, dtype=slot_ids.dtype, device=slot_ids.device)
+    return (slot_ids.reshape(num_slots, -1) == slots[:, None]).all()
 
 
 def init_peel_state(
@@ -130,13 +170,18 @@ def init_peel_state(
     alive0: torch.Tensor,
     frozen: torch.Tensor,
     frozen_truss: torch.Tensor,
+    *,
+    sums: _SlotSums | None = None,
 ) -> PeelState:
     """The peel's starting carry.  Frozen lanes carry their known
     trussness straight through to the output; free lanes start at the
-    vacuous floor."""
+    vacuous floor.  ``sums`` is the peel's per-slot summer; by default one
+    for any slot ids (sorted) is built."""
     num_slots = int(k0.shape[0])
     lanes = slot_ids.long()
-    edges0 = _segment_sum(alive0, lanes, num_slots)
+    if sums is None:
+        sums = _SlotSums(slot_ids, num_slots, aligned=False)
+    edges0 = sums(alive0)
     return PeelState(
         alive=alive0,
         support=torch.zeros_like(alive0, dtype=torch.int32),
@@ -159,13 +204,13 @@ def _peel_step(
     support: SupportFn,
     p: FineProblem,
     lanes: torch.Tensor,
+    sums: _SlotSums,
     single_level: torch.Tensor,
     frozen: torch.Tensor,
     frozen_truss: torch.Tensor,
     st: PeelState,
 ) -> PeelState:
     """One trip: support, prune, per-slot convergence and level bookkeeping."""
-    num_slots = int(st.cur_k.shape[0])
     lane_k = st.cur_k[lanes]
     lane_done = st.done[lanes]
     # Frozen lanes participate in supports exactly while the slot's
@@ -180,10 +225,10 @@ def _peel_step(
     # is its st.support: every field stays what recomputing it would give.
     s = torch.where(lane_done, st.support, support(p, eff_alive & ~lane_done))
     new_alive = st.alive & (s >= lane_k - 2)
-    changed = _segment_sum(new_alive ^ st.alive, lanes, num_slots)
+    changed = sums(new_alive ^ st.alive)
     converged = (changed == 0) & ~st.done
     trussness = torch.where(converged[lanes] & new_alive, lane_k, st.trussness)
-    left = _segment_sum(new_alive, lanes, num_slots)
+    left = sums(new_alive)
     nonempty = left > 0
     retired = converged & (~nonempty | single_level)
     cur_k = torch.where(converged & ~retired, st.cur_k + 1, st.cur_k)
@@ -223,7 +268,7 @@ class _Peel:
     def __init__(self, support: SupportFn, max_iters: int | None):
         self.support = support
         self.max_iters = max_iters
-        self.host_syncs = 0  # device->host readbacks of the loop condition
+        self.host_syncs = 0  # device->host readbacks of the loop condition and layout
 
     def __call__(
         self,
@@ -242,6 +287,8 @@ class _Peel:
     def lock_step(self, shards, limit: int) -> list[PeelState]:
         """Peel every shard's inputs (``shard_peel_args``' sets) in lock step.
 
+        Each shard first reads back whether any of its lanes is alive and
+        whether its slot ids are the aligned layout (its :class:`_SlotSums`).
         Each trip launches the step of every unfinished shard, then reads
         back every one of their ``done`` flags; a finished shard takes no
         more trips.  A done slot is a fixed point of the step (see
@@ -253,13 +300,24 @@ class _Peel:
         one device run one after another."""
         states: list[PeelState] = []
         steps = []
-        for p, slot_ids, k0, single_level, alive0, frozen, frozen_truss in shards:
-            states.append(init_peel_state(slot_ids, k0, alive0, frozen, frozen_truss))
-            lanes = slot_ids.long()
-            steps.append((p, lanes, single_level, frozen, frozen_truss))
-        live = list(range(len(states)))
+        live = []
+        for j, (p, slot_ids, k0, single_level, alive0, frozen, frozen_truss) in enumerate(shards):
+            num_slots = int(k0.shape[0])
+            self.host_syncs += 1
+            # The first loop condition and the layout: one readback a shard.
+            any_alive, aligned = torch.stack(  # trusslint: disable=R1
+                [alive0.any(), _is_aligned(slot_ids, num_slots)]
+            ).tolist()
+            sums = _SlotSums(slot_ids, num_slots, aligned=aligned)
+            states.append(init_peel_state(slot_ids, k0, alive0, frozen, frozen_truss, sums=sums))
+            steps.append((p, slot_ids.long(), sums, single_level, frozen, frozen_truss))
+            if any_alive:
+                live.append(j)
         trips = 0
-        while True:
+        while live and trips < limit:
+            for j in live:
+                states[j] = _peel_step(self.support, *steps[j], states[j])
+            trips += 1
             unfinished = []
             for j in live:
                 self.host_syncs += 1
@@ -267,11 +325,6 @@ class _Peel:
                 if not bool(states[j].done.all()):  # trusslint: disable=R1
                     unfinished.append(j)
             live = unfinished
-            if not live or trips >= limit:
-                break
-            for j in live:
-                states[j] = _peel_step(self.support, *steps[j], states[j])
-            trips += 1
         return states
 
 

@@ -379,6 +379,7 @@ def test_counted_readbacks_are_the_only_suppressed_syncs():
         ("peel.py", "PeelExecutor.peel"),
         ("peel.py", "_FusedPeel.__call__"),
         ("peel.py", "_Peel.lock_step"),
+        ("peel.py", "_Peel.lock_step"),
     ]
 
 

@@ -1,7 +1,11 @@
 """Port parity, executor layer: ``PeelExecutor`` on a packed batch gives the
 JAX package's per-slot state — trussness, kmax, levels, iters, total_iters,
 edges_alive and the rest — bit for bit, for every support configuration,
-with single-level slots and frozen lanes."""
+with single-level slots and frozen lanes.  The unfused peel's per-slot sums
+are held to ``index_add_``, and its trip loop to the reference's
+``build_peel`` in both layouts, under caps and in lock step."""
+
+import functools
 
 import numpy as np
 import pytest
@@ -10,6 +14,7 @@ import torch
 import repro.exec as rexec
 import repro.graphs as rg
 import repro_torch.exec as texec
+import repro_torch.exec.peel as tpeel
 from _torch_parity import assert_same, small_pairs, torch_problem
 from repro.api import bucket_for
 from repro.errors import DeviceError as RefDeviceError
@@ -105,3 +110,162 @@ def test_empty_batch_is_done_without_trips():
     p = torch_problem(pp.problem)
     st = tex.peel(p, slot_ids=slot_ids, k0=[3] * SLOTS, alive0=torch.zeros(p.nnz_pad, dtype=torch.bool))
     assert int(st.total_iters) == 0 and bool(st.done.all())
+
+
+# --------------------------------------------------------------------- #
+# The unfused peel's per-slot sums and trip loop
+# --------------------------------------------------------------------- #
+def _contig_ids(edge_ranges, nnzp):
+    """The planner's contig slot ids: members prefix-packed, the pad tail
+    parked on slot 0."""
+    ids = np.zeros(nnzp, np.int32)
+    for i, (a, b) in enumerate(edge_ranges):
+        ids[a:b] = i
+    return ids
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+@pytest.mark.parametrize("layout", ["aligned", "contig", "shuffled"])
+def test_slot_sums_match_index_add(layout, seed):
+    rng = np.random.default_rng(seed)
+    slots, per = 6, 64
+    if layout == "aligned":
+        ids = np.repeat(np.arange(slots, dtype=np.int32), per)
+    elif layout == "contig":
+        # Members of random sizes (one empty) from the front, then the tail.
+        sizes = rng.integers(1, per, slots)
+        sizes[seed % slots] = 0
+        ends = np.cumsum(sizes)
+        ids = _contig_ids(list(zip(ends - sizes, ends)), slots * per)
+    else:
+        ids = rng.integers(0, slots, slots * per).astype(np.int32)
+    t_ids = torch.from_numpy(ids)
+    assert bool(tpeel._is_aligned(t_ids, slots)) == (layout == "aligned")
+    for keep in (0.0, 0.5, 1.0):
+        # Random over every lane, the contig tail included.
+        x = torch.from_numpy(rng.random(ids.shape[0]) < keep)
+        want = torch.zeros(slots, dtype=torch.int32).index_add_(0, t_ids.long(), x.int())
+        # The sorted path serves any ids, the aligned ones included.
+        for aligned in {layout == "aligned", False}:
+            got = tpeel._SlotSums(t_ids, slots, aligned=aligned)(x)
+            assert got.dtype == torch.int32 and torch.equal(got, want), (aligned, keep)
+
+
+def _layout_batch(layout):
+    """Three small graphs packed into SLOTS slots in ``layout``, the slot ids
+    the planner gives that layout, and the bucket's window."""
+    graphs = [g for g, _ in small_pairs()]
+    pp = rg.pack_problems(
+        graphs, slot_n=SLOT_N, slot_nnz=SLOT_NNZ, slots=SLOTS, chunk=CHUNK, layout=layout
+    )
+    nnzp = int(pp.problem.nnz_pad)
+    if layout == "aligned":
+        slot_ids = np.repeat(np.arange(SLOTS, dtype=np.int32), SLOT_NNZ)
+    else:
+        slot_ids = _contig_ids(pp.edge_ranges, nnzp)
+    window = max(bucket_for(g, chunk=CHUNK).window for g in graphs)
+    return pp, slot_ids, window
+
+
+def _layout_args(layout, frozen):
+    """Numpy peel arguments on ``_layout_batch``: decompose, ktruss(4) and
+    kmax slots and an empty one; with ``frozen``, a seeded frontier is free
+    and every other real lane frozen at its trussness."""
+    pp, slot_ids, window = _layout_batch(layout)
+    real = np.asarray(pp.problem.colidx) != 0
+    k0 = np.array([3, 4, 3, 3], np.int32)
+    single = np.array([False, True, False, False])
+    nnzp = real.shape[0]
+    if not frozen:
+        return slot_ids, k0, single, real, np.zeros(nnzp, bool), np.zeros(nnzp, np.int32)
+    truss = np.asarray(_ref_peel(layout, False).trussness)
+    frontier = real & (np.random.default_rng(5).random(nnzp) < 0.3)
+    fr = real & ~frontier
+    return slot_ids, np.full(SLOTS, 3, np.int32), single, frontier, fr, np.where(fr, truss, 0).astype(np.int32)
+
+
+def _support_cfg(window):
+    return dict(granularity="fine", mode="owner", backend="xla", window=window, chunk=CHUNK)
+
+
+@functools.lru_cache(maxsize=None)
+def _ref_peel(layout, frozen, max_iters=None):
+    """The reference's ``build_peel`` state on ``_layout_args`` (cached: it
+    does not depend on the port's chunking)."""
+    import jax.numpy as jnp
+
+    pp, _, window = _layout_batch(layout)
+    args = _layout_args(layout, frozen)
+    peel = rexec.build_peel(rexec.make_problem_support(**_support_cfg(window)), max_iters=max_iters)
+    return peel(pp.problem, *(jnp.asarray(a) for a in args))
+
+
+def _port_peel(layout, frozen, max_iters=None):
+    pp, _, window = _layout_batch(layout)
+    args = [torch.from_numpy(a) for a in _layout_args(layout, frozen)]
+    peel = texec.build_peel(texec.make_problem_support(**_support_cfg(window)), max_iters=max_iters)
+    return peel(torch_problem(pp.problem), *args), peel
+
+
+@pytest.mark.parametrize("frozen", [False, True], ids=["free", "frozen"])
+@pytest.mark.parametrize("layout", ["aligned", "contig"])
+def test_build_peel_matches_reference_per_field(layout, frozen):
+    ref = _ref_peel(layout, frozen)
+    got, peel = _port_peel(layout, frozen)
+    for f in ref._fields:
+        assert_same(getattr(ref, f), getattr(got, f), f)
+    trips = int(got.total_iters)
+    assert bool(got.done.all()) and trips > 0
+    # The first condition (with the layout), then one readback a trip.
+    assert peel.host_syncs == 1 + trips
+    # Not vacuous: the ktruss(4) slot retired early, the empty one at once.
+    iters = got.iters.tolist()
+    assert iters[3] == 0 < iters[1] < max(iters)
+
+
+@pytest.mark.parametrize("layout", ["aligned", "contig"])
+@pytest.mark.parametrize("cap", [1, 6])
+def test_capped_peel_matches_reference(layout, cap):
+    """A cap that fires in the first level or mid-peel stops at exactly
+    the reference's truncated state."""
+    ref = _ref_peel(layout, False, cap)
+    got, peel = _port_peel(layout, False, cap)
+    for f in ref._fields:
+        assert_same(getattr(ref, f), getattr(got, f), f)
+    assert int(got.total_iters) == cap and not bool(got.done.all())
+    assert peel.host_syncs == 1 + cap
+    pp, slot_ids, window = _layout_batch(layout)
+    with pytest.raises(DeviceError, match="iteration cap"):
+        texec.PeelExecutor(max_iters=cap, **_support_cfg(window)).peel(
+            torch_problem(pp.problem), slot_ids=slot_ids, k0=[3] * SLOTS
+        )
+
+
+def test_lock_step_shards_of_unequal_trips():
+    """Two shards (aligned and contig packs of different batches) in lock
+    step: each equals the reference's peel of its own inputs, takes trips
+    only while unfinished, and reads back once a trip."""
+    layouts = ("aligned", "contig")
+    frozen = (False, True)
+    calls = {}
+    shards = []
+    for layout, fz in zip(layouts, frozen):
+        pp, _, window = _layout_batch(layout)
+        p = torch_problem(pp.problem)
+        shards.append((p, *(torch.from_numpy(a) for a in _layout_args(layout, fz))))
+    plain = texec.make_problem_support(**_support_cfg(window))
+
+    def spy(prob, alive):
+        calls[id(prob)] = calls.get(id(prob), 0) + 1
+        return plain(prob, alive)
+
+    peel = texec.build_peel(spy)
+    states = peel.lock_step(shards, limit=10_000)
+    trips = [int(s.total_iters) for s in states]
+    assert trips[0] != trips[1], trips
+    for layout, fz, st in zip(layouts, frozen, states):
+        ref = _ref_peel(layout, fz)
+        for f in ref._fields:
+            assert_same(getattr(ref, f), getattr(st, f), (layout, f))
+    assert [calls[id(sh[0])] for sh in shards] == trips
+    assert peel.host_syncs == sum(1 + t for t in trips)
