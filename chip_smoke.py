@@ -7,10 +7,12 @@ Phases (any failure exits non-zero):
 
 1. setup: the card's name and power limit; build the three hand-written
    kernel libraries (``support_fine.cu``, ``peel_fused.cu`` and
-   ``support_dense.cu`` from ``src/repro_torch/kernels/csrc``, one ``nvcc``
-   each, started together) and print nvcc's register, shared-memory and
-   spill reports, the fused kernel's CTAs per SM (its cooperative grid)
-   and the dense product's dynamic shared memory.
+   ``support_dense.cu`` from ``src/repro_torch/kernels/csrc``) and
+   ``graph_while.cu`` (the WHILE conditional node of the unfused peel's
+   trip graph), one ``nvcc`` each, started together, and print nvcc's register,
+   shared-memory and spill reports, the fused kernel's CTAs per SM (its
+   cooperative grid), the dense product's dynamic shared memory and the
+   CUDA runtime and driver versions the conditional nodes run on.
 2. kernel vs plain version, at the main path's input: ``rmat-15``
    (``configs.LARGE_GRAPHS``) packed as phase 3 packs it (8 slots of its
    bucket, 3 live); ``support_fine_cuda`` must equal the plain torch
@@ -22,19 +24,26 @@ Phases (any failure exits non-zero):
    last trip), each beside ``support_steps`` and its bound.
 3. the support kernel's path, full size: ``decompose``/``kmax``/
    ``ktruss(k=4)`` of ``rmat-15`` through ``Session`` on CUDA with
-   ``backend="fine/pallas/aligned"``; checks one dispatch, that the kernel
-   ran once per peel trip, and the results against each other and the
-   numpy oracle.  Then the same batch through the executor alone, each
-   support pass between CUDA events: the whole peel split into the
-   kernel's passes and the rest of the trips, the lanes handed to the
-   kernel and the executor's readbacks; the readback sweep (the peel with
-   its ``done`` flags read back every 1, 2, 4, 8, 16 and 32 trips, a
-   cadence the port does not adopt, beside the executor's own, each state
-   equal to the executor's); and, at the very end of the run (the
-   profiler slows every later launch of the process), once more under
-   ``torch.profiler``: the device's busy share of the peel, its readbacks
-   and the kernels with the most device time, none of them
-   ``index_add_``'s (the per-slot sums are row sums).
+   ``backend="fine/pallas/aligned"``; its first dispatch captures the
+   unfused peel's trip graph (the capture's host ms is printed); checks
+   one dispatch, one capture, that the kernel ran once per peel trip (on
+   the graph path the kernel counts its own launches on the device), and
+   the results against each other and the numpy oracle; then the batch
+   again on the same session (a replay, no capture).  Then the same batch
+   through a fresh executor alone (the graph: its first dispatch with the
+   capture and the memory it reserved, then warm dispatches) beside the
+   peel driven by hand through
+   ``_peel_step`` one trip at a time, each support pass between CUDA
+   events (the split into the kernel's passes and the rest of the trips,
+   and the lanes handed to the kernel, are measured on this eager loop
+   only), the states equal field for field; and, at the very end of the
+   run (the profiler slows every later launch of the process), the peel
+   under ``torch.profiler``: the profiler does not trace inside the
+   graph's WHILE node, so the trips' device work is read from the same
+   trips driven by hand, and the graph's busy share is that over a warm
+   graph dispatch's wall; its readbacks and the kernels with the most
+   device time, none of them ``index_add_``'s (the per-slot sums are row
+   sums).
 4. every ``configs.BENCH_GRAPHS`` graph decomposed through
    ``fine/fused/aligned`` and ``fine/pallas/aligned``, and those whose
    bucket window is at most 64 also through ``fine/xla/aligned``;
@@ -131,9 +140,10 @@ Phases (any failure exits non-zero):
    trips: the longest run of its slots), and no fused launch; each
    case's wall is printed beside phase 3's.  Then the recompile sentinel
    (``repro_torch.analysis.sentinel``): phase 5's batch on a fresh session
-   builds one executor and no kernel, its warm repeat builds nothing;
-   and ``python -m repro_torch.analysis`` exits 0 on this copy of the
-   tree.  The launches of phase 11 join ``support_fine_cuda``'s.
+   builds one executor and no kernel (and, forced onto
+   ``fine/pallas/aligned``, captures one trip graph), its warm repeat
+   builds and captures nothing; and ``python -m repro_torch.analysis``
+   exits 0 on this copy of the tree.  The launches of phase 11 join ``support_fine_cuda``'s.
 12. the five example twins (``repro_torch.examples``) on the card: (a) each
    one's ``main(device="cuda")`` at the example's own size, with its own
    checks (the quickstart grid agrees on ``ktruss(4)``, every stream step
@@ -161,8 +171,12 @@ Phases (any failure exits non-zero):
    three-query batch through ``Session(max_batch=8)`` with the auto rule,
    which must plan ``fine/pallas/aligned`` (one dispatch,
    ``support_fine_cuda`` once a trip); the answers against
-   ``trussness_numpy``; the wall, trips and readbacks; then the peel's
-   split and the readback sweep as in phase 3.
+   ``trussness_numpy``; the wall (with the capture), trips and
+   readbacks, and a warm repeat; then the graph peel beside the eager
+   loop's split as in phase 3.
+
+Phases 9, 10 and 11 print the trip-graph captures made in this process
+while they ran: how many, and their host seconds.
 
 Phases 1-9 must end with no retry, fallback, injected fault or quarantine
 in any session they drive (checked before phase 10 over the process-wide
@@ -287,6 +301,7 @@ def sparse_yardstick(p, alive):
 def phase_setup(torch):
     from concurrent.futures import ThreadPoolExecutor
 
+    from repro_torch.kernels.graph_while import cuda_versions, load_graph_while
     from repro_torch.kernels.peel_fused import load_peel_fused
     from repro_torch.kernels.support_dense import load_support_dense
     from repro_torch.kernels.support_fine import load_support_fine
@@ -302,6 +317,7 @@ def phase_setup(torch):
         "support_fine": load_support_fine,
         "peel_fused": load_peel_fused,
         "support_dense": load_support_dense,
+        "graph_while": load_graph_while,
     }
     with ThreadPoolExecutor(len(loaders)) as pool:  # one nvcc per source, together
         futs = {name: pool.submit(fn) for name, fn in loaders.items()}
@@ -318,6 +334,9 @@ def phase_setup(torch):
             f"(cooperative grid {per_sm} x SMs)")
     log(f"phase1 support_dense: product kernel dynamic shared memory "
         f"{built['support_dense'].lib.support_dense_smem_bytes()} bytes")
+    runtime, driver = cuda_versions(built["graph_while"])
+    log(f"phase1 graph_while: the WHILE conditional node of the unfused peel's trip graph; CUDA "
+        f"runtime {runtime}, driver {driver}")
     return smi
 
 
@@ -466,21 +485,108 @@ def main_path_slots(torch, bucket, slots: int = 8):
     return slot_ids, k0, single
 
 
-def instrumented_peel(torch, g, bucket):
-    """``g``'s three-query batch peeled by the ``fine/pallas/aligned``
-    executor (no ``Session``) with each support pass between two CUDA
-    events.  Returns the problem, the executor's whole peel (ms, host
-    clock), the support passes' summed device time (ms), the trips, the
-    executor's readbacks, and the alive set handed to the kernel on each
-    trip (kept as clones, outside the events)."""
+class CaptureLog:
+    """The unfused peel's trip-graph captures (``PEEL_CAPTURE`` events),
+    each with its host seconds (the warm-up and the capture)."""
+
+    def __init__(self):
+        self.seconds: list[float] = []
+
+    def __call__(self, event: str, **info) -> None:
+        from repro_torch.obs.events import PEEL_CAPTURE
+
+        if event == PEEL_CAPTURE:
+            self.seconds.append(info["seconds"])
+
+    def run(self, fn):
+        from repro_torch.obs.events import register_event_listener, unregister_event_listener
+
+        register_event_listener(self)
+        try:
+            return fn()
+        finally:
+            unregister_event_listener(self)
+
+
+def with_captures(tag: str, fn):
+    """``fn()``, logging the trip-graph captures made in this process while
+    it ran (a fleet replica's are its own): how many, and their host time."""
+    caps = CaptureLog()
+    out = caps.run(fn)
+    ms = sorted(x * 1e3 for x in caps.seconds)
+    log(f"{tag} trip-graph captures in this process: {len(ms)}, {sum(ms):.1f} ms of host time"
+        + (f" (median {ms[len(ms) // 2]:.1f} ms, largest {ms[-1]:.1f} ms)" if ms else ""))
+    return out
+
+
+def same_state(a, b) -> bool:
+    """Two peel states equal field for field, bit for bit."""
+    import torch
+
+    return all(x.dtype == y.dtype and x.shape == y.shape and bool(torch.equal(x, y))
+               for x, y in zip(a, b))
+
+
+def graph_peel(torch, g, bucket, reps: int = 5):
+    """``g``'s three-query batch peeled by a fresh ``fine/pallas/aligned``
+    executor (no ``Session``): its first dispatch captures the trip graph,
+    then ``reps`` warm dispatches replay it.  Returns the problem, the
+    executor, the state, the first dispatch's ms and its capture's host ms,
+    the memory the first dispatch reserved (MiB, ``memory_reserved`` before
+    and after: the graph's pool and static buffers, and whatever else it
+    allocated), the warm dispatches' ms (host clock between
+    synchronisations) and the readbacks of one warm dispatch."""
     from repro_torch.exec.peel import PeelExecutor
-    from repro_torch.kernels import ops
 
     p = main_path_problem(g, bucket, slots=8)
     slot_ids, k0, single = main_path_slots(torch, bucket)
+    kw = dict(slot_ids=slot_ids, k0=k0.cpu().numpy(), single_level=single.cpu().numpy())
+    exe = PeelExecutor(mode="owner", backend="pallas", window=bucket.window, chunk=256)
+    caps = CaptureLog()
+    torch.cuda.synchronize()
+    reserved = torch.cuda.memory_reserved()
+    t0 = time.perf_counter()
+    st = caps.run(lambda: exe.peel(p, **kw))
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    reserved_mib = (torch.cuda.memory_reserved() - reserved) / 2**20
+    if len(caps.seconds) != 1:
+        raise AssertionError(f"the first dispatch made {len(caps.seconds)} captures")
+    warm = []
+    for _ in range(reps):
+        before = exe.host_syncs
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        again = caps.run(lambda: exe.peel(p, **kw))
+        torch.cuda.synchronize()
+        warm.append((time.perf_counter() - t0) * 1e3)
+        if not same_state(st, again):
+            raise AssertionError("a warm dispatch of the trip graph != the first")
+    if len(caps.seconds) != 1:
+        raise AssertionError(f"warm dispatches captured again ({len(caps.seconds)} captures)")
+    return p, exe, st, first_ms, caps.seconds[0] * 1e3, reserved_mib, warm, exe.host_syncs - before
+
+
+def eager_trip_loop(torch, p, bucket, *, timed: bool = True):
+    """The main-path batch's unfused peel driven by hand through
+    ``_peel_step``, one trip at a time with ``done`` read back after each
+    (the eager loop the trip graph replaced), with ``timed`` each support
+    pass between two CUDA events.  Returns the state, the whole loop (ms,
+    host clock), the support passes' summed device time (ms; 0 untimed),
+    and the alive set handed to the kernel on each trip (kept as clones,
+    outside the events; none untimed)."""
+    from repro_torch.exec import peel as pm
+    from repro_torch.kernels import ops
+
+    slot_ids, k0, single = main_path_slots(torch, bucket)
+    alive0 = p.colidx != 0
+    frozen = torch.zeros_like(alive0)
+    ftruss = torch.zeros(alive0.shape, dtype=torch.int32, device=alive0.device)
     events, handed = [], []
 
     def support(prob, alive):
+        if not timed:
+            return ops.support_fine(prob, alive, window=bucket.window, chunk=256)
         handed.append(alive.clone())
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
@@ -489,26 +595,44 @@ def instrumented_peel(torch, g, bucket):
         events.append((start, end))
         return out
 
-    exe = PeelExecutor(support=support)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    st = exe.peel(p, slot_ids=slot_ids, k0=k0.cpu().numpy(), single_level=single.cpu().numpy())
+    sums = pm._SlotSums(slot_ids, int(k0.shape[0]), aligned=True)
+    st = pm.init_peel_state(slot_ids, k0, alive0, frozen, ftruss, sums=sums)
+    lanes = slot_ids.long()
+    while not bool(st.done.all()):
+        st = pm._peel_step(support, p, lanes, sums, single, frozen, ftruss, st)
     torch.cuda.synchronize()
     whole_ms = (time.perf_counter() - t0) * 1e3
-    support_ms = sum(a.elapsed_time(b) for a, b in events)
-    trips = int(st.total_iters)
-    if len(events) != trips:
-        raise AssertionError(f"{len(events)} support passes over {trips} trips")
-    return p, whole_ms, support_ms, trips, exe.host_syncs, handed
+    if timed and len(events) != int(st.total_iters):
+        raise AssertionError(f"{len(events)} support passes over {int(st.total_iters)} trips")
+    return st, whole_ms, sum(a.elapsed_time(b) for a, b in events), handed
 
 
-def report_peel_split(tag: str, whole_ms, support_ms, trips, syncs, handed) -> None:
+def report_peel_split(tag: str, graph, eager) -> None:
+    """The executor's graph peel (unless ``graph`` is None) beside the
+    hand-driven eager loop, and the eager loop's split into support passes
+    and the rest of the trips."""
+    est, whole_ms, support_ms, handed = eager
+    trips = int(est.total_iters)
     lanes = sum(int(m.sum()) for m in handed)
-    log(f"{tag} executor peel (instrumented, {trips} trips, {syncs} host syncs): whole "
-        f"{whole_ms:.1f} ms; support passes {support_ms:.1f} ms of device time (CUDA events, "
-        f"{support_ms / trips:.4f} ms a pass); rest of the trips {whole_ms - support_ms:.1f} ms "
-        f"({(whole_ms - support_ms) / trips:.3f} ms a trip); lanes handed to the kernel {lanes} "
-        f"over the trips ({lanes / trips:.0f} a trip)")
+    if graph is not None:
+        _, _, st, first_ms, capture_ms, reserved_mib, warm, syncs = graph
+        w = sorted(warm)
+        log(f"{tag} executor peel (CUDA graph, one WHILE node, {trips} trips): first dispatch "
+            f"{first_ms:.1f} ms, of which the capture {capture_ms:.1f} ms (host), reserving "
+            f"{reserved_mib:.0f} MiB; warm dispatch {w[len(w) // 2]:.1f} ms "
+            f"[{w[0]:.1f}-{w[-1]:.1f}] (median [min-max] of {len(w)}), {syncs} host syncs a "
+            f"dispatch")
+        if not same_state(st, est):
+            raise AssertionError(f"{tag}: the eager trip loop's state != the graph peel's")
+    log(f"{tag} eager trip loop driven by hand (one _peel_step a trip, done read back each "
+        f"trip; the split is measured on this loop only: CUDA events and alive.clone() cannot "
+        f"sit inside a capture): whole {whole_ms:.1f} ms; support passes {support_ms:.1f} ms of "
+        f"device time ({support_ms / trips:.4f} ms a pass); rest of the trips "
+        f"{whole_ms - support_ms:.1f} ms ({(whole_ms - support_ms) / trips:.3f} ms a trip); "
+        f"lanes handed to the kernel {lanes} over the trips ({lanes / trips:.0f} a trip)"
+        + ("; state == the graph peel's, field for field" if graph is not None else ""))
 
 
 def peel_sets(handed) -> dict:
@@ -536,65 +660,117 @@ def phase_peel_sets(torch, p, bucket, sets: dict) -> None:
             f"{worklist_counts(p, alive)}")
 
 
+def warm_repeat(torch, session, g, futs, tag: str) -> str:
+    """The batch again on ``session``: its warm dispatch replays the trip
+    graph its first captured (no capture), launching the support kernel
+    once a trip, with the first answers.  Returns the log text."""
+    from repro_torch.kernels import support_fine_cuda
+
+    caps = CaptureLog()
+    launches0 = support_fine_cuda.launches
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    again = caps.run(lambda: session.solve(rmat15_queries(g)))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = support_fine_cuda.launches - launches0
+    trips = futs[0].stats.dispatch_trips
+    if caps.seconds or launches != trips:
+        raise AssertionError(f"{tag} warm repeat: {len(caps.seconds)} captures, {launches} "
+                             f"support launches over {trips} trips")
+    for name, a, f in zip(QUERIES, again, futs):
+        if not same_result(name, a, f.result()):
+            raise AssertionError(f"{tag} warm repeat: {name} != the first dispatch's")
+    return f"warm repeat (replays the graph) {wall:.2f}s wall, {launches} launches, == the first"
+
+
 def phase_pallas_path(torch, g):
     from repro_torch.kernels import support_fine_cuda
 
     support_fine_cuda.launches = 0
-    session, futs, wall = run_session(torch, g, backend="fine/pallas/aligned")
+    caps = CaptureLog()
+    session, futs, wall = caps.run(lambda: run_session(torch, g, backend="fine/pallas/aligned"))
     launches = support_fine_cuda.launches
     st = session.stats()
     dec, _, kt = (f.result() for f in futs)
     trips = futs[0].stats.dispatch_trips
     log(
-        f"phase3 rmat-15 fine/pallas/aligned: {wall:.2f}s wall, dispatches "
+        f"phase3 rmat-15 fine/pallas/aligned: {wall:.2f}s wall (first dispatch; the trip graph's "
+        f"capture {sum(caps.seconds) * 1e3:.1f} ms of host time), dispatches "
         f"{st['device_dispatches']}, total_iters {trips}, launches {launches}, host syncs "
         f"{executor_of(session, g, 'fine/pallas/aligned').host_syncs}, levels {dec.levels}, "
         f"kmax {dec.kmax}, ktruss(4) edges {kt.edges_remaining}, "
         f"peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB"
     )
-    if st["device_dispatches"] != 1:
-        raise AssertionError(f"{st['device_dispatches']} dispatches for one bucket")
+    if st["device_dispatches"] != 1 or len(caps.seconds) != 1:
+        raise AssertionError(f"{st['device_dispatches']} dispatches for one bucket, "
+                             f"{len(caps.seconds)} captures")
     if launches != trips or trips == 0:
         raise AssertionError(f"kernel launched {launches} times over {trips} peel trips")
     check_rmat15_results(g, futs)
+    log(f"phase3 {warm_repeat(torch, session, g, futs, 'phase3')}")
     return launches, futs, wall, trips
 
 
 def profiled_peel(torch, g, bucket, *, check: bool = True) -> None:
-    """Phase 3's peel once more under ``torch.profiler`` (device activity
-    only): the device's busy share of the peel's wall, the readbacks, and
-    the kernels that take the most device time.  With ``check``, no
-    ``index_add_`` kernel may run on the trip (the per-slot sums are row
-    sums).  Run last: once the profiler has been active, later launches in
-    the process are slower."""
+    """Phase 3's peel under ``torch.profiler`` (device activity only).  The
+    profiler does not trace the kernels inside a conditional node's body,
+    so the device's work is read from the same trips driven by hand
+    (:func:`eager_trip_loop`, untimed: the same kernels on the same
+    inputs, its state equal to the graph's), and the graph peel's idle
+    share is one less that busy time over a warm graph dispatch's wall,
+    taken without the profiler.  A graph replay is profiled too, to show
+    what the profiler sees of it.  Prints the readbacks and the kernels
+    that take the most device time.  With ``check``, no ``index_add_``
+    kernel may run on the trip (the per-slot sums are row sums).  Run
+    last: once the profiler has been active, later launches in the
+    process are slower."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.exec.peel import PeelExecutor
 
     p = main_path_problem(g, bucket, slots=8)
     slot_ids, k0, single = main_path_slots(torch, bucket)
+    kw = dict(slot_ids=slot_ids, k0=k0.cpu().numpy(), single_level=single.cpu().numpy())
     exe = PeelExecutor(mode="owner", backend="pallas", window=bucket.window, chunk=256)
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        exe.peel(p, slot_ids=slot_ids, k0=k0.cpu().numpy(), single_level=single.cpu().numpy())
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
+    exe.peel(p, **kw)  # the first dispatch captures the trip graph, outside the profile
+    before = exe.host_syncs
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st = exe.peel(p, **kw)  # a warm dispatch without the profiler's tracing
+    torch.cuda.synchronize()
+    graph_ms = (time.perf_counter() - t0) * 1e3
+    syncs = exe.host_syncs - before
 
     def device_us(e):
         return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
 
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA and device_us(e) > 0]
-    busy_ms = sum(device_us(e) for e in kernels) / 1e3
-    tag = f"phase3 profiled peel ({exe.host_syncs} host syncs)"
+    def device_kernels(prof):
+        return [e for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA and device_us(e) > 0]
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        exe.peel(p, **kw)
+        torch.cuda.synchronize()
+    seen = device_kernels(prof)
+    log(f"phase3 profiled graph replay: the profiler sees {sum(e.count for e in seen)} device "
+        f"operations, {sum(device_us(e) for e in seen) / 1e3:.1f} ms (the WHILE node's body "
+        f"is not traced)")
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        est, eager_ms, _, _ = eager_trip_loop(torch, p, bucket, timed=False)
+    if not same_state(est, st):
+        raise AssertionError("phase3 profiled peel: the eager trip loop's state != the graph's")
+    kernels = device_kernels(prof)
     if not kernels:
-        log(f"{tag}: the profiler saw no device time")
+        log("phase3 profiled peel: the profiler saw no device time")
         return
+    busy_ms = sum(device_us(e) for e in kernels) / 1e3
     top = sorted(kernels, key=device_us, reverse=True)[:5]
-    log(f"{tag}: wall {wall_ms:.1f} ms, device busy {busy_ms:.1f} ms "
-        f"({busy_ms / wall_ms:.1%} of the wall; idle {1 - busy_ms / wall_ms:.1%}); top kernels by "
-        "device time: " + "; ".join(
+    log(f"phase3 profiled peel: the trips' device work (the eager loop under the profiler, "
+        f"{int(est.total_iters)} trips, {eager_ms:.1f} ms of wall) {busy_ms:.1f} ms; a warm graph "
+        f"dispatch without the profiler {graph_ms:.1f} ms with {syncs} host syncs, so the device "
+        f"is busy {busy_ms / graph_ms:.1%} of it (idle {1 - busy_ms / graph_ms:.1%}); top kernels "
+        f"by device time: " + "; ".join(
             f"{e.key[:60]} {device_us(e) / 1e3:.1f} ms in {e.count} launches "
             f"({device_us(e) / 1e3 / busy_ms:.1%})" for e in top))
     # index_add_'s CUDA kernels are indexFuncSmallIndex / indexFuncLargeIndex.
@@ -603,81 +779,20 @@ def profiled_peel(torch, g, bucket, *, check: bool = True) -> None:
         raise AssertionError(f"phase3 profiled peel: index_add_ kernels on the trip: {atomics}")
 
 
-SWEEP_CHECKS = (1, 2, 4, 8, 16, 32)
-
-
-def chunked_peel(exe, p, slot_ids, k0, single, k: int):
-    """The executor's unfused peel of an aligned batch with its ``done``
-    flags read back once every ``k`` trips instead of once a trip: the
-    readback cadence measured here and not adopted (PERF.md §6).  A trip
-    on an all-done state changes no per-slot field, so the trips a chunk
-    runs past the last retirement hand the kernel an empty mask; the
-    count of real trips, ``total_iters``, is then the longest slot's
-    ``iters``.  Returns the state and the readbacks."""
-    import torch
-
-    from repro_torch.exec import peel as pm
-
-    alive0 = p.colidx != 0
-    frozen = torch.zeros_like(alive0)
-    ftruss = torch.zeros(alive0.shape, dtype=torch.int32, device=alive0.device)
-    sums = pm._SlotSums(slot_ids, int(k0.shape[0]), aligned=True)
-    st = pm.init_peel_state(slot_ids, k0, alive0, frozen, ftruss, sums=sums)
-    lanes, syncs = slot_ids.long(), 1
-    while not bool(st.done.all()):
-        for _ in range(k):
-            st = pm._peel_step(exe.support, p, lanes, sums, single, frozen, ftruss, st)
-        syncs += 1
-    return st._replace(total_iters=st.iters.max()), syncs
-
-
-def sweep_checks(torch, tag: str, g, bucket, rounds: int = 5) -> None:
-    """``g``'s three-query batch peeled on ``fine/pallas/aligned`` by
-    :func:`chunked_peel` at each readback cadence of ``SWEEP_CHECKS`` and by
-    the executor itself (host clock between synchronisations), ``rounds``
-    times in turns (forward, then backward), every state equal to the
-    executor's."""
-    from repro_torch.exec.peel import PeelExecutor
-
-    p = main_path_problem(g, bucket, slots=8)
-    slot_ids, k0, single = main_path_slots(torch, bucket)
-    exe = PeelExecutor(mode="owner", backend="pallas", window=bucket.window, chunk=256)
-    k0_np, single_np = k0.cpu().numpy(), single.cpu().numpy()
-    want = exe.peel(p, slot_ids=slot_ids, k0=k0_np, single_level=single_np)
-
-    def executor():
-        before = exe.host_syncs
-        st = exe.peel(p, slot_ids=slot_ids, k0=k0_np, single_level=single_np)
-        return st, exe.host_syncs - before
-
-    runs = {"executor": executor}
-    for k in SWEEP_CHECKS:
-        runs[k] = lambda k=k: chunked_peel(exe, p, slot_ids, k0, single, k)
-    walls, syncs = {name: [] for name in runs}, {}
-    for r in range(rounds):
-        for name in list(runs) if r % 2 == 0 else list(runs)[::-1]:
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            st, syncs[name] = runs[name]()
-            torch.cuda.synchronize()
-            walls[name].append((time.perf_counter() - t0) * 1e3)
-            if not all(torch.equal(a, b) for a, b in zip(want, st)):
-                raise AssertionError(f"{tag} sweep: the peel read back every {name} != the executor's")
-    log(f"{tag} readback sweep ({int(want.total_iters)} trips; peel ms by trips between "
-        f"readbacks, host clock, {rounds} runs each: median [min-max], readbacks): " + "; ".join(
-            f"{name}: {sorted(w)[len(w) // 2]:.1f} [{min(w):.1f}-{max(w):.1f}], {syncs[name]}"
-            for name, w in walls.items()))
-
-
-def phase_peel_split(torch, g, bucket, session_trips: int | None = None):
-    """Phase 3's peel again, through the executor alone, split into the
-    support passes and the rest of each trip; returns the problem and the
-    alive sets handed to the kernel."""
-    p, whole_ms, support_ms, trips, syncs, handed = instrumented_peel(torch, g, bucket)
-    if session_trips is not None and trips != session_trips:
-        raise AssertionError(f"executor peel took {trips} trips, the session's {session_trips}")
-    report_peel_split("phase3", whole_ms, support_ms, trips, syncs, handed)
-    return p, handed
+def phase_peel_split(torch, g, bucket, tag: str, session_trips: int | None = None):
+    """Phase 3's (or 13's) peel again, through a fresh executor (the graph:
+    capture, then warm dispatches) and through the hand-driven eager loop,
+    which is split into the support passes and the rest of each trip;
+    returns the problem, the graph peel's state and the alive sets handed
+    to the kernel."""
+    graph = graph_peel(torch, g, bucket)
+    p, st = graph[0], graph[2]
+    if session_trips is not None and int(st.total_iters) != session_trips:
+        raise AssertionError(f"{tag}: executor peel took {int(st.total_iters)} trips, the "
+                             f"session's {session_trips}")
+    eager = eager_trip_loop(torch, p, bucket)
+    report_peel_split(tag, graph, eager)
+    return p, st, eager[3]
 
 
 def phase_road(torch) -> int:
@@ -685,7 +800,7 @@ def phase_road(torch) -> int:
     main path: its three-query batch through ``Session(max_batch=8)`` with
     the auto rule, which must plan ``fine/pallas/aligned``; the answers
     against ``trussness_numpy``; ``support_fine_cuda`` launched once per
-    trip.  Then the peel's split and the readback sweep.  Returns the
+    trip.  Then the graph peel beside the eager loop's split.  Returns the
     session's launches."""
     import numpy as np
 
@@ -701,31 +816,30 @@ def phase_road(torch) -> int:
     log(f"phase13 road-512: n={g.n} nnz={g.nnz} bucket={tuple(bucket)}; trussness_numpy "
         f"{time.perf_counter() - t0:.1f}s")
     support_fine_cuda.launches = 0
-    session, futs, wall = run_session(torch, g, max_batch=8)
+    caps = CaptureLog()
+    session, futs, wall = caps.run(lambda: run_session(torch, g, max_batch=8))
     launches = support_fine_cuda.launches
     st = session.stats()
     backends = {row["backend"] for row in st["planner_backends"]}
     trips = futs[0].stats.dispatch_trips
     dec, kmax, kt = (f.result() for f in futs)
-    log(f"phase13 road-512 Session(max_batch=8), auto rule: {wall:.2f}s wall, backend "
+    log(f"phase13 road-512 Session(max_batch=8), auto rule: {wall:.2f}s wall (first dispatch; "
+        f"the trip graph's capture {sum(caps.seconds) * 1e3:.1f} ms of host time), backend "
         f"{sorted(backends)}, dispatches {st['device_dispatches']}, total_iters {trips}, "
         f"support_fine_cuda launches {launches}, host syncs "
         f"{executor_of(session, g, 'fine/pallas/aligned').host_syncs}, levels {dec.levels}, "
         f"kmax {dec.kmax}, ktruss(4) edges {kt.edges_remaining}")
-    if backends != {"fine/pallas/aligned"} or st["device_dispatches"] != 1:
-        raise AssertionError(f"phase13: {st['device_dispatches']} dispatches on {backends}")
+    if backends != {"fine/pallas/aligned"} or st["device_dispatches"] != 1 or len(caps.seconds) != 1:
+        raise AssertionError(f"phase13: {st['device_dispatches']} dispatches on {backends}, "
+                             f"{len(caps.seconds)} captures")
     if launches != trips or trips == 0:
         raise AssertionError(f"phase13: {launches} support launches over {trips} trips")
     if not np.array_equal(dec.trussness, want) or kmax != (int(want.max()) if want.max() >= 3 else 0):
         raise AssertionError("phase13: decompose/kmax != trussness_numpy")
     check_rmat15_results(g, futs)
+    log(f"phase13 {warm_repeat(torch, session, g, futs, 'phase13')}")
     del session, futs, dec, kt
-    p, whole_ms, support_ms, trips2, syncs, handed = instrumented_peel(torch, g, bucket)
-    if trips2 != trips:
-        raise AssertionError(f"phase13: executor peel took {trips2} trips, the session's {trips}")
-    report_peel_split("phase13", whole_ms, support_ms, trips2, syncs, handed)
-    del p, handed
-    sweep_checks(torch, "phase13", g, bucket)
+    phase_peel_split(torch, g, bucket, "phase13", trips)
     return launches
 
 
@@ -1526,7 +1640,8 @@ def resilience_case(torch, g, faults, counts, *, poison_kmax: bool = False):
 
 def report_case(tag: str, session, wall: float, case) -> None:
     st = session.stats()
-    log(f"phase10 {tag}: {wall:.2f}s wall; " + ", ".join(
+    log(f"phase10 {tag}: {wall:.2f}s wall; "
+        + ", ".join(
         f"{k} {st[k]}" for k in RESILIENCE_KEYS + ("batch_bisects", "queries_failed"))
         + f"; launches fused_level_cuda {case.fused}, support_fine_cuda {case.support}")
 
@@ -1911,24 +2026,29 @@ def phase_mesh(torch, g, want, p3_wall: float) -> dict:
         del streams, pend, results, session
 
     # The recompile sentinel: phase 5's batch on a fresh session builds its
-    # executor and no kernel (phase 1 built them); the warm repeat builds
+    # executor and no kernel (phase 1 built them), and on fine/pallas/aligned
+    # captures the trip graph once; the warm repeat builds and captures
     # nothing.
-    session = Session(max_batch=8, device="cuda")
-    with count_compiles() as cold:
-        session.solve(rmat15_queries(g))
-    t0 = time.perf_counter()
-    with assert_no_compiles("phase 5's batch, warm"):
-        again = session.solve(rmat15_queries(g))
-    warm = time.perf_counter() - t0
-    if (cold.kernel_builds, cold.executor_builds) != (0, 1):
-        raise AssertionError(f"phase11 cold run: {cold.kernel_builds} kernel builds, "
-                             f"{cold.executor_builds} executor builds (want 0, 1)")
-    for name, a, b in zip(QUERIES, again, want):
-        if not same_result(name, a, b):
-            raise AssertionError(f"phase11 warm repeat: {name} != phase 5's")
-    log(f"phase11 sentinel: cold run {cold.kernel_builds} kernel builds, {cold.executor_builds} "
-        f"executor build; warm repeat {warm:.2f}s, 0 builds, == phase 5")
-    del session, again
+    for backend, captures in ((None, 0), ("fine/pallas/aligned", 1)):
+        session = Session(max_batch=8, device="cuda", backend=backend)
+        with count_compiles() as cold:
+            session.solve(rmat15_queries(g))
+        t0 = time.perf_counter()
+        with assert_no_compiles("phase 5's batch, warm") as hot:
+            again = session.solve(rmat15_queries(g))
+        warm = time.perf_counter() - t0
+        got = (cold.kernel_builds, cold.executor_builds, cold.captures)
+        if got != (0, 1, captures) or hot.captures:
+            raise AssertionError(f"phase11 cold run on {backend or 'the auto rule'}: (kernel "
+                                 f"builds, executor builds, captures) {got}, want (0, 1, "
+                                 f"{captures}); warm captures {hot.captures}")
+        for name, a, b in zip(QUERIES, again, want):
+            if not same_result(name, a, b):
+                raise AssertionError(f"phase11 warm repeat: {name} != phase 5's")
+        log(f"phase11 sentinel ({backend or 'auto rule'}): cold run {cold.kernel_builds} kernel "
+            f"builds, {cold.executor_builds} executor build, {cold.captures} trip-graph "
+            f"capture(s); warm repeat {warm:.2f}s, 0 builds, 0 captures, == phase 5")
+        del session, again
 
     # The port's analysis suite on this copy of the tree.
     t0 = time.perf_counter()
@@ -2118,7 +2238,11 @@ def support_only(torch, g, bucket, smi, sets_file: Path) -> int:
     peel are read from ``sets_file`` when it exists (written by an
     earlier run), else taken from this run's peel and written there."""
     phase_kernel(torch, g, bucket)
-    p, handed = phase_peel_split(torch, g, bucket)
+    p = main_path_problem(g, bucket, slots=8)
+    eager = eager_trip_loop(torch, p, bucket)  # any tree's peel: it may have no trip graph
+    report_peel_split("phase3", None, eager)
+    handed = eager[3]
+    del eager
     if sets_file.exists():
         sets = {k: v.cuda() for k, v in torch.load(sets_file).items()}
         log(f"peel alive sets read from {sets_file}")
@@ -2181,31 +2305,36 @@ def main(argv: list[str]) -> int:
     if args.mesh_only:
         _, pallas_futs, pallas_wall, _ = phase_pallas_path(torch, g)
         _, fused_futs, _ = phase_fused_main(torch, g, pallas_futs, pallas_wall)
-        phase_mesh(torch, g, [f.result() for f in fused_futs], pallas_wall)
+        want = [f.result() for f in fused_futs]
+        with_captures("phase11", lambda: phase_mesh(torch, g, want, pallas_wall))
         log(smi)
         return 0
     numbers = phase_kernel(torch, g, bucket)
     launches, pallas_futs, pallas_wall, trips = phase_pallas_path(torch, g)
-    p, handed = phase_peel_split(torch, g, bucket, trips)
+    p, want, handed = phase_peel_split(torch, g, bucket, "phase3", trips)
     sets = peel_sets(handed)
     del handed
     phase_peel_sets(torch, p, bucket, sets)
-    del p, sets
-    sweep_checks(torch, "phase3", g, bucket)
+    del p, sets, want
     phase_paths(torch)
     fused_launches, fused_futs, fused_wall = phase_fused_main(torch, g, pallas_futs, pallas_wall)
     fused_numbers = phase_fused_kernel(torch, g, bucket)
     dense_numbers = phase_dense(torch, g)
     phase_engine(torch, g, pallas_futs, smi)
-    stream = phase_stream(torch, g, fused_futs[0].result())
+    stream = with_captures("phase9", lambda: phase_stream(torch, g, fused_futs[0].result()))
     want = [f.result() for f in fused_futs]
     del fused_futs
     check_phases_clean()
     t10 = time.perf_counter()
-    resilience = phase_resilience(torch, g, want, fused_launches)
-    phase_fleet(torch, g, want, fused_wall)
+
+    def phase10():
+        out = phase_resilience(torch, g, want, fused_launches)
+        phase_fleet(torch, g, want, fused_wall)
+        return out
+
+    resilience = with_captures("phase10", phase10)
     log(f"phase10 {time.perf_counter() - t10:.1f}s")
-    mesh = phase_mesh(torch, g, want, pallas_wall)
+    mesh = with_captures("phase11", lambda: phase_mesh(torch, g, want, pallas_wall))
     examples = phase_examples(torch, g, want)
     del want
     t13 = time.perf_counter()

@@ -193,6 +193,10 @@ class AnalysisConfig:
                 pkg + "kernels/peel_fused.py::split_items": (
                     "diagnostics: the kernel's work-item counts, for tests and chip_smoke.py"
                 ),
+                pkg + "exec/peel.py::_EagerTrips": (
+                    "the unfused trip loop off CUDA, its condition read on the host each "
+                    "trip (free on the CPU); on the card the loop is a graph replay"
+                ),
             },
         )
 

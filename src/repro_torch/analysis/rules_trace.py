@@ -66,6 +66,7 @@ _TORCH_HOST = {
     "torch.get_default_dtype", "torch.cuda.is_available", "torch.cuda.device_count",
     "torch.cuda.current_device", "torch.cuda.device", "torch.cuda.stream",
     "torch.cuda.current_stream", "torch.cuda.synchronize",
+    "torch.cuda.is_current_stream_capturing",
 }
 
 

@@ -2,8 +2,9 @@
 
 The static rule proves the variant key *covers* what the builder reads;
 this sentinel proves the warm path actually *hits* the caches.  What
-compiles in the port is an ``nvcc`` build of a kernel library and an
-executor-cache miss; both are events of :mod:`repro_torch.obs.events`
+compiles in the port is an ``nvcc`` build of a kernel library, an
+executor-cache miss and the capture of the unfused peel's trip graph (on
+the card); all three are events of :mod:`repro_torch.obs.events`
 (the port's stand-in for the reference's ``jax.monitoring`` listener),
 so a test or ``chip_smoke.py`` can run the same query mix twice and
 assert that the second pass built nothing.  It mints no metric name.
@@ -17,14 +18,16 @@ from typing import Iterator
 from ..obs.events import (
     EXECUTOR_BUILD,
     KERNEL_BUILD,
+    PEEL_CAPTURE,
     register_event_listener,
     unregister_event_listener,
 )
 
 __all__ = ["COMPILE_EVENTS", "CompileLog", "count_compiles", "assert_no_compiles"]
 
-# An nvcc build of a kernel library; an executor built on a cache miss.
-COMPILE_EVENTS = (KERNEL_BUILD, EXECUTOR_BUILD)
+# An nvcc build of a kernel library; an executor built on a cache miss; a
+# trip graph captured on an executor's first dispatch of a shape.
+COMPILE_EVENTS = (KERNEL_BUILD, EXECUTOR_BUILD, PEEL_CAPTURE)
 
 
 class CompileLog:
@@ -45,6 +48,10 @@ class CompileLog:
     def executor_builds(self) -> int:
         return self.events.count(EXECUTOR_BUILD)
 
+    @property
+    def captures(self) -> int:
+        return self.events.count(PEEL_CAPTURE)
+
     def __call__(self, event: str, **info) -> None:
         if event in COMPILE_EVENTS:
             self.events.append(event)
@@ -53,8 +60,8 @@ class CompileLog:
 @contextlib.contextmanager
 def count_compiles() -> Iterator[CompileLog]:
     """Context manager yielding a :class:`CompileLog` counting the kernel
-    builds and executor builds that happen inside the block (in any thread
-    of the process)."""
+    builds, executor builds and trip-graph captures that happen inside the
+    block (in any thread of the process)."""
     log = CompileLog()
     register_event_listener(log)
     try:
@@ -65,7 +72,8 @@ def count_compiles() -> Iterator[CompileLog]:
 
 @contextlib.contextmanager
 def assert_no_compiles(what: str = "warm path") -> Iterator[CompileLog]:
-    """Assert that the block builds no kernel and no executor.
+    """Assert that the block builds no kernel and no executor, and
+    captures no trip graph.
 
     Usage::
 
@@ -77,6 +85,7 @@ def assert_no_compiles(what: str = "warm path") -> Iterator[CompileLog]:
     if log.compiles:
         raise AssertionError(
             f"{what}: {log.kernel_builds} kernel build(s) and "
-            f"{log.executor_builds} executor build(s) — an executor-cache "
+            f"{log.executor_builds} executor build(s); {log.captures} "
+            "trip-graph capture(s) — an executor-cache "
             "variant-key dimension is leaking (see R2 in repro_torch.analysis)"
         )

@@ -484,8 +484,9 @@ class Planner:
             frozen = torch.from_numpy(frozen_np).to(self.device)
             frozen_truss = torch.from_numpy(ft_np).to(self.device)
 
-        # peel() synchronizes (its loop reads back the done flags), so dt
-        # covers the whole dispatch.
+        # peel() synchronizes (it reads the done flags back when its trip
+        # loop has ended; the fused loop after every level), so dt covers
+        # the whole dispatch.
         inject("clock_skew", bucket=bucket, backend=str(backend), queries=qids)
         inject("device_oom", bucket=bucket, backend=str(backend), queries=qids)
         inject("dispatch", bucket=bucket, backend=str(backend), queries=qids)

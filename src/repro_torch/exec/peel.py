@@ -9,17 +9,24 @@ its threshold to ``cur_k + 1`` (or retires the slot when its level
 emptied, or at once for single-level ``ktruss(k)`` members).
 
 The reference runs the trips inside one ``lax.while_loop`` whose
-condition the device evaluates; here they are a Python loop of device
-operations.  Its readbacks are one before the first trip (is any lane
-alive, and are the slot ids the aligned layout) and the ``done.all()``
-test of the loop condition after each trip: ``1 + trips``; the executor
-counts every readback in ``host_syncs``.  (Reading ``done`` back only
-every few trips, with no-op trips past the last retirement, saved less
-than the run-to-run spread of the peel on the H100: the host's launches,
-not the readbacks, set its pace.)  A **dispatch** is one
+condition, ``any(~done) & (total_iters < limit)``, the device evaluates,
+compiled on the executor's first call.  So does the port on CUDA: a
+shard's trip loop is one captured CUDA graph (:class:`_TripGraph`), one
+trip the body of a WHILE conditional node whose condition
+(:func:`_trip_pred`) the device computes before the first trip and after
+each; it is captured on the first dispatch of each shard's shapes and
+device (a ``PEEL_CAPTURE`` event, the counterpart of the reference's
+compile) and replayed, its inputs copied into its static buffers, on
+every later one.  There is no eager path on CUDA.  On the CPU the same
+loop reads its condition as a host bool each trip, which is free there.
+Both devices read back alike: once per shard before its first trip (is
+any lane alive, and are the slot ids the aligned layout), then once per
+live shard after its loop (the exit condition, with the support passes
+the device counted), two a live shard whatever its trips; the executor
+counts every readback in ``host_syncs``.  A **dispatch** is one
 :meth:`PeelExecutor.peel` call: one packed batch peeled to completion,
-however many trips and readbacks it takes.  ``total_iters`` counts trips
-exactly as the reference's loop counter does.
+however many trips it takes.  ``total_iters`` counts trips exactly as the
+reference's loop counter does.
 
 Slots are the block-diagonal members of ``repro_torch.graphs.pack``;
 because the packing is a disjoint union, each slot's fixed point is
@@ -39,7 +46,12 @@ unsharded peel's, field for field.
 
 from __future__ import annotations
 
+import contextlib
+import copy
 import functools
+import threading
+import time
+import weakref
 from typing import Callable, NamedTuple, Sequence
 
 import numpy as np
@@ -47,8 +59,9 @@ import torch
 
 from ..core.eager_coarse import support_coarse_eager
 from ..core.eager_fine import FineProblem, support_fine_eager, support_fine_owner
-from ..errors import DeviceError
+from ..errors import DeviceError, TrussError
 from ..obs import current_registry, current_tracer
+from ..obs.events import PEEL_CAPTURE, record_event
 
 __all__ = [
     "PeelState",
@@ -60,6 +73,21 @@ __all__ = [
 ]
 
 SupportFn = Callable[[FineProblem, torch.Tensor], torch.Tensor]
+
+_CAPTURE_LOCK = threading.Lock()  # held by every trip-graph capture in the process
+# The CUDA graphs and memory pools of dropped trip graphs.  A memory pool
+# must not be destroyed while any capture is underway (the caching
+# allocator asserts it), and the garbage collector may drop a trip graph
+# during another's capture, so they wait here and are destroyed under
+# _CAPTURE_LOCK by _release_retired.
+_RETIRED: list[tuple] = []
+
+
+def _release_retired() -> None:  # requires-lock: _CAPTURE_LOCK
+    while _RETIRED:
+        graph, pool = _RETIRED.pop()
+        del graph  # before the pool its bodies allocated from
+        del pool
 
 
 class PeelState(NamedTuple):
@@ -147,6 +175,10 @@ class _SlotSums:
         ends = torch.searchsorted(ids[self.order], slots, right=True)
         self.last = (ends - 1).clamp(min=0)  # each slot's last lane in sorted order
         self.nonempty = ends > 0
+
+    def tensors(self) -> tuple[torch.Tensor, ...]:
+        """The index tensors a sum reads (none in the aligned layout)."""
+        return () if self.order is None else (self.order, self.last, self.nonempty)
 
     def __call__(self, x: torch.Tensor) -> torch.Tensor:
         if self.order is None:
@@ -262,6 +294,145 @@ def trip_cap(max_iters: int | None, p: FineProblem, alive0: torch.Tensor) -> int
     return int(alive0.shape[0]) + p.n + 4 if max_iters is None else int(max_iters)
 
 
+def _trip_pred(st: PeelState, limit: int) -> torch.Tensor:
+    """() bool on the state's device: the reference's loop condition."""
+    return (~st.done).any() & (st.total_iters < limit)
+
+
+class _EagerTrips:
+    """A shard's trip loop off CUDA, its condition read on the host each
+    trip (free on the CPU)."""
+
+    def __init__(self, support: SupportFn, step: tuple, st: PeelState, limit: int):
+        self.support, self.step, self.st, self.limit = support, step, st, limit
+        # Support passes counted on the device: none here, where every
+        # launch counts itself.
+        self.passes = torch.zeros((), dtype=torch.int32, device=st.alive.device)
+
+    def run(self) -> None:
+        while bool(_trip_pred(self.st, self.limit)):
+            self.st = _peel_step(self.support, *self.step, self.st)
+
+    def ran(self, passes: int) -> None:
+        """Every launch of an eager trip counted itself."""
+
+    def result(self) -> PeelState:
+        return self.st
+
+
+class _TripGraph:
+    """A shard's trip loop captured as one CUDA graph, for one shape,
+    layout, cap and device.
+
+    The graph reads static buffers: the problem's fields, the lanes' slot
+    ids, ``single_level``, ``frozen``, ``frozen_truss``, the per-slot
+    summer's index tensors (contig layout) and the carried
+    :class:`PeelState`; :meth:`load` copies a dispatch's inputs and
+    starting state into them.  One trip is the body of a WHILE node
+    (``repro_torch.kernels.graph_while``) whose condition, :func:`_trip_pred`
+    of the static state, the device computes; the body writes its new
+    state back into the static state, which the next condition reads.  The
+    body's temporaries are static in the graph and reused every trip.
+
+    Before the capture, the loop is captured into a graph that is thrown
+    away (relaxed mode, nothing runs): the warm-up that loads every kernel
+    the trip launches outside the real capture without changing any
+    buffer.  The support function runs only at capture, so it must be
+    pure tensor ops on its inputs.  A ``support_fine_cuda`` pass in the
+    body adds one to the graph's device counter ``passes`` each time it
+    runs; :meth:`ran` adds what a replay counted to its ``launches``.
+    """
+
+    def __init__(self, support: SupportFn, step: tuple, st: PeelState, limit: int):
+        p, lanes, sums, single_level, frozen, frozen_truss = step
+        self.support, self.limit = support, limit
+        self.p = FineProblem(*(torch.empty_like(t) for t in p))
+        self.lanes = torch.empty_like(lanes)
+        self.sums = copy.copy(sums)
+        if sums.order is not None:
+            self.sums.order, self.sums.last, self.sums.nonempty = (
+                torch.empty_like(t) for t in sums.tensors()
+            )
+        self.single_level = torch.empty_like(single_level)
+        self.frozen = torch.empty_like(frozen)
+        self.frozen_truss = torch.empty_like(frozen_truss)
+        self.st = PeelState(*(torch.empty_like(t) for t in st))
+        dev = st.alive.device
+        self.passes = torch.zeros((), dtype=torch.int32, device=dev)
+        self.load(step, st)
+        self.graph = torch.cuda.CUDAGraph()
+        self.side = torch.cuda.Stream(dev)  # the capture's stream
+        self.body = torch.cuda.Stream(dev)  # the WHILE body's
+        self.pool = torch.cuda.MemPool()  # the WHILE body's allocations
+        weakref.finalize(self, _RETIRED.append, (self.graph, self.pool))
+        t0 = time.perf_counter()
+        with torch.cuda.device(dev):
+            self._record(torch.cuda.CUDAGraph(), "relaxed")  # the warm-up, thrown away
+            self._record(self.graph, "thread_local")
+        record_event(PEEL_CAPTURE, device=str(dev), seconds=time.perf_counter() - t0)
+
+    def _record(self, graph, mode: str) -> None:
+        from ..kernels.graph_while import while_loop  # lazy: CUDA only
+        from ..kernels.support_fine import count_launches_on_device
+
+        self.side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(self.side):
+            graph.capture_begin(capture_error_mode=mode)
+            try:
+                with count_launches_on_device(self.passes):
+                    while_loop(
+                        lambda: _trip_pred(self.st, self.limit), self._trip, self.body,
+                        self.pool, mode,
+                    )
+            except BaseException:
+                with contextlib.suppress(Exception):  # the trip's own error is the one to report
+                    graph.capture_end()
+                raise
+            graph.capture_end()
+        torch.cuda.current_stream().wait_stream(self.side)
+
+    def _trip(self) -> None:
+        new = _peel_step(
+            self.support, self.p, self.lanes, self.sums,
+            self.single_level, self.frozen, self.frozen_truss, self.st,
+        )
+        for dst, src in zip(self.st, new):
+            dst.copy_(src)
+
+    def load(self, step: tuple, st: PeelState) -> None:
+        """Copy one dispatch's inputs and starting state into the buffers."""
+        p, lanes, sums, single_level, frozen, frozen_truss = step
+        pairs = [
+            *zip(self.p, p), *zip(self.sums.tensors(), sums.tensors()), *zip(self.st, st),
+            (self.lanes, lanes), (self.single_level, single_level),
+            (self.frozen, frozen), (self.frozen_truss, frozen_truss),
+        ]
+        for dst, src in pairs:
+            dst.copy_(src)
+        self.passes.zero_()
+
+    def run(self) -> None:
+        from ..kernels.graph_while import GRAPH_SITE  # lazy: CUDA only
+
+        try:
+            with torch.cuda.device(self.st.alive.device):
+                self.graph.replay()
+        except RuntimeError as e:
+            raise DeviceError(
+                f"replaying the peel's trip graph failed: {e}", site=GRAPH_SITE, cause=e
+            ) from e
+
+    def ran(self, passes: int) -> None:
+        """Add the support passes the replay counted on the device."""
+        from ..kernels.support_fine import support_fine_cuda  # lazy: CUDA only
+
+        support_fine_cuda.launches += passes
+
+    def result(self) -> PeelState:
+        """The state, cloned: a later dispatch overwrites the buffers."""
+        return PeelState(*(t.clone() for t in self.st))
+
+
 class _Peel:
     """The peel callable :func:`build_peel` returns (see there)."""
 
@@ -269,6 +440,10 @@ class _Peel:
         self.support = support
         self.max_iters = max_iters
         self.host_syncs = 0  # device->host readbacks of the loop condition and layout
+        # One dispatch at a time: a CUDA shard replays a graph whose static
+        # buffers hold that dispatch's inputs and state.
+        self._lock = threading.Lock()
+        self._graphs: dict[tuple, _TripGraph] = {}  # guarded-by: _lock
 
     def __call__(
         self,
@@ -289,43 +464,87 @@ class _Peel:
 
         Each shard first reads back whether any of its lanes is alive and
         whether its slot ids are the aligned layout (its :class:`_SlotSums`).
-        Each trip launches the step of every unfinished shard, then reads
-        back every one of their ``done`` flags; a finished shard takes no
-        more trips.  A done slot is a fixed point of the step (see
-        :func:`_peel_step`), so leaving a finished shard alone gives every
-        per-slot field the value the unsharded loop would, and each
-        shard's ``total_iters`` is its own trip count.  ``limit`` is the
-        unsharded peel's cap.  Launches go to each shard's device on its
-        current stream: shards on different devices overlap, shards on
-        one device run one after another."""
-        states: list[PeelState] = []
-        steps = []
-        live = []
-        for j, (p, slot_ids, k0, single_level, alive0, frozen, frozen_truss) in enumerate(shards):
-            num_slots = int(k0.shape[0])
-            self.host_syncs += 1
-            # The first loop condition and the layout: one readback a shard.
-            any_alive, aligned = torch.stack(  # trusslint: disable=R1
-                [alive0.any(), _is_aligned(slot_ids, num_slots)]
-            ).tolist()
-            sums = _SlotSums(slot_ids, num_slots, aligned=aligned)
-            states.append(init_peel_state(slot_ids, k0, alive0, frozen, frozen_truss, sums=sums))
-            steps.append((p, slot_ids.long(), sums, single_level, frozen, frozen_truss))
-            if any_alive:
-                live.append(j)
-        trips = 0
-        while live and trips < limit:
-            for j in live:
-                states[j] = _peel_step(self.support, *steps[j], states[j])
-            trips += 1
-            unfinished = []
-            for j in live:
+        Then every live shard runs its trip loop (a replay of its graph on
+        CUDA), and after all are started each one's exit condition is read
+        back: every slot done, or ``limit`` trips (the unsharded peel's
+        cap).  A shard stops at its own last trip: a done slot is a fixed
+        point of the step (see :func:`_peel_step`), so leaving a finished
+        shard alone gives every per-slot field the value the unsharded
+        loop would, and each shard's ``total_iters`` is its own trip
+        count.  Launches go to each shard's device on its current stream:
+        shards on different devices overlap, shards on one device run one
+        after another."""
+        if _CAPTURE_LOCK.acquire(blocking=False):  # no capture is underway
+            try:
+                _release_retired()
+            finally:
+                _CAPTURE_LOCK.release()
+        with self._lock:
+            runs, live = [], []
+            for j, args in enumerate(shards):
+                p, slot_ids, k0, single_level, alive0, frozen, frozen_truss = args
+                num_slots = int(k0.shape[0])
                 self.host_syncs += 1
-                # The loop condition: one readback per live shard a trip.
-                if not bool(states[j].done.all()):  # trusslint: disable=R1
-                    unfinished.append(j)
-            live = unfinished
-        return states
+                # The first loop condition and the layout: one readback a shard.
+                any_alive, aligned = torch.stack(  # trusslint: disable=R1
+                    [alive0.any(), _is_aligned(slot_ids, num_slots)]
+                ).tolist()
+                sums = _SlotSums(slot_ids, num_slots, aligned=aligned)
+                st = init_peel_state(slot_ids, k0, alive0, frozen, frozen_truss, sums=sums)
+                step = (p, slot_ids.long(), sums, single_level, frozen, frozen_truss)
+                if any_alive and limit > 0 and alive0.is_cuda:
+                    runs.append(self._graph(j, args, aligned, limit, step, st))
+                else:
+                    runs.append(_EagerTrips(self.support, step, st, limit))
+                if any_alive and limit > 0:
+                    live.append(j)
+            for j in live:
+                runs[j].run()
+            for j in live:
+                run = runs[j]
+                self.host_syncs += 1
+                # The loop's exit, with the support passes the device
+                # counted: one readback per live shard.
+                all_done, trips, passes = torch.stack(  # trusslint: disable=R1
+                    [run.st.done.all().to(torch.int32), run.st.total_iters, run.passes]
+                ).tolist()
+                if not all_done and trips < limit:
+                    from ..kernels.graph_while import GRAPH_SITE
+
+                    raise DeviceError(
+                        f"the peel's trip loop stopped after {trips} of {limit} trips with "
+                        "slots unfinished", site=GRAPH_SITE,
+                    )
+                run.ran(passes)
+            return [run.result() for run in runs]
+
+    def _graph(self, j, args, aligned, limit, step, st) -> _TripGraph:  # requires-lock: _lock
+        """Shard ``j``'s trip graph for these inputs' shapes, captured on
+        first use, loaded with ``step`` and ``st``."""
+        key = (j, aligned, limit, str(st.alive.device)) + tuple(
+            (tuple(t.shape), t.dtype) for t in (*args[0], *args[1:])
+        )
+        graph = self._graphs.get(key)
+        if graph is not None:
+            graph.load(step, st)
+            return graph
+        from ..kernels.graph_while import GRAPH_SITE  # lazy: CUDA only
+
+        try:
+            with _CAPTURE_LOCK:
+                _release_retired()
+                graph = _TripGraph(self.support, step, st, limit)
+        except TrussError:
+            raise  # a kernel's own typed failure at capture
+        except Exception as e:
+            raise DeviceError(
+                f"capturing the peel's trips as a CUDA graph failed: {e}",
+                site=GRAPH_SITE,
+                oom=isinstance(e, torch.OutOfMemoryError),
+                cause=e,
+            ) from e
+        self._graphs[key] = graph
+        return graph
 
 
 def build_peel(support: SupportFn, *, max_iters: int | None = None) -> _Peel:
@@ -347,6 +566,11 @@ def build_peel(support: SupportFn, *, max_iters: int | None = None) -> _Peel:
     active slot either prunes ≥ 1 edge or converges a level), so an
     uncapped peel is never truncated.  An explicit cap that fires raises
     in :meth:`PeelExecutor.peel` rather than returning a truncated state.
+
+    On CUDA the trips run as a captured graph (see the module docstring):
+    ``support`` is called only while the graph is captured, so it must be
+    pure tensor ops on its arguments, with no readback and no host state
+    that changes between calls; the graph replays what it launched then.
     """
     return _Peel(support, max_iters)
 
@@ -542,7 +766,8 @@ class PeelExecutor:
         current_registry().inc("peel_dispatches")
         tracer = current_tracer()
         # "dispatch" covers every trip: the loop reads the done flags back
-        # each trip, so the span ends when the device has finished.
+        # when it has ended (the fused loop after every level), so the
+        # span ends when the device has finished.
         with tracer.span("dispatch", slots=num_slots):
             if self.mesh is None:
                 st = self._peel(p, slot_ids, k0, single_level, alive0, frozen, frozen_truss)

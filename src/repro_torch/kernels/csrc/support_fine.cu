@@ -86,7 +86,9 @@ build_worklist(const int32_t* __restrict__ edge_row, const int32_t* __restrict__
                const uint8_t* __restrict__ alive, const int32_t* __restrict__ udeg,
                const int32_t* __restrict__ ucolidx, const int32_t* __restrict__ u2d,
                uint8_t* __restrict__ ualive, int32_t* __restrict__ list,
-               int32_t* __restrict__ counts, int64_t nnzp, int64_t unnzp, int32_t split_row) {
+               int32_t* __restrict__ counts, int64_t nnzp, int64_t unnzp, int32_t split_row,
+               int32_t* __restrict__ launch_count) {
+  if (launch_count != nullptr && blockIdx.x == 0 && threadIdx.x == 0) atomicAdd(launch_count, 1);
   const int lane = threadIdx.x % kWarp;
   const int64_t tid = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   const int64_t nthreads = static_cast<int64_t>(gridDim.x) * blockDim.x;
@@ -208,12 +210,15 @@ extern "C" {
 // of the two launches (0 = success).  `out` and `counts` must come zeroed;
 // ualive (unnzp bytes) and list (nnzp int32) are scratch.  threads_list and
 // threads_count are the two launches' block sizes (multiples of 32, at most
-// 256).
+// 256).  `launch_count`, when not null, is one int32 on the device to which
+// the worklist launch adds one each time it runs (a call captured into a
+// CUDA graph runs whenever the graph does).
 int support_fine_launch(const void* edge_row, const void* colidx, const void* alive,
                         const void* urowptr, const void* udeg, const void* ucolidx,
                         const void* u2d, void* ualive, void* list, void* counts, void* out,
                         long long nnzp, long long unnzp, int split_row, int split_ways,
-                        int threads_list, int threads_count, void* stream) {
+                        int threads_list, int threads_count, void* stream,
+                        void* launch_count) {
   if (nnzp <= 0) return 0;
   // Lanes are int32 in the worklist.
   if (nnzp > INT_MAX || unnzp < 0 || split_row < 0 || split_ways < 1 ||
@@ -235,7 +240,8 @@ int support_fine_launch(const void* edge_row, const void* colidx, const void* al
       static_cast<const uint8_t*>(alive), static_cast<const int32_t*>(udeg),
       static_cast<const int32_t*>(ucolidx), static_cast<const int32_t*>(u2d),
       static_cast<uint8_t*>(ualive), static_cast<int32_t*>(list), static_cast<int32_t*>(counts),
-      static_cast<int64_t>(nnzp), static_cast<int64_t>(unnzp), split_row);
+      static_cast<int64_t>(nnzp), static_cast<int64_t>(unnzp), split_row,
+      static_cast<int32_t*>(launch_count));
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
 
   Problem a{static_cast<const int32_t*>(edge_row), static_cast<const int32_t*>(colidx),

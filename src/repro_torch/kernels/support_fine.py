@@ -23,13 +23,21 @@ The library is built from the checkout on the first launch
 (:mod:`repro_torch.kernels.build`); a build or launch failure raises.
 ``support_fine_cuda.launches`` counts calls that launched the kernel (one
 per support pass; each call is two launches on the stream: the worklist,
-then the items).
+then the items).  A call made while its stream is being captured into a
+CUDA graph launches nothing then, and the graph may run it many times or
+none: such a call must be made inside :func:`count_launches_on_device`,
+and its worklist kernel then adds one to that device counter each time it
+runs.  The graph's owner reads the counter back and adds it to
+``launches`` (``repro_torch.exec.peel._TripGraph``), so every launch is
+counted by the kernel that ran.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
-from typing import NamedTuple
+import threading
+from typing import Iterator, NamedTuple
 
 import torch
 
@@ -40,6 +48,7 @@ from .peel_fused import SPLIT_ROW, SPLIT_WAYS, split_lanes
 
 __all__ = [
     "support_fine_cuda",
+    "count_launches_on_device",
     "support_fine_items",
     "load_support_fine",
     "worklist",
@@ -52,6 +61,7 @@ _FIELDS = ("edge_row", "colidx", "urowptr", "udeg", "ucolidx", "u2d")
 _LAUNCH_THREADS = (256, 256)
 # `counts`: a 64-bit item cursor (two words) and the two list lengths.
 _COUNTER_WORDS = 4
+_capture = threading.local()  # .counter: this thread's device launch counter, if any
 
 
 class Worklist(NamedTuple):
@@ -152,7 +162,8 @@ def load_support_fine() -> BuiltLibrary:
     built = load_library("support_fine")
     fn = built.lib.support_fine_launch
     fn.argtypes = (
-        [ctypes.c_void_p] * 11 + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        [ctypes.c_void_p] * 11 + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 4
+        + [ctypes.c_void_p] * 2
     )
     fn.restype = ctypes.c_int
     err = built.lib.support_fine_error_string
@@ -178,6 +189,24 @@ def _check(p: FineProblem, alive: torch.Tensor) -> None:
             )
 
 
+@contextlib.contextmanager
+def count_launches_on_device(counter: torch.Tensor) -> Iterator[None]:
+    """Inside the block, in this thread, a :func:`support_fine_cuda` call
+    captured into a CUDA graph passes ``counter`` (one int32 on the card)
+    to its kernel, which adds one to it every time the graph launches it."""
+    if counter.dtype != torch.int32 or counter.numel() != 1 or not counter.is_cuda:
+        raise ValueError(
+            f"counter must be one CUDA int32, got {counter.dtype} {tuple(counter.shape)} "
+            f"on {counter.device}"
+        )
+    outer = getattr(_capture, "counter", None)
+    _capture.counter = counter
+    try:
+        yield
+    finally:
+        _capture.counter = outer
+
+
 def support_fine_cuda(p: FineProblem, alive: torch.Tensor) -> torch.Tensor:
     """Owner-mode support of every directed lane, by the CUDA kernel."""
     _check(p, alive)
@@ -191,6 +220,13 @@ def support_fine_cuda(p: FineProblem, alive: torch.Tensor) -> torch.Tensor:
     ualive = torch.empty(n["ualive"], dtype=torch.uint8, device=dev)
     lst = torch.empty(n["list"], dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
+        captured = torch.cuda.is_current_stream_capturing()
+        counter = getattr(_capture, "counter", None) if captured else None
+        if captured and (counter is None or counter.device != dev):
+            raise ValueError(
+                "support_fine_cuda captured into a CUDA graph needs a launch counter on "
+                f"{dev} (count_launches_on_device)"
+            )
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = built.lib.support_fine_launch(
             p.edge_row.data_ptr(),
@@ -210,13 +246,15 @@ def support_fine_cuda(p: FineProblem, alive: torch.Tensor) -> torch.Tensor:
             SPLIT_WAYS,
             *_LAUNCH_THREADS,
             stream,
+            None if counter is None else counter.data_ptr(),
         )
     if rc:
         msg = built.lib.support_fine_error_string(rc).decode()
         raise DeviceError(
             f"support_fine kernel launch failed: {msg} (cudaError {rc})", site="support_fine"
         )
-    support_fine_cuda.launches += 1
+    if not captured:  # a captured launch counts on the device, each time it runs
+        support_fine_cuda.launches += 1
     return out
 
 

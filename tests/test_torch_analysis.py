@@ -429,10 +429,25 @@ def test_sentinel_counts_cold_executor_build_and_warm_silence():
     qs = [ta.TrussQuery.decompose(erdos(40, 5.0, seed=0)), ta.TrussQuery.kmax(erdos(40, 5.0, seed=0))]
     with count_compiles() as log:
         want = s.solve(qs)
-    assert (log.executor_builds, log.kernel_builds) == (1, 0)  # no nvcc on the CPU
+    # No nvcc on the CPU, and no trip graph: the CPU runs its trips eagerly.
+    assert (log.executor_builds, log.kernel_builds, log.captures) == (1, 0, 0)
     with assert_no_compiles("warm solve") as warm:
         got = s.solve(qs)
-    assert warm.compiles == 0 and got[1] == want[1]
+    assert warm.compiles == 0 and warm.captures == 0 and got[1] == want[1]
     with pytest.raises(AssertionError, match="warm .sic.: 0 kernel build.s. and 1 executor"):
         with assert_no_compiles("warm (sic)"):
             s.solve([ta.TrussQuery.kmax(erdos(200, 5.0, seed=1))])  # a new bucket
+
+
+def test_sentinel_counts_trip_graph_captures():
+    """A capture of the unfused peel's trip graph (an event only the card
+    raises) counts as a compile: a warm path that captures fails."""
+    from repro_torch.analysis.sentinel import assert_no_compiles, count_compiles
+    from repro_torch.obs.events import PEEL_CAPTURE, record_event
+
+    with count_compiles() as log:
+        record_event(PEEL_CAPTURE, device="cuda:0", seconds=0.005)
+    assert (log.captures, log.executor_builds, log.kernel_builds) == (1, 0, 0)
+    with pytest.raises(AssertionError, match="1 trip-graph capture"):
+        with assert_no_compiles("warm"):
+            record_event(PEEL_CAPTURE, device="cuda:0", seconds=0.005)

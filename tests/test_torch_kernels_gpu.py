@@ -548,8 +548,12 @@ def test_session_kernel_scratch_oom_is_terminal_and_loud(cuda, monkeypatch, back
     sf = importlib.import_module("repro_torch.kernels.support_fine")  # not the function
     g = GRAPHS[2]()
     want = _numpy_trussness(g)
+    # Warm the kernel libraries on another session: on fine/pallas/aligned
+    # the scratch is allocated when the trip graph is captured, on this
+    # session's first dispatch of the shape (a replay allocates nothing).
+    warm = Session(device=cuda, backend=backend, max_batch=4, chunk=64)
+    assert np.array_equal(warm.solve([TrussQuery.decompose(g)])[0].trussness, want)
     s = Session(device=cuda, backend=backend, max_batch=4, chunk=64)
-    assert np.array_equal(s.solve([TrussQuery.decompose(g)])[0].trussness, want)  # warm
     plain_calls = []
     monkeypatch.setattr(kpf, "fused_level_torch", lambda *a, **k: plain_calls.append(1))
     monkeypatch.setattr(kops, "support_fine_owner", lambda *a, **k: plain_calls.append(1))
@@ -575,6 +579,145 @@ def test_session_kernel_scratch_oom_is_terminal_and_loud(cuda, monkeypatch, back
     assert not plain_calls and s.cache.stats.compiles == 1
     monkeypatch.undo()
     assert np.array_equal(s.solve([TrussQuery.decompose(g)])[0].trussness, want)
+
+
+# --------------------------------------------------------------------- #
+# The unfused peel as a captured CUDA graph
+# --------------------------------------------------------------------- #
+def _graph_peel_inputs(cuda, layout, frozen):
+    """Three small graphs in 4 slots of one pack (decompose, ktruss(4) and
+    kmax members and an empty slot) in ``layout``, and the peel's inputs
+    on the card; with ``frozen``, a seeded frontier of each member is free
+    and its other real lanes frozen at their trussness (every k0 3)."""
+    from repro_torch.core import trussness_numpy
+
+    gs = [make() for make in GRAPHS[:3]]
+    buckets = [bucket_for(g, chunk=64) for g in gs]
+    slot_nnz = max(b.nnz_pad for b in buckets)
+    pp = tg.pack_problems(
+        gs, slot_n=max(b.n_pad for b in buckets), slot_nnz=slot_nnz, slots=4,
+        chunk=64, layout=layout, device=cuda,
+    )
+    nnzp = pp.problem.nnz_pad
+    ids = np.repeat(np.arange(4, dtype=np.int32), slot_nnz)
+    if layout == "contig":  # members prefix-packed, the pad tail parked on slot 0
+        ids = np.zeros(nnzp, np.int32)
+        for i, (a, b) in enumerate(pp.edge_ranges):
+            ids[a:b] = i
+    alive0 = np.zeros(nnzp, bool)
+    fz = np.zeros(nnzp, bool)
+    ft = np.zeros(nnzp, np.int32)
+    rng = np.random.default_rng(5)
+    for g, (a, b) in zip(gs, pp.edge_ranges):
+        alive0[a:b] = True
+        if frozen:
+            free = rng.random(b - a) < 0.3
+            alive0[a:b], fz[a:b] = free, ~free
+            ft[a:b] = np.where(free, 0, trussness_numpy(g))
+    k0 = [3, 3, 3, 3] if frozen else [3, 4, 3, 3]
+
+    def dev(x, dtype=None):
+        return torch.as_tensor(np.asarray(x), dtype=dtype, device=cuda)
+
+    args = (dev(ids), dev(k0, torch.int32), dev([False, True, False, False]), dev(alive0),
+            dev(fz), dev(ft))
+    return pp.problem, args, max(b.window for b in buckets)
+
+
+def _eager_trip_loop(support, p, slot_ids, k0, single, alive0, frozen, ftruss):
+    """The peel's trips driven by hand, one ``_peel_step`` at a time with
+    ``done`` read back after each: the eager loop the graph replaces."""
+    from repro_torch.exec import peel as pm
+
+    aligned = bool(pm._is_aligned(slot_ids, int(k0.shape[0])))
+    sums = pm._SlotSums(slot_ids, int(k0.shape[0]), aligned=aligned)
+    st = pm.init_peel_state(slot_ids, k0, alive0, frozen, ftruss, sums=sums)
+    lanes = slot_ids.long()
+    while not bool(st.done.all()):
+        st = pm._peel_step(support, p, lanes, sums, single, frozen, ftruss, st)
+    return st
+
+
+@pytest.mark.parametrize("frozen", [False, True], ids=["free", "frozen"])
+@pytest.mark.parametrize("layout", ["aligned", "contig"])
+def test_graph_peel_equals_eager_trip_loop(cuda, layout, frozen):
+    """The unfused peel on the card (one captured graph, its trip loop a
+    WHILE node) equals the hand-driven eager loop and the CPU's peel field
+    for field; the support kernel counts one launch a trip on the device;
+    readbacks are one before the first trip and one at the loop's exit."""
+    from repro_torch.exec import build_peel, make_problem_support
+    from repro_torch.exec import peel as pm
+
+    p, args, window = _graph_peel_inputs(cuda, layout, frozen)
+    cfg = dict(granularity="fine", mode="owner", window=window, chunk=64)
+    support = make_problem_support(backend="pallas", **cfg)
+    peel = build_peel(support)
+    before = support_fine_cuda.launches
+    got = peel(p, *args)
+    trips = int(got.total_iters)
+    assert support_fine_cuda.launches - before == trips > 0
+    assert peel.host_syncs == 2
+    want = _eager_trip_loop(support, p, *args)
+    cpu = build_peel(make_problem_support(backend="xla", **cfg))(
+        type(p)(*(t.cpu() for t in p)), *(a.cpu() for a in args)
+    )
+    for name, a, b, c in zip(pm.PeelState._fields, got, want, cpu):
+        assert a.device.type == "cuda" and torch.equal(a, b), name
+        assert torch.equal(a.cpu(), c), name
+
+
+def test_graph_peel_captures_once_and_keeps_each_result(cuda):
+    """Two dispatches with different inputs through one executor: one
+    capture (the first dispatch's), and the second replay does not
+    overwrite the first result."""
+    from repro_torch.analysis.sentinel import count_compiles
+    from repro_torch.exec import PeelExecutor
+
+    p, (ids, k0, single, alive0, _, _), window = _graph_peel_inputs(cuda, "aligned", False)
+    _, (_, k0f, _, alive0f, fz, ft), _ = _graph_peel_inputs(cuda, "aligned", True)
+    exe = PeelExecutor(mode="owner", backend="pallas", window=window, chunk=64)
+    with count_compiles() as log:
+        first = exe.peel(p, slot_ids=ids, k0=k0.cpu().numpy(), single_level=single.cpu().numpy())
+        kept = [t.clone() for t in first]
+        second = exe.peel(p, slot_ids=ids, k0=k0f.cpu().numpy(), single_level=single.cpu().numpy(),
+                          alive0=alive0f, frozen=fz, frozen_truss=ft)
+    assert (log.captures, log.kernel_builds) == (1, 0)
+    assert all(torch.equal(a, b) for a, b in zip(first, kept))
+    want = _eager_trip_loop(exe.support, p, ids, k0f, single, alive0f, fz, ft)
+    assert all(torch.equal(a, b) for a, b in zip(second, want))
+    assert not torch.equal(first.trussness, second.trussness) or not torch.equal(
+        first.iters, second.iters)
+
+
+def test_captured_support_pass_needs_a_device_launch_counter(cuda):
+    """A support pass captured into a CUDA graph is counted by its kernel
+    on the device, once each time the graph runs it: without a counter the
+    capture is refused, with one the count follows the replays."""
+    from repro_torch.kernels.support_fine import count_launches_on_device
+
+    g = GRAPHS[0]()
+    p = prepare_fine(g, chunk=64, device=cuda)
+    alive = p.colidx != 0
+    want = support_fine_cuda(p, alive)
+    counter = torch.zeros((), dtype=torch.int32, device=cuda)
+    side = torch.cuda.Stream(cuda)
+    side.wait_stream(torch.cuda.current_stream(cuda))
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.stream(side):
+        graph.capture_begin()
+        try:
+            with pytest.raises(ValueError, match="launch counter"):
+                support_fine_cuda(p, alive)
+            with count_launches_on_device(counter):
+                got = support_fine_cuda(p, alive)
+        finally:
+            graph.capture_end()
+    torch.cuda.current_stream(cuda).wait_stream(side)
+    before = support_fine_cuda.launches
+    for _ in range(3):
+        graph.replay()
+    assert int(counter) == 3 and support_fine_cuda.launches == before
+    assert torch.equal(got, want)
 
 
 def _numpy_trussness(g):

@@ -66,9 +66,10 @@ def test_peel_state_matches_reference_per_slot(cfg):
     ref, got, tex = _peel_both(cfg, args)
     for f in ref._fields:
         assert_same(getattr(ref, f), getattr(got, f), f)
-    # One dispatch; one readback per trip condition plus the executor's belt.
-    assert tex.dispatches == 1
-    assert tex.host_syncs == int(got.total_iters) + 2
+    # One dispatch; the first condition, the loop's exit and the
+    # executor's belt, however many trips.
+    assert tex.dispatches == 1 and int(got.total_iters) > 1
+    assert tex.host_syncs == LIVE_SHARD_SYNCS + 1
 
 
 def test_frozen_lanes_match_reference():
@@ -115,6 +116,11 @@ def test_empty_batch_is_done_without_trips():
 # --------------------------------------------------------------------- #
 # The unfused peel's per-slot sums and trip loop
 # --------------------------------------------------------------------- #
+# A live shard's readbacks: the first condition (with the layout), then
+# the loop's exit, whatever its trips; the card's graph reads back alike.
+LIVE_SHARD_SYNCS = 2
+
+
 def _contig_ids(edge_ranges, nnzp):
     """The planner's contig slot ids: members prefix-packed, the pad tail
     parked on slot 0."""
@@ -190,8 +196,8 @@ def _support_cfg(window):
 
 @functools.lru_cache(maxsize=None)
 def _ref_peel(layout, frozen, max_iters=None):
-    """The reference's ``build_peel`` state on ``_layout_args`` (cached: it
-    does not depend on the port's chunking)."""
+    """The reference's ``build_peel`` state on ``_layout_args`` (cached:
+    several tests hold the port to it)."""
     import jax.numpy as jnp
 
     pp, _, window = _layout_batch(layout)
@@ -216,24 +222,24 @@ def test_build_peel_matches_reference_per_field(layout, frozen):
         assert_same(getattr(ref, f), getattr(got, f), f)
     trips = int(got.total_iters)
     assert bool(got.done.all()) and trips > 0
-    # The first condition (with the layout), then one readback a trip.
-    assert peel.host_syncs == 1 + trips
+    # The first condition (with the layout), then the loop's exit.
+    assert peel.host_syncs == LIVE_SHARD_SYNCS
     # Not vacuous: the ktruss(4) slot retired early, the empty one at once.
     iters = got.iters.tolist()
     assert iters[3] == 0 < iters[1] < max(iters)
 
 
 @pytest.mark.parametrize("layout", ["aligned", "contig"])
-@pytest.mark.parametrize("cap", [1, 6])
+@pytest.mark.parametrize("cap", [1, 5, 6])
 def test_capped_peel_matches_reference(layout, cap):
     """A cap that fires in the first level or mid-peel stops at exactly
-    the reference's truncated state."""
+    the reference's truncated state: the loop's condition holds the cap."""
     ref = _ref_peel(layout, False, cap)
     got, peel = _port_peel(layout, False, cap)
     for f in ref._fields:
         assert_same(getattr(ref, f), getattr(got, f), f)
     assert int(got.total_iters) == cap and not bool(got.done.all())
-    assert peel.host_syncs == 1 + cap
+    assert peel.host_syncs == LIVE_SHARD_SYNCS
     pp, slot_ids, window = _layout_batch(layout)
     with pytest.raises(DeviceError, match="iteration cap"):
         texec.PeelExecutor(max_iters=cap, **_support_cfg(window)).peel(
@@ -244,7 +250,7 @@ def test_capped_peel_matches_reference(layout, cap):
 def test_lock_step_shards_of_unequal_trips():
     """Two shards (aligned and contig packs of different batches) in lock
     step: each equals the reference's peel of its own inputs, takes trips
-    only while unfinished, and reads back once a trip."""
+    only while unfinished, and reads back twice whatever its trips."""
     layouts = ("aligned", "contig")
     frozen = (False, True)
     calls = {}
@@ -268,4 +274,30 @@ def test_lock_step_shards_of_unequal_trips():
         for f in ref._fields:
             assert_same(getattr(ref, f), getattr(st, f), (layout, f))
     assert [calls[id(sh[0])] for sh in shards] == trips
-    assert peel.host_syncs == sum(1 + t for t in trips)
+    assert peel.host_syncs == LIVE_SHARD_SYNCS * len(shards)
+
+
+def test_lock_step_reads_an_empty_shard_once():
+    """A shard with no alive lane takes no trip and one readback (its
+    first condition) beside a live one, whose state is the reference's."""
+    pp, _, window = _layout_batch("aligned")
+    live = (torch_problem(pp.problem), *(torch.from_numpy(a) for a in _layout_args("aligned", False)))
+    empty = list(live)
+    empty[4] = torch.zeros_like(live[4])  # alive0
+    peel = texec.build_peel(texec.make_problem_support(**_support_cfg(window)))
+    got, idle = peel.lock_step([live, tuple(empty)], limit=10_000)
+    ref = _ref_peel("aligned", False)
+    for f in ref._fields:
+        assert_same(getattr(ref, f), getattr(got, f), f)
+    assert int(idle.total_iters) == 0 and bool(idle.done.all())
+    assert peel.host_syncs == LIVE_SHARD_SYNCS + 1
+
+
+def test_trip_loop_that_stops_early_is_a_typed_device_fault(monkeypatch):
+    """The loop's exit is checked where it is read back: a loop that ends
+    with a slot unfinished below the cap (a graph that did not run its
+    trips) raises the graph's typed fault, never the iteration cap's."""
+    monkeypatch.setattr(tpeel._EagerTrips, "run", lambda self: None)
+    with pytest.raises(DeviceError, match="stopped after 0 of") as e:
+        _port_peel("aligned", False)
+    assert e.value.site == "peel_graph"
