@@ -159,21 +159,32 @@ Phases (any failure exits non-zero):
    size printed first; median of 3 warm support passes, CUDA events), the
    three settings equal on ``ktruss(4)``, ``support_fine_cuda`` launched
    once a trip and once a timed pass, each graph's coarse/fine ratios
-   beside ``max_degree / avg_degree`` and ``coarse_imbalance``; (c)
+   beside ``max_degree / avg_degree`` and ``coarse_imbalance``; (c) the
+   card's aligned pack of phase 5's batch equal to ``device="cpu"``'s field
+   by field, its ms a member and the bytes it copies to the card, then
    ``tracing.traced_solve`` on phase 5's batch in a fresh traced
    ``Session(max_batch=8)`` (auto rule: ``fine/fused/aligned``), cold then
    warm, each span's ms and ``solve`` outside its child spans, the answers
-   equal to phase 5's, one fused launch a level, no retry and no fallback.
+   equal to phase 5's, one fused launch a level, no retry and no fallback;
+   then ``Session.submit``'s latency (the auto rule's statistics) alone and
+   while another thread's solve of the batch, pinned to the fused and then
+   to the unfused peel, is in its dispatch.
    No resilience counter may move over phase 12.  Phase 12's launches are
    the kernels' ``launches_by_path["examples"]``.
 13. the balanced-graph main path at full width: ``road-512``
    (``configs.LARGE_GRAPHS``: 262,144 vertices, 536,383 edges) and its
-   three-query batch through ``Session(max_batch=8)`` with the auto rule,
-   which must plan ``fine/pallas/aligned`` (one dispatch,
-   ``support_fine_cuda`` once a trip); the answers against
+   three-query batch, its card's pack first checked against
+   ``device="cpu"``'s as in phase 12 (c), through ``Session(max_batch=8)``
+   with the auto rule, which must plan ``fine/pallas/aligned`` (one
+   dispatch, ``support_fine_cuda`` once a trip); the answers against
    ``trussness_numpy``; the wall (with the capture), trips and
-   readbacks, and a warm repeat; then the graph peel beside the eager
-   loop's split as in phase 3.
+   readbacks, and a warm repeat; the batch through a fresh traced
+   session, cold then warm, split by span (``plan``, ``pack``,
+   ``compile``, ``dispatch``, ``unpack``, outside), its answers equal to
+   the first session's and ``support_fine_cuda`` once a trip in each run
+   (these launches are not the main path's count); the submit latency as
+   in phase 12 (c); then the graph peel beside the eager loop's split as
+   in phase 3.
 
 Phases 9, 10 and 11 print the trip-graph captures made in this process
 while they ran: how many, and their host seconds.
@@ -194,6 +205,13 @@ runs phases 1, 3, 5 and 11 alone; on a machine with several cards,
 ``slot_mesh()`` spans them all.  It is for timing the mesh path only: it
 holds no kernel against its plain version and prints neither the
 ``kernels`` line nor the ``{"ok": true, ...}`` line.
+
+    python3 chip_smoke.py --prep-only [--src DIR]
+
+runs phase 1, then the packs, span splits and submit latencies of phase 12
+(c) (rmat-15) and phase 13 (road-512) alone, with the ``repro_torch`` under
+``DIR``, and prints them as one ``prep`` JSON line: for comparing two
+trees' graph preparation in one session.  No kernel check, no result line.
 
     python3 chip_smoke.py --support-only --sets FILE [--src DIR]
 
@@ -795,6 +813,218 @@ def phase_peel_split(torch, g, bucket, tag: str, session_trips: int | None = Non
     return p, st, eager[3]
 
 
+class HostToDevice:
+    """Bytes copied from host tensors to the card through ``Tensor.to``,
+    ``Tensor.cuda`` and ``Tensor.copy_`` while :meth:`run` runs (every way
+    the port lifts a host array)."""
+
+    def __init__(self):
+        self.bytes = 0
+        self.copies = 0
+
+    def run(self, torch, fn):
+        orig = {name: getattr(torch.Tensor, name) for name in ("to", "cuda", "copy_")}
+
+        def counted(name):
+            def method(t, *args, **kwargs):
+                out = orig[name](t, *args, **kwargs)
+                src = args[0] if name == "copy_" else t
+                if out.is_cuda and not src.is_cuda:
+                    self.bytes += src.numel() * src.element_size()
+                    self.copies += 1
+                return out
+            return method
+
+        for name in orig:
+            setattr(torch.Tensor, name, counted(name))
+        try:
+            return fn()
+        finally:
+            for name, method in orig.items():
+                setattr(torch.Tensor, name, method)
+
+
+def check_pack(torch, tag: str, graphs, bucket, slots: int = 8) -> dict:
+    """The main path's aligned pack of ``graphs`` on the card against the
+    same pack on ``device="cpu"``, field by field; then the card's pack
+    timed (host clock to a synchronize, median of 3 warm packs) and the
+    bytes it copies to the card.  Returns ms a member, MB copied."""
+    from repro_torch.graphs import pack_problems
+
+    def pack(device):
+        return pack_problems(graphs, slot_n=bucket.n_pad, slot_nnz=bucket.nnz_pad, slots=slots,
+                             chunk=256, layout="aligned", device=device)
+
+    h2d = HostToDevice()
+    card = h2d.run(torch, lambda: pack("cuda"))
+    cpu = pack("cpu")
+    if card.edge_ranges != cpu.edge_ranges:
+        raise AssertionError(f"{tag}: the card's pack has other edge ranges than the CPU's")
+    for f, a, c in zip(card.problem._fields, card.problem, cpu.problem):
+        if not (a.is_cuda and a.dtype == c.dtype and torch.equal(a.cpu(), c)):
+            raise AssertionError(f"{tag}: the card's pack differs from the CPU's in {f}")
+    del card, cpu
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pack("cuda")
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    ms = sorted(times)[1] / len(graphs)
+    log(f"{tag} pack of {len(graphs)} members into {slots} slots: the card's == device='cpu' "
+        f"field by field; {ms:.2f} ms a member (median of 3 warm packs, host clock to a "
+        f"synchronize: {', '.join(f'{t:.2f}' for t in times)} ms a pack); "
+        f"{h2d.bytes / 1e6:.3f} MB copied to the card in {h2d.copies} copies")
+    return {"pack_ms_per_member": ms, "h2d_mb": h2d.bytes / 1e6}
+
+
+# The backends under whose dispatch a submit is timed: rmat-15's auto pick
+# (the fused peel, a readback a level) and its longest single replay (the
+# unfused peel's trip graph); road-512's auto pick.
+SUBMIT_UNDER = {
+    "rmat-15": ("fine/fused/aligned", "fine/pallas/aligned"),
+    "road-512": ("fine/pallas/aligned",),
+}
+
+
+def span_split(torch, tag: str, g, want, backend: str, counts, trips: int | None = None):
+    """``g``'s three-query batch through a fresh traced
+    ``Session(max_batch=8)`` (auto rule), cold then warm: each span's ms
+    and ``solve`` outside its child spans.  Each run must plan ``backend``
+    alone, with no retry and no fallback, and give ``want``'s answers; its
+    kernel launches, counted by ``counts`` (zeroed just before the run),
+    must be one fused launch a level step (= the decompose's levels) and
+    no support launch on ``fine/fused/aligned``, or ``trips`` support
+    launches (the batch's trips) and no fused launch on
+    ``fine/pallas/aligned``.  Returns both runs' ms."""
+    from repro_torch.api import Session
+    from repro_torch.examples.tracing import SPANS, traced_solve
+
+    session = Session(max_batch=8, device="cuda", trace=True)
+    out = {}
+    for run in ("cold", "warm"):
+        fused0, support0 = counts.fused, counts.support
+        levels0 = session.obs.metrics.value("peel_fused_levels")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        results, _, ms = counts.run(lambda: traced_solve(session, rmat15_queries(g)))
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        fused, support = counts.fused - fused0, counts.support - support0
+        level_steps = int(session.obs.metrics.value("peel_fused_levels") - levels0)
+        for name, a, b in zip(QUERIES, results, want):
+            if not same_result(name, a, b):
+                raise AssertionError(f"{tag} span split ({run}): {name} differs")
+        st = session.stats()
+        backends = [c["backend"] for c in st["planner_backends"]]
+        if backends != [backend] or st["retries"] or st["backend_fallbacks"]:
+            raise AssertionError(f"{tag} span split ({run}): planned on {backends}, "
+                                 f"{st['retries']} retries, {st['backend_fallbacks']} fallbacks")
+        if backend == "fine/fused/aligned":
+            ok = fused == level_steps == results[0].levels and support == 0
+        else:
+            ok = support == trips and fused == 0
+        if not ok:
+            raise AssertionError(
+                f"{tag} span split ({run}) on {backend}: {fused} fused launches over "
+                f"{level_steps} level steps ({results[0].levels} levels), {support} support "
+                f"launches over {trips} trips")
+        log(f"{tag} span split ({run}), {backends}: " + ", ".join(
+            f"{s} {ms[s]:.2f}" for s in SPANS + ("outside",)) + f" ms; wall {wall:.2f} ms; "
+            f"fused_level_cuda launches {fused}, support_fine_cuda launches {support}; "
+            f"0 retries, 0 fallbacks; answers as expected")
+        out[run] = {**{s: ms[s] for s in SPANS + ("outside",)}, "wall": wall}
+    return out
+
+
+def submit_latency(torch, tag: str, g, want, backends) -> dict:
+    """``Session.submit``'s latency for one auto-rule query on ``g`` (the
+    planner's imbalance statistics): alone (median of 5 after one), and
+    for each submit made, one every millisecond, by this thread while
+    another thread solves ``g``'s batch on a warm session pinned to each
+    of ``backends``; only the submits that start inside that solve's
+    ``dispatch`` span are the latency under a dispatch in flight (the
+    fused peel reads back once a level, the unfused one is one graph
+    replay).  Every answer must equal ``want``."""
+    import threading
+
+    from repro_torch.api import Session, TrussQuery
+
+    probe = Session(max_batch=8, device="cuda")  # its queue is never served
+
+    def submit():
+        t0 = time.perf_counter()
+        probe.submit(TrussQuery.kmax(g))
+        return t0, (time.perf_counter() - t0) * 1e3
+
+    def check(results, what):
+        for name, a, b in zip(QUERIES, results, want):
+            if not same_result(name, a, b):
+                raise AssertionError(f"{tag} submit latency, {what}: {name} differs")
+
+    submit()
+    out = {"alone_ms": sorted(submit()[1] for _ in range(5))[2]}
+    log(f"{tag} submit latency (auto rule): alone {out['alone_ms']:.2f} ms (median of 5)")
+    for backend in backends:
+        solver = Session(max_batch=8, device="cuda", backend=backend, trace=True)
+        check(solver.solve(rmat15_queries(g)), f"{backend} first solve")
+        solver.obs.tracer.clear()
+        box = {}
+
+        def solve():
+            try:
+                box["results"] = solver.solve(rmat15_queries(g))
+            except BaseException as e:  # re-raised on this thread
+                box["error"] = e
+
+        samples = []
+        th = threading.Thread(target=solve)
+        th.start()
+        while th.is_alive():
+            samples.append(submit())
+            time.sleep(1e-3)
+        th.join()
+        if "error" in box:
+            raise box["error"]
+        check(box["results"], f"{backend} concurrent solve")
+        (span,) = [e for e in solver.obs.tracer.events()
+                   if e["ph"] == "X" and e["name"] == "dispatch"]
+        lo, hi = span["ts"] / 1e6, (span["ts"] + span["dur"]) / 1e6
+        during = sorted(ms for t0, ms in samples if lo <= t0 < hi)
+        out[backend] = {"dispatch_ms": span["dur"] / 1e3, "during_ms": during}
+        log(f"{tag} submit latency while another thread's {backend} solve is in its "
+            f"{span['dur'] / 1e3:.2f} ms dispatch: {len(during)} of {len(samples)} submits "
+            f"started inside it: " + (f"median {during[len(during) // 2]:.2f} ms, max "
+                                      f"{during[-1]:.2f} ms" if during else "none")
+            + "; the solves' answers as expected")
+        del solver
+    return out
+
+
+def prep_only(torch, smi, src: Path) -> int:
+    """The graph preparation alone: phase 12 (c)'s and phase 13's packs,
+    span splits and submit latencies, with the ``repro_torch`` that
+    ``--src`` names, for comparing two trees in one session.  Prints one
+    ``prep`` JSON line."""
+    from repro_torch.api import bucket_for
+    from repro_torch.configs import LARGE_GRAPHS
+
+    out = {"src": str(src)}
+    for name, backend in (("rmat-15", "fine/fused/aligned"), ("road-512", "fine/pallas/aligned")):
+        g = next(b for b in LARGE_GRAPHS if b.name == name).build()
+        out[name] = check_pack(torch, f"prep {name}", [g, g, g], bucket_for(g, chunk=256))
+        _, futs, _ = run_session(torch, g, max_batch=8)
+        want = [f.result() for f in futs]
+        out[name].update(span_split(torch, f"prep {name}", g, want, backend, LaunchCounts(),
+                                    futs[0].stats.dispatch_trips))
+        out[name]["submit"] = submit_latency(torch, f"prep {name}", g, want, SUBMIT_UNDER[name])
+        del futs
+    log(smi)
+    log("prep " + json.dumps(out))
+    return 0
+
+
 def phase_road(torch) -> int:
     """Phase 13: ``road-512`` (``configs.LARGE_GRAPHS``), the balanced-graph
     main path: its three-query batch through ``Session(max_batch=8)`` with
@@ -811,6 +1041,7 @@ def phase_road(torch) -> int:
 
     g = next(b for b in LARGE_GRAPHS if b.name == "road-512").build()
     bucket = bucket_for(g, chunk=256)
+    check_pack(torch, "phase13 road-512", [g, g, g], bucket)
     t0 = time.perf_counter()
     want = trussness_numpy(g)
     log(f"phase13 road-512: n={g.n} nnz={g.nnz} bucket={tuple(bucket)}; trussness_numpy "
@@ -838,7 +1069,11 @@ def phase_road(torch) -> int:
         raise AssertionError("phase13: decompose/kmax != trussness_numpy")
     check_rmat15_results(g, futs)
     log(f"phase13 {warm_repeat(torch, session, g, futs, 'phase13')}")
+    want = [f.result() for f in futs]
     del session, futs, dec, kt
+    # The span split's launches are checked there, and are not the main path's.
+    span_split(torch, "phase13 road-512", g, want, "fine/pallas/aligned", LaunchCounts(), trips)
+    submit_latency(torch, "phase13 road-512", g, want, SUBMIT_UNDER["road-512"])
     phase_peel_split(torch, g, bucket, "phase13", trips)
     return launches
 
@@ -2096,10 +2331,9 @@ def phase_examples(torch, g, want) -> dict:
     import io
     import tempfile
 
-    from repro_torch.api import Session, TrussQuery
+    from repro_torch.api import TrussQuery, bucket_for
     from repro_torch.configs import BENCH_GRAPHS
     from repro_torch.examples.ktruss_scaling import SETTINGS, sweep
-    from repro_torch.examples.tracing import SPANS, traced_solve
 
     t12 = time.perf_counter()
     counters0 = resilience_counters()
@@ -2196,29 +2430,9 @@ def phase_examples(torch, g, want) -> dict:
     # (c) The main path's span split: rmat-15's phase-5 batch, cold then warm,
     # on fine/fused/aligned alone: one fused launch per level step, no
     # support kernel, no retry, no step down.
-    session = Session(max_batch=8, device="cuda", trace=str(Path(tmp.name) / "rmat15.json"))
-    for run in ("cold", "warm"):
-        fused0, support0 = counts.fused, counts.support
-        levels0 = session.obs.metrics.value("peel_fused_levels")
-        results, _, ms = counts.run(lambda: traced_solve(session, rmat15_queries(g)))
-        fused = counts.fused - fused0
-        level_steps = int(session.obs.metrics.value("peel_fused_levels") - levels0)
-        for name, a, b in zip(QUERIES, results, want):
-            if not same_result(name, a, b):
-                raise AssertionError(f"phase12 span split ({run}): {name} != phase 5's")
-        st = session.stats()
-        backends = [c["backend"] for c in st["planner_backends"]]
-        if backends != ["fine/fused/aligned"] or st["retries"] or st["backend_fallbacks"]:
-            raise AssertionError(f"phase12 span split ({run}): planned on {backends}, "
-                                 f"{st['retries']} retries, {st['backend_fallbacks']} fallbacks")
-        if not (fused == level_steps == results[0].levels) or counts.support != support0:
-            raise AssertionError(
-                f"phase12 span split ({run}): {fused} fused launches over {level_steps} level "
-                f"steps ({results[0].levels} levels), {counts.support - support0} support "
-                f"launches")
-        log(f"phase12 rmat-15 span split ({run}): " + ", ".join(
-            f"{s} {ms[s]:.2f}" for s in SPANS + ("outside",)) + f" ms; fused_level_cuda "
-            f"launches {fused} == level steps == levels; 0 retries, 0 fallbacks; == phase 5")
+    check_pack(torch, "phase12 rmat-15", [g, g, g], bucket_for(g, chunk=256))
+    span_split(torch, "phase12 rmat-15", g, want, "fine/fused/aligned", counts)
+    submit_latency(torch, "phase12 rmat-15", g, want, SUBMIT_UNDER["rmat-15"])
     tmp.cleanup()
 
     moved = {k: v - counters0.get(k, 0) for k, v in resilience_counters().items()
@@ -2268,6 +2482,10 @@ def main(argv: list[str]) -> int:
                     help="the src directory whose repro_torch to import (default: this checkout's)")
     ap.add_argument("--sets", type=Path, default=None,
                     help="with --support-only: file of the peel's alive sets (read, or written)")
+    ap.add_argument("--prep-only", action="store_true",
+                    help="run only the graph preparation of phases 12 (c) and 13: the packs "
+                         "against the CPU's, their times and bytes, the span splits, the "
+                         "submit latencies")
     ap.add_argument("--mesh-only", action="store_true",
                     help="time only phases 1, 3, 5 and 11 (the mesh path, on every visible card); "
                          "no kernel check, no result line")
@@ -2302,6 +2520,8 @@ def main(argv: list[str]) -> int:
     log(f"rmat-15: n={g.n} nnz={g.nnz} bucket={tuple(bucket)}")
     if args.support_only:
         return support_only(torch, g, bucket, smi, args.sets)
+    if args.prep_only:
+        return prep_only(torch, smi, args.src)
     if args.mesh_only:
         _, pallas_futs, pallas_wall, _ = phase_pallas_path(torch, g)
         _, fused_futs, _ = phase_fused_main(torch, g, pallas_futs, pallas_wall)

@@ -236,7 +236,7 @@ class Planner:
             key = query.backend if query.backend is not None else self.backend
             if key is None:
                 key = choose_backend(
-                    imbalance_stats(query.graph),
+                    imbalance_stats(query.graph, device=self.device),
                     kernel=self.kernel,
                     layout=self.layout,
                 )
@@ -367,10 +367,13 @@ class Planner:
         # Contig layout: members are prefix-packed, so slot ownership
         # depends on this batch's member sizes.  Pad-tail lanes are dead
         # (never alive, never frozen) — parking them on slot 0 is inert.
-        ids = np.zeros(batch.slots * batch.bucket.nnz_pad, np.int32)
-        for i, (a, b) in enumerate(edge_ranges):
-            ids[a:b] = i
-        return torch.from_numpy(ids).to(self.device)
+        lengths = [b - a for a, b in edge_ranges]
+        ids = torch.repeat_interleave(
+            torch.arange(len(lengths), dtype=torch.int32, device=self.device),
+            torch.tensor(lengths, device=self.device),
+            output_size=sum(lengths),
+        )
+        return torch.cat([ids, ids.new_zeros(batch.slots * batch.bucket.nnz_pad - ids.shape[0])])
 
     def _typed_fault(self, err: Exception, bucket: Bucket, backend: BackendKey) -> TrussError:
         """``err`` as the resilience runner receives it: typed, and marked

@@ -5,7 +5,6 @@ from .eager_fine import (
     FineProblem,
     bucket_tasks,
     prepare_fine,
-    prepare_fine_arrays,
     problem_from_arrays,
     support_fine_bucketed,
     support_fine_eager,
@@ -35,7 +34,6 @@ __all__ = [
     "FineProblem",
     "bucket_tasks",
     "prepare_fine",
-    "prepare_fine_arrays",
     "problem_from_arrays",
     "support_fine_bucketed",
     "support_fine_eager",

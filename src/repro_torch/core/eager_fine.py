@@ -32,13 +32,19 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from ..graphs.csr import CSRGraph
+from ..graphs.csr import (
+    CSRGraph,
+    check_upper,
+    csr_degrees,
+    edge_rows,
+    lift_csr,
+    symmetrize_csr,
+)
 from .taskmap import sorted_window_member
 
 __all__ = [
     "FineProblem",
     "prepare_fine",
-    "prepare_fine_arrays",
     "problem_from_arrays",
     "support_fine_eager",
     "support_fine_owner",
@@ -99,8 +105,7 @@ def problem_from_arrays(
 ) -> FineProblem:
     """Lift host arrays (one per :class:`FineProblem` field) onto ``device``.
 
-    The hand-over point between the host-side packers and the device: the
-    tests feed the JAX package's own ``FineProblem`` arrays through here.
+    The tests' door for the JAX package's own ``FineProblem`` arrays.
     Every field must hold integers that fit int32; they are stored as int32.
     """
     dev = resolve_device(device)
@@ -115,54 +120,6 @@ def problem_from_arrays(
     return FineProblem(**out)
 
 
-def prepare_fine_arrays(
-    g: CSRGraph,
-    chunk: int = 1024,
-    *,
-    nnz_pad: int | None = None,
-    unnz_pad: int | None = None,
-) -> dict[str, np.ndarray]:
-    """Host-side packing of a CSR graph into int32 :class:`FineProblem` arrays.
-
-    ``nnz_pad``/``unnz_pad`` override the default round-up-to-chunk padding
-    with explicit targets so callers (the serving compile cache) can
-    canonicalize many graphs onto one static shape.
-    """
-    nnzp = max(_round_up(g.nnz, chunk), chunk) if nnz_pad is None else int(nnz_pad)
-    if nnzp < g.nnz or nnzp % chunk:
-        raise ValueError(f"nnz_pad={nnzp} must be a chunk multiple >= nnz={g.nnz}")
-    d = g.device_csr(nnzp)
-    u = g.undirected_csr()
-    unnzp = max(_round_up(u.nnz, chunk), chunk) if unnz_pad is None else int(unnz_pad)
-    if unnzp < u.nnz:
-        raise ValueError(f"unnz_pad={unnzp} < undirected nnz={u.nnz}")
-
-    # Map undirected nonzeros to directed edge ids: entry (a,b) of the
-    # symmetric CSR corresponds to directed edge (min(a,b), max(a,b)).  The
-    # directed nonzeros are globally sorted under the composite key
-    # row * (n + 2) + col, so one vectorized searchsorted over those keys
-    # resolves every undirected entry at once.
-    urows = u.row_of_edge()
-    lo = np.minimum(urows, u.colidx).astype(np.int64)
-    hi = np.maximum(urows, u.colidx).astype(np.int64)
-    stride = np.int64(g.n + 2)
-    dkeys = g.row_of_edge().astype(np.int64) * stride + g.colidx
-    u2d = np.searchsorted(dkeys, lo * stride + hi)
-    pad_u = unnzp - u.nnz
-    i32 = np.int32
-    return {
-        "rowptr": d.rowptr.astype(i32),
-        "colidx": d.colidx.astype(i32),
-        "edge_row": d.edge_row.astype(i32),
-        "deg": d.deg.astype(i32),
-        "urowptr": u.rowptr.astype(i32),
-        "ucolidx": np.pad(u.colidx.astype(i32), (0, pad_u)),
-        "u2d": np.pad(u2d.astype(i32), (0, pad_u), constant_values=nnzp),
-        "uedge_row": np.pad(u.row_of_edge().astype(i32), (0, pad_u)),
-        "udeg": u.degrees().astype(i32),
-    }
-
-
 def prepare_fine(
     g: CSRGraph,
     chunk: int = 1024,
@@ -171,9 +128,56 @@ def prepare_fine(
     unnz_pad: int | None = None,
     device: str | torch.device | None = None,
 ) -> FineProblem:
-    """:func:`prepare_fine_arrays` lifted onto ``device`` (``None`` = CUDA)."""
-    return problem_from_arrays(
-        prepare_fine_arrays(g, chunk, nnz_pad=nnz_pad, unnz_pad=unnz_pad), device
+    """Pack a CSR graph into int32 :class:`FineProblem` tensors on ``device``
+    (``None`` = CUDA).
+
+    ``nnz_pad``/``unnz_pad`` override the default round-up-to-chunk padding
+    with explicit targets so callers (the serving compile cache) can
+    canonicalize many graphs onto one static shape.  The only host-to-device
+    copy is ``g``'s ``rowptr`` and ``colidx`` (:func:`lift_csr`): every
+    derived array is built on ``device`` by torch ops, equal to the
+    reference's host arrays.  A CSR that is not strictly upper triangular
+    raises :class:`~repro_torch.errors.InvalidGraphError` (:func:`check_upper`).
+    """
+    dev = resolve_device(device)
+    nnzp = max(_round_up(g.nnz, chunk), chunk) if nnz_pad is None else int(nnz_pad)
+    if nnzp < g.nnz or nnzp % chunk:
+        raise ValueError(f"nnz_pad={nnzp} must be a chunk multiple >= nnz={g.nnz}")
+    unnz = 2 * g.nnz  # the symmetrized CSR holds both directions of each edge
+    unnzp = max(_round_up(unnz, chunk), chunk) if unnz_pad is None else int(unnz_pad)
+    if unnzp < unnz:
+        raise ValueError(f"unnz_pad={unnzp} < undirected nnz={unnz}")
+
+    check_upper(g)
+    rowptr, colidx = lift_csr(g, dev)
+    rows = edge_rows(rowptr, g.nnz)
+    urowptr, ucolidx, urows = symmetrize_csr(rowptr, colidx, rows)
+    # Map undirected nonzeros to directed edge ids: entry (a,b) of the
+    # symmetric CSR corresponds to directed edge (min(a,b), max(a,b)).  The
+    # directed nonzeros are globally sorted under the composite key
+    # row * (n + 2) + col, so one searchsorted (left side, numpy's default)
+    # over those keys resolves every undirected entry at once.
+    stride = g.n + 2
+    lo = torch.minimum(urows, ucolidx)
+    hi = torch.maximum(urows, ucolidx)
+    u2d = torch.searchsorted(rows * stride + colidx, lo * stride + hi)
+
+    i32 = torch.int32
+
+    def padded(a: torch.Tensor, size: int, value: int = 0) -> torch.Tensor:
+        tail = torch.full((size - a.shape[0],), value, dtype=i32, device=dev)
+        return torch.cat([a.to(i32), tail])
+
+    return FineProblem(
+        rowptr=rowptr.to(i32),
+        colidx=padded(colidx, nnzp),
+        edge_row=padded(rows, nnzp),
+        deg=csr_degrees(rowptr).to(i32),
+        urowptr=urowptr.to(i32),
+        ucolidx=padded(ucolidx, unnzp),
+        u2d=padded(u2d, unnzp, nnzp),
+        uedge_row=padded(urows, unnzp),
+        udeg=csr_degrees(urowptr).to(i32),
     )
 
 

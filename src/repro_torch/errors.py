@@ -103,7 +103,7 @@ class InvalidGraphError(TrussError, ValueError):
     ``row`` is the first violating 1-based row and ``kind`` names the
     broken invariant (``rowptr_unsorted`` / ``rowptr_mismatch`` /
     ``col_range`` / ``self_loop`` / ``unsorted_row`` / ``duplicate`` /
-    ...), so callers and tests can assert on *which* invariant failed.
+    ``not_upper`` / ...), so callers and tests can assert on *which* invariant failed.
     Subclasses ``ValueError`` so pre-taxonomy ``except ValueError``
     callers keep working.
     """

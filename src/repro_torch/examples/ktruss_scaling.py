@@ -66,7 +66,7 @@ def sweep(
                 nnz=g.nnz,
                 max_degree=g.max_degree(),
                 pred=g.max_degree() / max(g.nnz / g.n, 1e-9),
-                coarse_imbalance=imbalance_stats(g).coarse_imbalance,
+                coarse_imbalance=imbalance_stats(g, device=dev).coarse_imbalance,
                 ms={r.tag: r.ms for r in grid_rows},
                 ktruss={r.tag: r.result for r in grid_rows},
             )

@@ -67,7 +67,7 @@ def main(device: str | torch.device | None = None) -> dict:
     graph's statistics and each combination's 4-truss."""
     dev = resolve_device(device)
     g = rmat(10, 6, seed=7)
-    st = imbalance_stats(g)
+    st = imbalance_stats(g, device=dev)
     print(f"graph: {g.name}  |V|={g.n} |E|={g.nnz} max_deg={g.max_degree()}")
     print(
         f"coarse-task imbalance {st.coarse_imbalance:.0f}x vs fine "

@@ -1,7 +1,11 @@
 """CSR graph containers for the Eager K-truss framework.
 
-Host-side construction is numpy; device-side views are JAX pytrees with
-fully static shapes.
+Host-side construction and validation are numpy (:class:`CSRGraph`); the
+tensor helpers below (:func:`lift_csr`, :func:`edge_rows`,
+:func:`csr_degrees`, :func:`symmetrize_csr`) build the derived arrays on a
+device from a graph's lifted ``rowptr``/``colidx``, once
+:func:`check_upper` has held the graph to the upper-triangular contract
+that the symmetrization relies on.
 
 Conventions (paper-faithful, see DESIGN.md §2/§4):
 
@@ -23,6 +27,7 @@ import dataclasses
 from typing import NamedTuple
 
 import numpy as np
+import torch
 
 from ..errors import InvalidGraphError
 
@@ -30,7 +35,12 @@ __all__ = [
     "CSRGraph",
     "DeviceCSR",
     "build_upper_csr",
+    "check_upper",
+    "csr_degrees",
+    "edge_rows",
     "from_edges",
+    "lift_csr",
+    "symmetrize_csr",
     "validate_csr",
 ]
 
@@ -284,6 +294,90 @@ class CSRGraph:
     def edge_list(self) -> np.ndarray:
         """(nnz, 2) array of 1-based (src, dst) pairs, src < dst."""
         return np.stack([self.row_of_edge(), self.colidx], axis=1)
+
+
+# ---------------------------------------------------------------------- #
+# Tensor helpers: the derived arrays above, built on a graph's device
+# ---------------------------------------------------------------------- #
+def check_upper(g: CSRGraph) -> None:
+    """Raise :class:`InvalidGraphError` (``kind="not_upper"``) unless every
+    column of ``g`` lies above its row.
+
+    :func:`validate_csr` leaves upper-triangularity to the builders, but
+    :func:`symmetrize_csr` needs it: a CSR that already holds both
+    directions of an edge (a symmetric one, the commonest misuse) would
+    symmetrize into duplicate entries and wrong supports.  Columns ascend
+    within a validated row, so each nonempty row's first column decides:
+    one vectorized compare over the rows, on the host.
+    """
+    starts = np.asarray(g.rowptr[:-1])
+    rows = np.nonzero(starts < np.asarray(g.rowptr[1:]))[0]  # 0-based, nonempty
+    low = np.nonzero(np.asarray(g.colidx)[starts[rows]] <= rows + 1)[0]
+    if low.size:
+        row = int(rows[low[0]]) + 1
+        col = int(g.colidx[starts[row - 1]])
+        raise InvalidGraphError(
+            f"graph {g.name!r}: column {col} at or below row {row}: the CSR must be "
+            "strictly upper triangular (each edge once, as (min, max))",
+            row=row,
+            kind="not_upper",
+            graph=g.name,
+        )
+
+
+def lift_csr(g: CSRGraph, device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
+    """``g``'s ``(rowptr, colidx)`` on ``device``, as int64.
+
+    The one host-to-device copy of a graph: its arrays go over as stored
+    and are widened on the device.
+    """
+
+    def lift(a: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device).long()
+
+    return lift(g.rowptr), lift(g.colidx)
+
+
+def csr_degrees(rowptr: torch.Tensor) -> torch.Tensor:
+    """(n + 1,) out-degree per 1-based vertex, ``deg[0] == 0``
+    (:meth:`CSRGraph.degrees`)."""
+    return torch.cat([rowptr.new_zeros(1), torch.diff(rowptr)])
+
+
+def edge_rows(rowptr: torch.Tensor, nnz: int) -> torch.Tensor:
+    """(nnz,) 1-based source vertex of each nonzero
+    (:meth:`CSRGraph.row_of_edge`).
+
+    ``nnz`` is the host's count, so sizing the output reads nothing back
+    from the device.
+    """
+    ids = torch.arange(1, rowptr.shape[0], dtype=rowptr.dtype, device=rowptr.device)
+    return torch.repeat_interleave(ids, torch.diff(rowptr), output_size=nnz)
+
+
+def symmetrize_csr(
+    rowptr: torch.Tensor, colidx: torch.Tensor, rows: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The symmetrized CSR of an upper-triangular one
+    (:meth:`CSRGraph.undirected_csr`): ``(urowptr, ucolidx, urows)``.
+
+    ``rows`` is :func:`edge_rows` of the input, which
+    :func:`check_upper` has passed.  Both directions of every
+    edge are sorted by the composite key ``src * (n + 2) + dst``, which is
+    unique because the input is strictly upper triangular, so one sort
+    gives ``np.lexsort((dst, src))``'s order.  ``urowptr[v]`` counts the
+    sorted sources at most ``v`` (a searchsorted: ``torch.bincount`` on
+    CUDA reads its input's maximum back to size its output).
+    """
+    n = rowptr.shape[0] - 1
+    stride = n + 2
+    src = torch.cat([rows, colidx])
+    dst = torch.cat([colidx, rows])
+    keys = torch.sort(src * stride + dst).values
+    usrc = keys // stride
+    vertices = torch.arange(n + 1, dtype=keys.dtype, device=keys.device)
+    urowptr = torch.searchsorted(usrc, vertices, right=True)
+    return urowptr, keys - usrc * stride, usrc
 
 
 # ---------------------------------------------------------------------- #

@@ -21,6 +21,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..device import resolve_device
 from ..errors import InvalidGraphError
 from .csr import CSRGraph
 
@@ -214,9 +215,11 @@ def _pack_problems_aligned(
     undirected lanes twice that).  Pad lanes sit *inside* each slot block;
     ``rowptr``/``urowptr`` store row starts (the only way the kernels read
     them — see ``FineProblem``), with row extents carried by the degree
-    arrays.
+    arrays.  Every field is allocated and written on ``device``; each
+    member is prepared there (:func:`~repro_torch.core.eager_fine.prepare_fine`),
+    so its ``rowptr`` and ``colidx`` are the only host-to-device copies.
     """
-    from ..core.eager_fine import prepare_fine_arrays, problem_from_arrays
+    from ..core.eager_fine import FineProblem, prepare_fine
 
     if not graphs:
         raise ValueError("pack_problems needs at least one graph")
@@ -228,17 +231,18 @@ def _pack_problems_aligned(
     if slots * slot_n + 1 >= np.iinfo(np.int32).max:
         raise ValueError("packed vertex space overflows int32")
 
+    dev = resolve_device(device)
     n_tot, nnzp, unnzp = slots * slot_n, slots * slot_nnz, 2 * slots * slot_nnz
-    rowptr = np.zeros(n_tot + 1, np.int32)
-    urowptr = np.zeros(n_tot + 1, np.int32)
-    deg = np.zeros(n_tot + 1, np.int32)
-    udeg = np.zeros(n_tot + 1, np.int32)
-    colidx = np.zeros(nnzp, np.int32)
-    edge_row = np.zeros(nnzp, np.int32)
-    ucolidx = np.zeros(unnzp, np.int32)
-    uedge_row = np.zeros(unnzp, np.int32)
-    u2d = np.full(unnzp, nnzp, np.int32)
+
+    def zeros(size: int) -> torch.Tensor:
+        return torch.zeros(size, dtype=torch.int32, device=dev)
+
+    rowptr, urowptr, deg, udeg = (zeros(n_tot + 1) for _ in range(4))
+    colidx, edge_row = zeros(nnzp), zeros(nnzp)
+    ucolidx, uedge_row = zeros(unnzp), zeros(unnzp)
+    u2d = torch.full((unnzp,), nnzp, dtype=torch.int32, device=dev)
     rowptr[-1], urowptr[-1] = nnzp, unnzp
+    slot_rows = torch.arange(slot_n, device=dev)
     edge_ranges: list[tuple[int, int]] = []
 
     for i in range(slots):
@@ -249,42 +253,31 @@ def _pack_problems_aligned(
             edge_ranges.append((eo, eo))
             continue
         g = graphs[i]
-        p = prepare_fine_arrays(
-            g, chunk=chunk, nnz_pad=slot_nnz, unnz_pad=2 * slot_nnz
-        )
-        lrp = p["rowptr"]  # (g.n + 1,) local row starts
-        lurp = p["urowptr"]
+        p = prepare_fine(g, chunk=chunk, nnz_pad=slot_nnz, unnz_pad=2 * slot_nnz, device=dev)
         # rowptr[j] is the start of row j+1: rows 1..g.n take the member's
         # prefix sums; the slot's tail rows are empty at the member's end.
-        rowptr[vo : vo + slot_n] = eo + lrp[np.minimum(np.arange(slot_n), g.n)]
-        urowptr[vo : vo + slot_n] = uo + lurp[np.minimum(np.arange(slot_n), g.n)]
-        deg[vo + 1 : vo + g.n + 1] = p["deg"][1:]
-        udeg[vo + 1 : vo + g.n + 1] = p["udeg"][1:]
-        lcol = p["colidx"]
-        colidx[eo : eo + slot_nnz] = np.where(lcol != 0, lcol + vo, 0)
-        lrow = p["edge_row"]
-        edge_row[eo : eo + slot_nnz] = np.where(lrow != 0, lrow + vo, 0)
-        lucol = p["ucolidx"]
-        ucolidx[uo : uo + 2 * slot_nnz] = np.where(lucol != 0, lucol + vo, 0)
-        lurow = p["uedge_row"]
-        uedge_row[uo : uo + 2 * slot_nnz] = np.where(lurow != 0, lurow + vo, 0)
-        lu2d = p["u2d"]
-        u2d[uo : uo + 2 * slot_nnz] = np.where(lu2d < slot_nnz, lu2d + eo, nnzp)
+        local = slot_rows.clamp(max=g.n)
+        rowptr[vo : vo + slot_n] = eo + p.rowptr[local]
+        urowptr[vo : vo + slot_n] = uo + p.urowptr[local]
+        deg[vo + 1 : vo + g.n + 1] = p.deg[1:]
+        udeg[vo + 1 : vo + g.n + 1] = p.udeg[1:]
+        colidx[eo : eo + slot_nnz] = torch.where(p.colidx != 0, p.colidx + vo, 0)
+        edge_row[eo : eo + slot_nnz] = torch.where(p.edge_row != 0, p.edge_row + vo, 0)
+        ucolidx[uo : uo + 2 * slot_nnz] = torch.where(p.ucolidx != 0, p.ucolidx + vo, 0)
+        uedge_row[uo : uo + 2 * slot_nnz] = torch.where(p.uedge_row != 0, p.uedge_row + vo, 0)
+        u2d[uo : uo + 2 * slot_nnz] = torch.where(p.u2d < slot_nnz, p.u2d + eo, nnzp)
         edge_ranges.append((eo, eo + g.nnz))
 
-    problem = problem_from_arrays(
-        {
-            "rowptr": rowptr,
-            "colidx": colidx,
-            "edge_row": edge_row,
-            "deg": deg,
-            "urowptr": urowptr,
-            "ucolidx": ucolidx,
-            "u2d": u2d,
-            "uedge_row": uedge_row,
-            "udeg": udeg,
-        },
-        device,
+    problem = FineProblem(
+        rowptr=rowptr,
+        colidx=colidx,
+        edge_row=edge_row,
+        deg=deg,
+        urowptr=urowptr,
+        ucolidx=ucolidx,
+        u2d=u2d,
+        uedge_row=uedge_row,
+        udeg=udeg,
     )
     return PackedProblem(
         problem=problem,

@@ -14,31 +14,43 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+import torch
 
-from .csr import CSRGraph
+from ..device import resolve_device
+from .csr import CSRGraph, csr_degrees, edge_rows, lift_csr
 
 __all__ = ["ImbalanceStats", "imbalance_stats", "coarse_task_work", "fine_task_work"]
 
 
-def coarse_task_work(g: CSRGraph) -> np.ndarray:
-    """Per-row work estimate for the coarse decomposition (Alg. 2).
+def _fine(g: CSRGraph, dev: torch.device) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``(fine, rows, deg)`` of ``g`` on ``dev``, int64: the per-edge work,
+    each edge's row and the degrees."""
+    rowptr, colidx = lift_csr(g, dev)
+    deg = csr_degrees(rowptr)
+    rows = edge_rows(rowptr, g.nnz)
+    return deg[rows] + deg[colidx], rows, deg
+
+
+def _coarse(fine: torch.Tensor, rows: torch.Tensor, deg: torch.Tensor) -> torch.Tensor:
+    """Per-row sums of the per-edge work (``np.add.at``'s, by ``index_add_``)."""
+    return torch.zeros_like(deg).index_add_(0, rows, fine)[1:]
+
+
+def coarse_task_work(g: CSRGraph, *, device: str | torch.device | None = None) -> np.ndarray:
+    """Per-row work estimate for the coarse decomposition (Alg. 2), built
+    on ``device`` (``None`` = CUDA) and returned as the host's int64 array.
 
     Row i's task intersects, for each j-th neighbor κ of i, the suffix
     a_i12[j+1:] with row κ.  Work(i) = Σ_{κ ∈ N⁺(i)} (deg(i) + deg(κ)),
     the standard merge-cost model for sorted intersections.
     """
-    deg = g.degrees()
-    rows = g.row_of_edge()
-    per_edge = deg[rows] + deg[g.colidx]
-    work = np.zeros(g.n + 1, dtype=np.int64)
-    np.add.at(work, rows, per_edge)
-    return work[1:]
+    return _coarse(*_fine(g, resolve_device(device))).cpu().numpy()
 
 
-def fine_task_work(g: CSRGraph) -> np.ndarray:
-    """Per-edge work estimate for the fine decomposition (Alg. 3)."""
-    deg = g.degrees()
-    return (deg[g.row_of_edge()] + deg[g.colidx]).astype(np.int64)
+def fine_task_work(g: CSRGraph, *, device: str | torch.device | None = None) -> np.ndarray:
+    """Per-edge work estimate for the fine decomposition (Alg. 3), built on
+    ``device`` (``None`` = CUDA) and returned as the host's int64 array."""
+    return _fine(g, resolve_device(device))[0].cpu().numpy()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -63,29 +75,40 @@ class ImbalanceStats:
         return dataclasses.asdict(self)
 
 
-def imbalance_stats(g: CSRGraph) -> ImbalanceStats:
-    cw = coarse_task_work(g)
-    fw = fine_task_work(g)
-    cw_pos = cw[cw > 0]
-    fw_pos = fw[fw > 0]
+def imbalance_stats(g: CSRGraph, *, device: str | torch.device | None = None) -> ImbalanceStats:
+    """The paper's imbalance statistics of ``g``, its work vectors built on
+    ``device`` (``None`` = CUDA).
 
-    def _imb(w: np.ndarray) -> float:
-        return float(w.max() / max(w.mean(), 1e-9)) if w.size else 1.0
+    The device reduces them to integer sums, maxima and counts, read back
+    once; the ratios are taken here in float64.  Every sum is an exact
+    integer below 2^53, so ``float(sum) / count`` is numpy's ``mean`` bit
+    for bit and the result equals the reference's.
+    """
+    fine, rows, deg = _fine(g, resolve_device(device))
+    coarse = _coarse(fine, rows, deg)
+    parts = [deg.sum(), deg.max()]  # deg[0] == 0: never empty, never raises the max
+    # Work is never negative, so the positive entries' sum and maximum are
+    # the whole vector's (a zero appended keeps the maximum of an empty one).
+    for w in (coarse, fine):
+        parts += [w.sum(), torch.cat([w, w.new_zeros(1)]).max(), (w > 0).sum()]
+    d_sum, d_max, c_sum, c_max, c_cnt, f_sum, f_max, f_cnt = torch.stack(parts).tolist()
 
-    def _lane_eff(w: np.ndarray) -> float:
-        return float(w.mean() / max(w.max(), 1)) if w.size else 1.0
+    def _imb(total: int, top: int, count: int) -> float:
+        return float(top) / max(float(total) / count, 1e-9) if count else 1.0
 
-    deg = g.degrees()[1:]
+    def _lane_eff(total: int, top: int, count: int) -> float:
+        return float(total) / count / max(top, 1) if count else 1.0
+
     return ImbalanceStats(
         name=g.name,
         n=g.n,
         nnz=g.nnz,
-        max_degree=g.max_degree(),
-        mean_degree=float(deg.mean()) if g.n else 0.0,
-        coarse_imbalance=_imb(cw_pos),
-        fine_imbalance=_imb(fw_pos),
-        coarse_lane_efficiency=_lane_eff(cw_pos),
-        fine_lane_efficiency=_lane_eff(fw_pos),
-        coarse_tasks=int((cw > 0).sum()),
-        fine_tasks=int(fw_pos.size),
+        max_degree=d_max,
+        mean_degree=float(d_sum) / g.n if g.n else 0.0,
+        coarse_imbalance=_imb(c_sum, c_max, c_cnt),
+        fine_imbalance=_imb(f_sum, f_max, f_cnt),
+        coarse_lane_efficiency=_lane_eff(c_sum, c_max, c_cnt),
+        fine_lane_efficiency=_lane_eff(f_sum, f_max, f_cnt),
+        coarse_tasks=c_cnt,
+        fine_tasks=f_cnt,
     )

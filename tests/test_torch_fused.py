@@ -381,7 +381,8 @@ def test_autotuned_config_replays_across_processes_through_session(tmp_path):
 def test_auto_rule_matches_reference_on_configured_graphs(bench):
     g = bench.build()
     want = ra.choose_backend(ref_imbalance_stats(g), kernel="pallas", layout="aligned")
-    got = ta.choose_backend(imbalance_stats(torch_graph(g)), kernel="pallas", layout="aligned")
+    got = ta.choose_backend(imbalance_stats(torch_graph(g), device="cpu"), kernel="pallas",
+                            layout="aligned")
     assert str(got) == str(want)
     skewed = {"rmat-15", "ba-50k", "rmat-12", "ba-6k", "ba-12k", "er-4k", "er-12k"}
     assert (str(got) == "fine/fused/aligned") == (bench.name in skewed)

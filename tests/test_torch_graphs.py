@@ -1,6 +1,7 @@
-"""Port parity, host substrate: CSR generation, FineProblem arrays and the
-block-diagonal packer equal the JAX package's, field by field and dtype
-included (exact equality: every output is an integer)."""
+"""Port parity, graph substrate: CSR generation, FineProblem arrays, the
+block-diagonal packer and the imbalance statistics equal the JAX package's,
+field by field and dtype included (exact equality: every output is an
+integer, and every float of the statistics is taken from exact integers)."""
 
 import dataclasses
 
@@ -11,10 +12,12 @@ import torch
 import repro.api as ra
 import repro.configs as rc
 import repro.core as rcore
+import repro.errors as rerr
 import repro.graphs as rg
 import repro_torch.api as ta
 import repro_torch.configs as tc
 import repro_torch.core as tcore
+import repro_torch.errors as terr
 import repro_torch.graphs as tg
 from _torch_parity import assert_same, small_pairs, torch_graph
 
@@ -52,7 +55,7 @@ def test_buckets_and_imbalance_stats_agree():
         for chunk in (64, 256):
             assert tuple(ta.bucket_for(gt, chunk=chunk)) == tuple(ra.bucket_for(gr, chunk=chunk))
         assert ta.bucket_str(ta.bucket_for(gt)) == ra.cache.bucket_str(ra.bucket_for(gr))
-        assert dataclasses.asdict(tg.imbalance_stats(gt)) == dataclasses.asdict(
+        assert dataclasses.asdict(tg.imbalance_stats(gt, device="cpu")) == dataclasses.asdict(
             rg.imbalance_stats(gr)
         )
 
@@ -79,6 +82,99 @@ def test_pack_problems_matches_field_by_field(layout):
     )
     for f in pr.problem._fields:
         assert_same(getattr(pr.problem, f), getattr(pt.problem, f), f"{layout}.{f}")
+
+
+def _edge_case_graphs():
+    """name -> (member graphs, pack keywords): the shapes a pack meets at its
+    edges (0-based edges in; ``from_edges`` makes them 1-based)."""
+    # Vertex 3 isolated, vertices 7 and 8 with no out-neighbours (the last
+    # rows empty), vertex 8 isolated altogether.
+    isolated = rg.from_edges(8, np.array([[0, 1], [0, 4], [1, 4], [4, 5], [1, 6]]), "isolated")
+    one_edge = rg.from_edges(2, np.array([[0, 1]]), "one-edge")
+    # 64 edges on 12 vertices: fills a (slot_n=12, slot_nnz=64) slot exactly.
+    full = rg.from_edges(12, np.array([(a, b) for a in range(12) for b in range(a + 1, 12)])[:64], "full")
+    empty = rg.from_edges(6, np.zeros((0, 2), np.int64), "empty")
+    kw = dict(slot_n=12, slot_nnz=64, chunk=64)
+    return {
+        "isolated-vertices-trailing-empty-row": ([isolated, one_edge], dict(kw, slots=2)),
+        "one-edge": ([one_edge], dict(kw, slots=1)),
+        "members-fill-slot": ([full, full], dict(kw, slots=2)),
+        "empty-slot-between-members": ([isolated, empty, full], dict(kw, slots=4)),
+        "empty-member": ([empty, one_edge, isolated], dict(kw, slots=3)),
+    }
+
+
+@pytest.mark.parametrize("case", list(_edge_case_graphs()))
+def test_prepare_and_pack_edge_cases_match_reference(case):
+    graphs, kw = _edge_case_graphs()[case]
+    for g in graphs:
+        pr = rcore.prepare_fine(g, chunk=kw["chunk"])
+        pt = tcore.prepare_fine(torch_graph(g), chunk=kw["chunk"], device="cpu")
+        for f in pr._fields:
+            assert_same(getattr(pr, f), getattr(pt, f), f"{g.name}.{f}")
+    for layout in ("aligned", "contig"):
+        pr = rg.pack_problems(graphs, layout=layout, **kw)
+        pt = tg.pack_problems([torch_graph(g) for g in graphs], layout=layout, device="cpu", **kw)
+        assert pt.edge_ranges == pr.edge_ranges, layout
+        for f in pr.problem._fields:
+            assert_same(getattr(pr.problem, f), getattr(pt.problem, f), f"{layout}.{f}")
+
+
+def _symmetric(csr_graph, g):
+    """``g``'s edges in both directions as one valid CSR (rows ascend, no
+    self-loop, no duplicate within a row): the misuse of handing a
+    symmetric CSR where an upper-triangular one is due."""
+    pairs = np.concatenate([g.edge_list(), g.edge_list()[:, ::-1]]).astype(np.int64)
+    pairs = pairs[np.lexsort((pairs[:, 1], pairs[:, 0]))]
+    rowptr = np.zeros(g.n + 1, np.int64)
+    rowptr[1:] = np.cumsum(np.bincount(pairs[:, 0], minlength=g.n + 1)[1:])
+    return csr_graph(g.n, rowptr, pairs[:, 1].astype(np.int32), name=g.name + "-sym")
+
+
+@pytest.mark.parametrize("entry", ["prepare_fine", "aligned", "contig", "session"])
+def test_symmetric_csr_is_refused_like_reference(entry):
+    gr, _ = small_pairs()[0]
+    kw = dict(slot_n=128, slot_nnz=2048, slots=2, chunk=64)
+    ref, port = _symmetric(rg.CSRGraph, gr), _symmetric(tg.CSRGraph, gr)
+
+    def run(core, graphs, api, g, **dev):
+        if entry == "prepare_fine":
+            return core.prepare_fine(g, chunk=64, **dev)
+        if entry == "session":
+            return api.Session(**dev).solve([api.TrussQuery.decompose(g)])
+        return graphs.pack_problems([g], layout=entry, **kw, **dev)
+
+    if entry == "session":  # the resilience runner quarantines the query
+        with pytest.raises(rerr.QueryFailedError) as want:
+            run(rcore, rg, ra, ref)
+        with pytest.raises(terr.QueryFailedError) as got:
+            run(tcore, tg, ta, port, device="cpu")
+        assert isinstance(want.value.cause, rerr.InvalidGraphError)
+        assert isinstance(got.value.cause, terr.InvalidGraphError)
+        assert got.value.cause.kind == "not_upper"
+        assert got.value.attempts == want.value.attempts
+    else:
+        with pytest.raises(rerr.InvalidGraphError):
+            run(rcore, rg, ra, ref)
+        with pytest.raises(terr.InvalidGraphError, match="upper triangular") as got:
+            run(tcore, tg, ta, port, device="cpu")
+        rows = port.row_of_edge()
+        first_low = int(rows[port.colidx <= rows][0])  # rows ascend in edge order
+        assert (got.value.kind, got.value.row) == ("not_upper", first_low)
+
+
+@pytest.mark.parametrize("name", ["rmat-12", "ba-6k", "edge-cases"])
+def test_imbalance_stats_and_work_equal_reference(name):
+    if name == "edge-cases":
+        graphs = [g for gs, _ in _edge_case_graphs().values() for g in gs]
+    else:
+        graphs = [next(b for b in rc.BENCH_GRAPHS if b.name == name).build()]
+    for gr in graphs:
+        gt = torch_graph(gr)
+        got = dataclasses.asdict(tg.imbalance_stats(gt, device="cpu"))
+        assert got == dataclasses.asdict(rg.imbalance_stats(gr)), gr.name
+        assert_same(rg.coarse_task_work(gr), tg.coarse_task_work(gt, device="cpu"), gr.name)
+        assert_same(rg.fine_task_work(gr), tg.fine_task_work(gt, device="cpu"), gr.name)
 
 
 def test_pack_rejects_oversized_member_like_reference():

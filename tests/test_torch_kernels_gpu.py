@@ -63,6 +63,33 @@ def test_kernel_on_aligned_pack_with_pad_lanes_between_rows(cuda):
         assert np.array_equal(got[a:b].cpu().numpy(), support_numpy(g)), g.name
 
 
+@pytest.mark.parametrize("which", ["small", "rmat-12"])
+def test_graph_preparation_on_the_card_equals_the_cpu(cuda, which):
+    """prepare_fine, both packs and the imbalance statistics, built on the
+    card, equal the CPU's field by field (the CPU's are held to the
+    reference by tests/test_torch_graphs.py)."""
+    from repro_torch.configs import BENCH_GRAPHS
+
+    if which == "small":
+        gs = [f() for f in GRAPHS[:3]]
+    else:
+        gs = [next(b for b in BENCH_GRAPHS if b.name == which).build()]
+    for g in gs:
+        on_card, on_cpu = prepare_fine(g, chunk=64, device=cuda), prepare_fine(g, chunk=64, device="cpu")
+        for f, a, c in zip(on_card._fields, on_card, on_cpu):
+            assert a.is_cuda and a.dtype == torch.int32 and torch.equal(a.cpu(), c), (g.name, f)
+        assert tg.imbalance_stats(g, device=cuda) == tg.imbalance_stats(g, device="cpu"), g.name
+    b = [bucket_for(g, chunk=64) for g in gs]
+    kw = dict(slot_n=max(x.n_pad for x in b), slot_nnz=max(x.nnz_pad for x in b),
+              slots=len(gs) + 1, chunk=64)
+    for layout in ("aligned", "contig"):
+        on_card = tg.pack_problems(gs, layout=layout, device=cuda, **kw)
+        on_cpu = tg.pack_problems(gs, layout=layout, device="cpu", **kw)
+        assert on_card.edge_ranges == on_cpu.edge_ranges
+        for f, a, c in zip(on_card.problem._fields, on_card.problem, on_cpu.problem):
+            assert a.is_cuda and torch.equal(a.cpu(), c), (layout, f)
+
+
 def _support_case(name, cuda):
     """(problem, window, alive) of one edge case of the support kernel."""
     if name == "split_hub":  # every clique lane's shorter row exceeds SPLIT_ROW
