@@ -91,11 +91,17 @@ Phases (any failure exits non-zero):
    enumeration), then two balanced batches at each width 1, 16 and 256,
    each update bit for bit equal to a from-scratch decompose on
    ``fine/pallas/aligned``, every edge whose trussness changed inside the
-   frontier (recomputed by a full enumeration), with its wall and spans;
+   frontier (recomputed by a full enumeration), with its wall, spans and
+   bytes copied each way (the first and the warm batch of each width
+   apart), the first batch's delta and frontier on the card held field
+   by field against ``device="cpu"``'s;
    ``fused_level_cuda``'s first level and ``support_fine_cuda`` on
    ``alive | frozen-live`` against their plain versions on two updates'
    lowered inputs (the first width-256 batch, the first width-1 batch);
-   8 streams' updates on one session coalescing into one dispatch; a
+   8 streams' updates on one session coalescing into one dispatch, then
+   their ``submit_update`` timed alone and while another session's
+   ``fine/pallas/aligned`` replay holds the card (these two rounds'
+   launches are printed apart, not counted); a
    checkpoint restored on the card that continues identically without a
    full enumeration; ``TrussService(backend="pallas")``'s
    ``submit_stream`` and ``open_stream`` equal to the stream.  The
@@ -180,7 +186,8 @@ Phases (any failure exits non-zero):
    ``trussness_numpy``; the wall (with the capture), trips and
    readbacks, and a warm repeat; the batch through a fresh traced
    session, cold then warm, split by span (``plan``, ``pack``,
-   ``compile``, ``dispatch``, ``unpack``, outside), its answers equal to
+   ``compile``, ``dispatch``, ``unpack``, outside; the bytes the unpack
+   and the whole solve read back), its answers equal to
    the first session's and ``support_fine_cuda`` once a trip in each run
    (these launches are not the main path's count); the submit latency as
    in phase 12 (c); then the graph peel beside the eager loop's split as
@@ -212,6 +219,15 @@ runs phase 1, then the packs, span splits and submit latencies of phase 12
 (c) (rmat-15) and phase 13 (road-512) alone, with the ``repro_torch`` under
 ``DIR``, and prints them as one ``prep`` JSON line: for comparing two
 trees' graph preparation in one session.  No kernel check, no result line.
+
+    python3 chip_smoke.py --stream-only [--src DIR]
+
+runs phase 1, then phase 9's stream updates (the span split by width,
+first and warm, the bytes copied each way, the card's delta and frontier
+against the CPU's where the tree builds them on a device) and its
+coalesced, lone and concurrent ``submit_update`` rounds, with the
+``repro_torch`` under ``DIR``, and prints them as one ``stream`` JSON
+line.  No kernel check, no result line.
 
     python3 chip_smoke.py --support-only --sets FILE [--src DIR]
 
@@ -813,25 +829,36 @@ def phase_peel_split(torch, g, bucket, tag: str, session_trips: int | None = Non
     return p, st, eager[3]
 
 
-class HostToDevice:
-    """Bytes copied from host tensors to the card through ``Tensor.to``,
-    ``Tensor.cuda`` and ``Tensor.copy_`` while :meth:`run` runs (every way
-    the port lifts a host array)."""
+class Copies:
+    """Bytes copied between the host and the card through ``Tensor.to``,
+    ``Tensor.cuda``, ``Tensor.cpu`` and ``Tensor.copy_`` while :meth:`run`
+    runs (every way the port lifts a host array or reads one back): to the
+    card, a count and a sum; to the host, each copy with the host time it
+    started (to place it in a span)."""
 
     def __init__(self):
-        self.bytes = 0
+        self.bytes = 0  # host to card
         self.copies = 0
+        self.reads: list[tuple[float, int]] = []  # card to host: (perf_counter s, bytes)
+
+    def read_bytes(self, lo: float = float("-inf"), hi: float = float("inf")) -> int:
+        """Bytes read back by copies that started in ``[lo, hi)``."""
+        return sum(n for t, n in self.reads if lo <= t < hi)
 
     def run(self, torch, fn):
-        orig = {name: getattr(torch.Tensor, name) for name in ("to", "cuda", "copy_")}
+        orig = {name: getattr(torch.Tensor, name) for name in ("to", "cuda", "cpu", "copy_")}
 
         def counted(name):
             def method(t, *args, **kwargs):
+                t0 = time.perf_counter()
                 out = orig[name](t, *args, **kwargs)
                 src = args[0] if name == "copy_" else t
+                nbytes = src.numel() * src.element_size()
                 if out.is_cuda and not src.is_cuda:
-                    self.bytes += src.numel() * src.element_size()
+                    self.bytes += nbytes
                     self.copies += 1
+                elif src.is_cuda and not out.is_cuda:
+                    self.reads.append((t0, nbytes))
                 return out
             return method
 
@@ -855,7 +882,7 @@ def check_pack(torch, tag: str, graphs, bucket, slots: int = 8) -> dict:
         return pack_problems(graphs, slot_n=bucket.n_pad, slot_nnz=bucket.nnz_pad, slots=slots,
                              chunk=256, layout="aligned", device=device)
 
-    h2d = HostToDevice()
+    h2d = Copies()
     card = h2d.run(torch, lambda: pack("cuda"))
     cpu = pack("cpu")
     if card.edge_ranges != cpu.edge_ranges:
@@ -897,7 +924,9 @@ def span_split(torch, tag: str, g, want, backend: str, counts, trips: int | None
     must be one fused launch a level step (= the decompose's levels) and
     no support launch on ``fine/fused/aligned``, or ``trips`` support
     launches (the batch's trips) and no fused launch on
-    ``fine/pallas/aligned``.  Returns both runs' ms."""
+    ``fine/pallas/aligned``.  Each run also counts the bytes read back
+    from the card, by the unpack (the copies made inside its span) and by
+    the whole solve.  Returns both runs' ms and MB."""
     from repro_torch.api import Session
     from repro_torch.examples.tracing import SPANS, traced_solve
 
@@ -906,11 +935,15 @@ def span_split(torch, tag: str, g, want, backend: str, counts, trips: int | None
     for run in ("cold", "warm"):
         fused0, support0 = counts.fused, counts.support
         levels0 = session.obs.metrics.value("peel_fused_levels")
+        copies = Copies()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        results, _, ms = counts.run(lambda: traced_solve(session, rmat15_queries(g)))
+        results, events, ms = copies.run(
+            torch, lambda: counts.run(lambda: traced_solve(session, rmat15_queries(g))))
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
+        (unpack,) = [e for e in events if e["ph"] == "X" and e["name"] == "unpack"]
+        unpack_mb = copies.read_bytes(unpack["ts"] / 1e6, (unpack["ts"] + unpack["dur"]) / 1e6) / 1e6
         fused, support = counts.fused - fused0, counts.support - support0
         level_steps = int(session.obs.metrics.value("peel_fused_levels") - levels0)
         for name, a, b in zip(QUERIES, results, want):
@@ -933,8 +966,10 @@ def span_split(torch, tag: str, g, want, backend: str, counts, trips: int | None
         log(f"{tag} span split ({run}), {backends}: " + ", ".join(
             f"{s} {ms[s]:.2f}" for s in SPANS + ("outside",)) + f" ms; wall {wall:.2f} ms; "
             f"fused_level_cuda launches {fused}, support_fine_cuda launches {support}; "
-            f"0 retries, 0 fallbacks; answers as expected")
-        out[run] = {**{s: ms[s] for s in SPANS + ("outside",)}, "wall": wall}
+            f"0 retries, 0 fallbacks; answers as expected; unpack read back {unpack_mb:.3f} MB, "
+            f"the solve {copies.read_bytes() / 1e6:.3f} MB in {len(copies.reads)} copies")
+        out[run] = {**{s: ms[s] for s in SPANS + ("outside",)}, "wall": wall,
+                    "unpack_mb": unpack_mb, "read_mb": copies.read_bytes() / 1e6}
     return out
 
 
@@ -1509,7 +1544,7 @@ def phase_engine(torch, g, pallas_futs, smi) -> None:
 
 
 STREAM_WIDTHS = (1, 16, 256)  # the reference stream_bench's batch widths
-STREAM_BATCHES = 2  # per width
+STREAM_BATCHES = 2  # per width: the first, then a warm one
 # The update's top-level spans, in order (peel-level spans nest in dispatch).
 STREAM_SPANS = ("stream.delta", "stream.triangles", "stream.frontier", "plan", "pack", "compile",
                 "dispatch", "device-wait", "unpack")
@@ -1575,10 +1610,13 @@ def scratch_trussness(scratch, graphs):
     return [r.trussness for r in scratch.solve([TrussQuery.decompose(x) for x in graphs])]
 
 
-def independent_frontier(g_old, t_old, batch):
+def independent_frontier(torch, g_old, t_old, batch, *, vs_cpu: str | None = None):
     """The update's delta, its frontier by a full enumeration of the union
     graph on the card (not the session's cache), and the carried
-    trussness on the new graph's edges."""
+    trussness on the new graph's edges.  With ``vs_cpu`` (a tag for the
+    error), the delta and the frontier are held field by field against
+    ``device="cpu"``'s from the same committed state (the CPU's closure is
+    given the card's union triangles, whose order phase 9 checks)."""
     import numpy as np
 
     from repro_torch.stream import apply_batch, compute_frontier
@@ -1588,6 +1626,24 @@ def independent_frontier(g_old, t_old, batch):
     carry = np.full(delta.new_graph.nnz, 2, np.int32)
     shared = delta.new2old >= 0
     carry[shared] = t_old[delta.new2old[shared]]
+    if vs_cpu is not None:
+        from repro_torch.stream.frontier import edge_triangles, union_graph
+
+        d_cpu = apply_batch(g_old, batch, device="cpu")
+        union = union_graph(delta)
+        tri_keys = union[1][edge_triangles(union[0], device="cuda")].cpu()
+        f_cpu = compute_frontier(t_old, d_cpu, tri_keys=tri_keys, device="cpu")
+        pairs = [(f"delta {f}", a, b) for f, a, b in zip(delta.tensors._fields, delta.tensors,
+                                                          d_cpu.tensors)]
+        pairs += [(f"frontier {f}", a, b) for f, a, b in zip(fr.tensors._fields, fr.tensors,
+                                                             f_cpu.tensors)]
+        for what, a, b in pairs:
+            if not (a.is_cuda and a.dtype == b.dtype and torch.equal(a.cpu(), b)):
+                raise AssertionError(f"{vs_cpu}: the card's {what} differs from device='cpu''s")
+        if (fr.rounds, fr.num_triangles, fr.size) != (f_cpu.rounds, f_cpu.num_triangles, f_cpu.size):
+            raise AssertionError(f"{vs_cpu}: the card's closure differs from device='cpu''s")
+        log(f"{vs_cpu}: the card's delta ({len(pairs) - 3} fields) and frontier (3 fields, "
+            f"{fr.rounds} rounds, {fr.num_triangles} triangles) == device='cpu''s")
     return delta, fr, carry
 
 
@@ -1679,6 +1735,195 @@ def span_ms(tracer) -> dict:
     return out
 
 
+def stream_widths(torch, g, dec, counts, *, hold: bool):
+    """One stream on ``Session(max_batch=8)`` (auto rule) seeded by an empty
+    update, then ``STREAM_BATCHES`` balanced batches at each width: each
+    update bit for bit a from-scratch decompose, changed only inside its
+    frontier, timed, split by span and its bytes copied each way counted;
+    the first batch of each width's delta and frontier held against
+    ``device="cpu"``'s where the tree's ``apply_batch`` takes a device
+    (an older tree's, run through ``--src``, may not).  With ``hold``, the lowered peel inputs of
+    ``HELD_UPDATES``.  Returns the stream, the update records and what was
+    held."""
+    import contextlib
+    import inspect
+
+    import numpy as np
+
+    from repro_torch.api import Session
+    from repro_torch.stream import ENUM_COUNTS, EdgeBatch, apply_batch
+
+    on_device = "device" in inspect.signature(apply_batch).parameters
+    session = Session(max_batch=8, device="cuda", trace=True)
+    scratch = Session(max_batch=1, device="cuda", backend="fine/pallas/aligned")
+    stream = session.open_stream(g, trussness=dec.trussness)
+    tracer = session.obs.tracer
+    full0 = ENUM_COUNTS["full"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    seed_res = counts.run(lambda: stream.update(EdgeBatch.of()))  # seeds the triangle cache
+    seed_ms = (time.perf_counter() - t0) * 1e3
+    if seed_res.dispatches or ENUM_COUNTS["full"] != full0 + 1:
+        raise AssertionError("the empty seeding update dispatched or did not enumerate once")
+    log(f"phase9 stream opened on Session(max_batch=8), auto rule; empty update (the one full "
+        f"enumeration + an empty frontier): {seed_ms:.1f} ms, {stream.stats()['cached_triangles']} "
+        f"cached triangles, 0 dispatches; spans " + ", ".join(
+            f"{k} {v:.1f} ms" for k, v in span_ms(tracer).items()))
+    rng = np.random.default_rng(16)
+    held = {}  # (width, batch) -> the update's lowered peel arguments and executor
+    records = []
+    for width in STREAM_WIDTHS:
+        for i, batch in enumerate(balanced_batches(rng, stream.graph, width, STREAM_BATCHES)):
+            g_old, t_old = stream.graph, stream.trussness
+            tag = f"phase9 width {width} batch {i}"
+            delta, fr, carry = independent_frontier(
+                torch, g_old, t_old, batch, vs_cpu=tag if on_device and i == 0 else None)
+            keep = hold and (width, i) in HELD_UPDATES
+            exe = executor_of(session, delta.new_graph, "fine/fused/aligned", built=False)
+            tracer.clear()
+            copies = Copies()
+            with PeelCapture(exe) if keep else contextlib.nullcontext() as cap:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                res = copies.run(torch, lambda b=batch: counts.run(lambda: stream.update(b)))
+                torch.cuda.synchronize()
+                wall_ms = (time.perf_counter() - t0) * 1e3
+            spans = span_ms(tracer)
+            want = scratch_trussness(scratch, [delta.new_graph])[0]
+            check_update(res, fr, carry, want, tag)
+            if keep:
+                if len(cap.calls) != 1:
+                    raise AssertionError(f"the width-{width} update made {len(cap.calls)} peels")
+                held[width, i] = (cap.calls[0], exe)
+            records.append(dict(width=width, batch=i, wall_ms=wall_ms, spans=spans,
+                                h2d_mb=copies.bytes / 1e6, d2h_mb=copies.read_bytes() / 1e6,
+                                frontier=res.frontier_size, dispatches=res.dispatches))
+            log(f"{tag}: +{res.num_inserts}/-{res.num_deletes}, frontier "
+                f"{res.frontier_size} ({res.frontier_frac:.4f} of {res.num_edges}), closure rounds "
+                f"{fr.rounds}, union triangles {fr.num_triangles}, dispatches {res.dispatches}; "
+                f"update wall {wall_ms:.1f} ms = " + ", ".join(
+                    f"{k} {v:.1f} ms" for k, v in spans.items())
+                + f", outside spans {wall_ms - sum(spans.values()):.1f} ms; "
+                f"{copies.bytes / 1e6:.3f} MB to the card in {copies.copies} copies, "
+                f"{copies.read_bytes() / 1e6:.3f} MB read back in {len(copies.reads)}; "
+                "== from-scratch fine/pallas/aligned")
+    cols = ["wall"] + [k for k in STREAM_SPANS if k not in ("compile", "device-wait")]
+
+    def value(r, k):
+        return r["wall_ms"] if k == "wall" else r["spans"][k]
+
+    for width in STREAM_WIDTHS:
+        first, *warm = [r for r in records if r["width"] == width]
+        split = ", ".join(f"{k} {value(first, k):.1f} [" + "/".join(
+            f"{value(r, k):.1f}" for r in warm) + "]" for k in cols)
+        log(f"phase9 width {width} split (ms), first [warm]: {split}; MB to the card "
+            f"{first['h2d_mb']:.3f} [" + "/".join(f"{r['h2d_mb']:.3f}" for r in warm) + "]")
+    if stream.metrics.value("stream_enumerations", kind="full") != 1:
+        raise AssertionError("the stream enumerated all triangles more than once")
+    if counts.fused == 0:
+        raise AssertionError("the stream updates never launched fused_level_cuda")
+    log(f"phase9 stream: {stream.stats()}; fused_level_cuda launches {counts.fused}")
+    return stream, records, held
+
+
+def stream_coalesced(torch, g, dec, counts) -> dict:
+    """Eight streams' updates on one session coalescing into one dispatch;
+    then one more width-16 batch a stream, each ``submit_update`` timed
+    alone, and one more while another session's ``fine/pallas/aligned``
+    solve of the rmat-15 batch replays its trip graph (which holds the
+    card: every device stage of a submit waits for it).  Every update
+    equal to a from-scratch decompose.  Only the coalesced dispatch's
+    launches join ``counts`` (the phase's launches, as before these
+    timings); the timed rounds' are printed apart.  Returns the submit
+    latencies."""
+    import threading
+
+    import numpy as np
+
+    from repro_torch.api import Session
+
+    co = Session(max_batch=8, device="cuda")
+    scratch = Session(max_batch=8, device="cuda", backend="fine/pallas/aligned")
+    streams = [co.open_stream(g, trussness=dec.trussness) for _ in range(8)]
+
+    def batches(seed):
+        return [balanced_batches(np.random.default_rng(seed + i), s.graph, 16, 1)[0]
+                for i, s in enumerate(streams)]
+
+    def resolve(pend, what):
+        results = [p.result() for p in pend]
+        wants = scratch_trussness(scratch, [s.graph for s in streams[: len(pend)]])
+        for i, (r, w) in enumerate(zip(results, wants)):
+            if not np.array_equal(r.trussness, w):
+                raise AssertionError(f"{what}: stream {i} != its from-scratch decompose")
+        return results
+
+    before = co.device_dispatches
+    t0 = time.perf_counter()
+    pend = [s.submit_update(b) for s, b in zip(streams, batches(100))]
+    counts.run(co.flush)
+    results = resolve(pend, "coalesced")
+    co_ms = (time.perf_counter() - t0) * 1e3
+    if co.device_dispatches != before + 1:
+        raise AssertionError(f"8 stream updates made {co.device_dispatches - before} dispatches")
+    log(f"phase9 8 streams on one Session(max_batch=8): submit_update x 8 + flush = 1 dispatch; "
+        f"{co_ms:.1f} ms (8 full enumerations included); frontiers "
+        f"{[r.frontier_size for r in results]}; each == from-scratch")
+
+    def timed_submits(pairs, keep_going=lambda: True):
+        out, pend = [], []
+        for s, b in pairs:
+            if not keep_going():
+                break
+            t0 = time.perf_counter()
+            pend.append(s.submit_update(b))
+            out.append((t0, (time.perf_counter() - t0) * 1e3))
+            time.sleep(1e-3)
+        return out, pend
+
+    timed = LaunchCounts()
+    alone, pend = timed_submits(zip(streams, batches(200)))
+    timed.run(co.flush)
+    resolve(pend, "alone")
+    alone_ms = sorted(ms for _, ms in alone)
+    solver = Session(max_batch=8, device="cuda", backend="fine/pallas/aligned", trace=True)
+    first = solver.solve(rmat15_queries(g))  # captures the trip graph
+    if not np.array_equal(first[0].trussness, dec.trussness):
+        raise AssertionError("the replaying session's decompose != phase 5's")
+    solver.obs.tracer.clear()
+    box = {}
+
+    def solve():
+        try:
+            box["results"] = solver.solve(rmat15_queries(g))
+        except BaseException as e:  # re-raised on this thread
+            box["error"] = e
+
+    pairs = list(zip(streams, batches(300)))  # made before the replay starts
+    th = threading.Thread(target=solve)
+    th.start()
+    time.sleep(0.05)  # past the solve's plan and pack (about 15 ms warm), into its replay
+    samples, pend = timed_submits(pairs, th.is_alive)
+    th.join()
+    if "error" in box:
+        raise box["error"]
+    if not np.array_equal(box["results"][0].trussness, dec.trussness):
+        raise AssertionError("the replaying session's second decompose != phase 5's")
+    timed.run(co.flush)
+    resolve(pend, "under a replay")
+    (span,) = [e for e in solver.obs.tracer.events() if e["ph"] == "X" and e["name"] == "dispatch"]
+    lo, hi = span["ts"] / 1e6, (span["ts"] + span["dur"]) / 1e6
+    during = sorted(ms for t0, ms in samples if lo <= t0 < hi)
+    log(f"phase9 submit_update latency (width 16, warm streams): alone median "
+        f"{alone_ms[len(alone_ms) // 2]:.2f} ms, max {alone_ms[-1]:.2f} ms (8 submits); while "
+        f"another session's fine/pallas/aligned replay is in its {span['dur'] / 1e3:.2f} ms "
+        f"dispatch: {len(during)} of {len(samples)} submits started inside it: "
+        + (", ".join(f"{ms:.2f}" for ms in during) + " ms" if during else "none")
+        + f"; every update == from-scratch; these rounds' launches (not the phase's): "
+        f"fused_level_cuda {timed.fused}, support_fine_cuda {timed.support}")
+    return {"alone_ms": alone_ms, "replay_ms": span["dur"] / 1e3, "during_ms": during}
+
+
 def phase_stream(torch, g, dec) -> dict:
     """Streaming K-truss on the card at full width (rmat-15); returns the
     stream path's launches of the two peel kernels."""
@@ -1687,12 +1932,12 @@ def phase_stream(torch, g, dec) -> dict:
 
     import numpy as np
 
-    from repro_torch.api import Session, bucket_for
+    from repro_torch.api import bucket_for
     from repro_torch.core import prepare_fine
     from repro_torch.kernels import support_fine_cuda
     from repro_torch.resilience import restore_session
     from repro_torch.service import TrussService
-    from repro_torch.stream import ENUM_COUNTS, EdgeBatch, edge_triangles
+    from repro_torch.stream import ENUM_COUNTS, edge_triangles
 
     counts = LaunchCounts()
     t_phase = time.perf_counter()
@@ -1720,81 +1965,16 @@ def phase_stream(torch, g, dec) -> dict:
     del p1, sup, tri, cpu_tri
 
     # 2. One stream on the auto rule, balanced batches by width.
-    session = Session(max_batch=8, device="cuda", trace=True)
-    scratch = Session(max_batch=1, device="cuda", backend="fine/pallas/aligned")
-    stream = session.open_stream(g, trussness=dec.trussness)
-    tracer = session.obs.tracer
-    full0 = ENUM_COUNTS["full"]
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    seed_res = counts.run(lambda: stream.update(EdgeBatch.of()))  # seeds the triangle cache
-    seed_ms = (time.perf_counter() - t0) * 1e3
-    if seed_res.dispatches or ENUM_COUNTS["full"] != full0 + 1:
-        raise AssertionError("the empty seeding update dispatched or did not enumerate once")
-    log(f"phase9 stream opened on Session(max_batch=8), auto rule; empty update (the one full "
-        f"enumeration + an empty frontier): {seed_ms:.1f} ms, {stream.stats()['cached_triangles']} "
-        f"cached triangles, 0 dispatches; spans " + ", ".join(
-            f"{k} {v:.1f} ms" for k, v in span_ms(tracer).items()))
-    rng = np.random.default_rng(16)
-    held = {}  # (width, batch) -> the update's lowered peel arguments and executor
-    for width in STREAM_WIDTHS:
-        for i, batch in enumerate(balanced_batches(rng, stream.graph, width, STREAM_BATCHES)):
-            g_old, t_old = stream.graph, stream.trussness
-            delta, fr, carry = independent_frontier(g_old, t_old, batch)
-            exe = executor_of(session, delta.new_graph, "fine/fused/aligned", built=False)
-            tracer.clear()
-            with PeelCapture(exe) as cap:
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                res = counts.run(lambda b=batch: stream.update(b))
-                torch.cuda.synchronize()
-                wall_ms = (time.perf_counter() - t0) * 1e3
-            spans = span_ms(tracer)
-            want = scratch_trussness(scratch, [delta.new_graph])[0]
-            check_update(res, fr, carry, want, f"width {width} batch {i}")
-            if (width, i) in HELD_UPDATES:
-                if len(cap.calls) != 1:
-                    raise AssertionError(f"the width-{width} update made {len(cap.calls)} peels")
-                held[width, i] = (cap.calls[0], exe)
-            log(f"phase9 width {width} batch {i}: +{res.num_inserts}/-{res.num_deletes}, frontier "
-                f"{res.frontier_size} ({res.frontier_frac:.4f} of {res.num_edges}), closure rounds "
-                f"{fr.rounds}, union triangles {fr.num_triangles}, dispatches {res.dispatches}; "
-                f"update wall {wall_ms:.1f} ms = " + ", ".join(
-                    f"{k} {v:.1f} ms" for k, v in spans.items())
-                + f", outside spans {wall_ms - sum(spans.values()):.1f} ms; "
-                "== from-scratch fine/pallas/aligned")
-    if stream.metrics.value("stream_enumerations", kind="full") != 1:
-        raise AssertionError("the stream enumerated all triangles more than once")
-    if counts.fused == 0:
-        raise AssertionError("the stream updates never launched fused_level_cuda")
-    log(f"phase9 stream: {stream.stats()}; fused_level_cuda launches {counts.fused}")
+    stream, _, held = stream_widths(torch, g, dec, counts, hold=True)
 
     # 3. The frozen-lane kernels on real updates' lowered inputs.
     window = bucket_for(stream.graph, chunk=256).window
     err = max(hold_frozen_kernels(torch, held[key], window, key) for key in HELD_UPDATES)
     del held
 
-    # 4. Eight streams' updates coalesce into one dispatch.
-    co = Session(max_batch=8, device="cuda")
-    streams = [co.open_stream(g, trussness=dec.trussness) for _ in range(8)]
-    batches = [balanced_batches(np.random.default_rng(100 + i), g, 16, 1)[0] for i in range(8)]
-    before = co.device_dispatches
-    t0 = time.perf_counter()
-    pend = [s.submit_update(b) for s, b in zip(streams, batches)]
-    counts.run(co.flush)
-    results = [p.result() for p in pend]
-    co_ms = (time.perf_counter() - t0) * 1e3
-    if co.device_dispatches != before + 1:
-        raise AssertionError(f"8 stream updates made {co.device_dispatches - before} dispatches")
-    wants = scratch_trussness(Session(max_batch=8, device="cuda", backend="fine/pallas/aligned"),
-                              [s.graph for s in streams])
-    for i, (r, w) in enumerate(zip(results, wants)):
-        if not np.array_equal(r.trussness, w):
-            raise AssertionError(f"coalesced stream {i} != its from-scratch decompose")
-    log(f"phase9 8 streams on one Session(max_batch=8): submit_update x 8 + flush = 1 dispatch; "
-        f"{co_ms:.1f} ms (8 full enumerations included); frontiers "
-        f"{[r.frontier_size for r in results]}; each == from-scratch")
-    del streams, pend, results, co
+    # 4. Eight streams' updates coalesce into one dispatch; submit_update
+    # alone and under another session's trip-graph replay.
+    stream_coalesced(torch, g, dec, counts)
 
     # 5. Checkpoint, restore on the card, continue; the legacy adapter.
     with tempfile.TemporaryDirectory() as tmp:
@@ -1809,7 +1989,7 @@ def phase_stream(torch, g, dec) -> dict:
     if not np.array_equal(ra.trussness, rb.trussness) or ENUM_COUNTS["full"] != full0:
         raise AssertionError("the restored stream diverged or re-enumerated")
     g1, t1 = stream.graph, stream.trussness
-    delta, fr, carry = independent_frontier(g1, t1, b2)
+    delta, fr, carry = independent_frontier(torch, g1, t1, b2)
     r2 = counts.run(lambda: stream.update(b2))
     svc = TrussService(backend="pallas", max_batch=8)
     got = counts.run(lambda: svc.submit_stream(
@@ -1828,6 +2008,24 @@ def phase_stream(torch, g, dec) -> dict:
     log(f"phase9 stream phase {time.perf_counter() - t_phase:.1f}s; stream-path launches: "
         f"fused_level_cuda {counts.fused}, support_fine_cuda {counts.support}")
     return dict(fused=counts.fused, support=counts.support, max_abs_err=err)
+
+
+def stream_only(torch, g, smi, src: Path) -> int:
+    """Phase 9's stream updates alone (the span split by width, first and
+    warm, the bytes copied each way, the card against the CPU where the
+    tree supports it) and the coalesced and concurrent submits, with the
+    ``repro_torch`` that ``--src`` names, for comparing two trees in one
+    session.  Prints one ``stream`` JSON line."""
+    from repro_torch.api import Session, TrussQuery
+
+    dec = Session(max_batch=8, device="cuda").solve([TrussQuery.decompose(g)])[0]
+    counts = LaunchCounts()
+    _, records, _ = stream_widths(torch, g, dec, counts, hold=False)
+    submits = stream_coalesced(torch, g, dec, counts)
+    log(smi)
+    log("stream " + json.dumps({"src": str(src), "updates": records, "submit": submits,
+                                "launches": {"fused": counts.fused, "support": counts.support}}))
+    return 0
 
 
 def resilience_counters() -> dict:
@@ -2486,6 +2684,9 @@ def main(argv: list[str]) -> int:
                     help="run only the graph preparation of phases 12 (c) and 13: the packs "
                          "against the CPU's, their times and bytes, the span splits, the "
                          "submit latencies")
+    ap.add_argument("--stream-only", action="store_true",
+                    help="run only phase 9's stream updates (span split by width, bytes copied, "
+                         "the card against the CPU) and its coalesced and concurrent submits")
     ap.add_argument("--mesh-only", action="store_true",
                     help="time only phases 1, 3, 5 and 11 (the mesh path, on every visible card); "
                          "no kernel check, no result line")
@@ -2522,6 +2723,8 @@ def main(argv: list[str]) -> int:
         return support_only(torch, g, bucket, smi, args.sets)
     if args.prep_only:
         return prep_only(torch, smi, args.src)
+    if args.stream_only:
+        return stream_only(torch, g, smi, args.src)
     if args.mesh_only:
         _, pallas_futs, pallas_wall, _ = phase_pallas_path(torch, g)
         _, fused_futs, _ = phase_fused_main(torch, g, pallas_futs, pallas_wall)

@@ -123,8 +123,7 @@ def build_peel(
     without a card), and with a mesh it must be the mesh's first device
     (``None`` takes it).
     """
-    from ..device import resolve_device
-    from ..distributed.ktruss import canonical_device
+    from ..device import canonical_device, resolve_device
     from ..exec.peel import PeelExecutor
 
     if mesh is None:

@@ -14,8 +14,9 @@ batch:
    advance inside the peel loop; ktruss members retire at their first
    fixed point, kmax/decompose peel to exhaustion, stream members re-peel
    only their frontier against frozen lanes);
-4. **unpack** — each member's edge range is read back into its workload's
-   result type.
+4. **unpack** — what each member returns (its range of the arrays its
+   workload reads, or a scalar) is read back, in one copy with the
+   per-slot counters, into its workload's result type.
 
 The planner is stateless about queues and futures — that is
 :class:`repro_torch.api.Session`'s job.
@@ -32,8 +33,7 @@ import numpy as np
 import torch
 
 from ..core.truss import KTrussResult, TrussDecomposition
-from ..device import resolve_device
-from ..distributed.ktruss import canonical_device
+from ..device import canonical_device, resolve_device
 from ..errors import DeviceError, InvalidGraphError, TrussError
 from ..graphs.pack import pack_problems
 from ..graphs.stats import imbalance_stats
@@ -82,6 +82,10 @@ class QueryState:
     submitted_at: float = dataclasses.field(default_factory=obs_clock.now)
     id: int = dataclasses.field(default_factory=lambda: next(_ids))
     stats: RequestStats = dataclasses.field(default_factory=RequestStats)
+    # stream_update: the member's trussness left on the planner's device by
+    # the unpack, beside the host result (a stream session keeps it as
+    # its committed state, so nothing is copied back to the device).
+    device_result: Optional[torch.Tensor] = None
 
     @property
     def group(self) -> tuple[Bucket, BackendKey]:
@@ -468,24 +472,25 @@ class Planner:
         # Ordinary members stay on the executor's defaults (fully alive,
         # nothing frozen) — zeros here reproduce those defaults exactly.
         alive0 = frozen = frozen_truss = None
-        if any(st.query.workload == "stream_update" for st in queries):
-            # The default alive mask ("every real lane") is a pure function
-            # of the pack's host-side edge ranges, so no device readback.
-            nnzp = packed.problem.nnz_pad
-            alive_np = np.zeros(nnzp, bool)
-            for a, b in packed.edge_ranges:
-                alive_np[a:b] = True
-            frozen_np = np.zeros(nnzp, bool)
-            ft_np = np.zeros(nnzp, np.int32)
-            for st, (a, b) in zip(queries, packed.edge_ranges):
-                if st.query.workload != "stream_update":
-                    continue
-                alive_np[a:b] = st.query.frontier
-                frozen_np[a:b] = ~st.query.frontier
-                ft_np[a:b] = st.query.frozen_truss
-            alive0 = torch.from_numpy(alive_np).to(self.device)
-            frozen = torch.from_numpy(frozen_np).to(self.device)
-            frozen_truss = torch.from_numpy(ft_np).to(self.device)
+        streams = [
+            (st, rng)
+            for st, rng in zip(queries, packed.edge_ranges)
+            if st.query.workload == "stream_update"
+        ]
+        if streams:
+            # Every real lane starts alive: the lanes of the pack's edge
+            # ranges are exactly those holding a column (pad lanes hold 0),
+            # the executor's own default.  A member's frontier and frozen
+            # trussness (numpy, or tensors already on this device) are
+            # written into its range on the device.
+            alive0 = packed.problem.colidx != 0
+            frozen = torch.zeros_like(alive0)
+            frozen_truss = torch.zeros(alive0.shape, dtype=torch.int32, device=self.device)
+            for st, (a, b) in streams:
+                lanes = torch.as_tensor(st.query.frontier, device=self.device)
+                alive0[a:b] = lanes
+                frozen[a:b] = ~lanes
+                frozen_truss[a:b] = torch.as_tensor(st.query.frozen_truss, device=self.device)
 
         # peel() synchronizes (it reads the done flags back when its trip
         # loop has ended; the fused loop after every level), so dt covers
@@ -512,14 +517,27 @@ class Planner:
         dt = obs_clock.now() - t0
 
         with tracer.span("unpack", members=len(queries)):
-            alive = st_dev.alive.cpu().numpy()
-            support = st_dev.support.cpu().numpy()
-            trussness = st_dev.trussness.cpu().numpy()
-            kmax = st_dev.kmax.cpu().numpy()
-            levels = st_dev.levels.cpu().numpy()
-            iters = st_dev.iters.cpu().numpy()
-            edges_alive = st_dev.edges_alive.cpu().numpy()
-            trips = int(st_dev.total_iters)
+            # One batched copy of what the members return: the per-slot
+            # counters (every member's stats and record_peel_batch read
+            # them), then each member's range of the arrays its workload
+            # returns — alive and support for ktruss, trussness for
+            # decompose and stream_update, nothing more for kmax.
+            parts = [st_dev.kmax, st_dev.levels, st_dev.iters, st_dev.edges_alive,
+                     st_dev.total_iters.reshape(1)]
+            for st, (a, b) in zip(queries, packed.edge_ranges):
+                if st.query.workload == "ktruss":
+                    parts += [st_dev.alive[a:b], st_dev.support[a:b]]
+                elif st.query.workload != "kmax":
+                    parts.append(st_dev.trussness[a:b])
+            host = torch.cat([x.to(torch.int32) for x in parts]).cpu().numpy()
+            kmax, levels, iters, edges_alive = host[: 4 * batch.slots].reshape(4, -1)
+            trips = int(host[4 * batch.slots])
+            at = 4 * batch.slots + 1
+
+            def take(m: int) -> np.ndarray:
+                nonlocal at
+                at += m
+                return host[at - m : at].copy()
 
             results: list[Any] = []
             for i, (st, (a, b)) in enumerate(zip(queries, packed.edge_ranges)):
@@ -529,12 +547,12 @@ class Planner:
                 st.stats.dispatch_trips = trips
                 workload = st.query.workload
                 if workload == "ktruss":
-                    member_alive = alive[a:b].copy()
+                    member_alive = take(b - a).astype(bool)
                     results.append(
                         KTrussResult(
                             k=st.query.k,
                             alive=member_alive,
-                            support=support[a:b].copy(),
+                            support=take(b - a),
                             iterations=int(iters[i]),
                             edges_remaining=int(member_alive.sum()),
                         )
@@ -543,10 +561,12 @@ class Planner:
                     results.append(int(kmax[i]))
                 elif workload == "stream_update":
                     # Full member trussness: frontier lanes re-peeled, frozen
-                    # lanes passed through by the peel.
-                    results.append(trussness[a:b].copy())
+                    # lanes passed through by the peel.  The device copy is
+                    # the executor's buffer's, which its next peel reuses.
+                    results.append(take(b - a))
+                    st.device_result = st_dev.trussness[a:b].clone()
                 else:
-                    t = trussness[a:b].copy()
+                    t = take(b - a)
                     results.append(
                         TrussDecomposition(
                             trussness=t,

@@ -14,6 +14,7 @@ import dataclasses
 from typing import Optional, Union
 
 import numpy as np
+import torch
 
 from ..graphs.csr import CSRGraph
 from .registry import BackendKey
@@ -27,6 +28,14 @@ WORKLOADS = ("ktruss", "kmax", "decompose", "stream_update")
 PLACEMENTS = ("auto", "replicated", "sharded")
 
 
+def _lanes(a, dtype):
+    """A per-edge array as ``dtype``: a tensor stays one (on its device),
+    anything else becomes numpy."""
+    if torch.is_tensor(a):
+        return a.to(torch.bool if dtype is bool else torch.int32)
+    return np.asarray(a, dtype)
+
+
 @dataclasses.dataclass(frozen=True)
 class TrussQuery:
     """One declarative K-truss request over one graph.
@@ -37,7 +46,9 @@ class TrussQuery:
       k: target k for ``ktruss``; starting k for every other workload.
       frontier / frozen_truss: ``stream_update`` only — which edges are
         free to re-peel and the known trussness the complement is frozen
-        at (see ``repro_torch.exec.build_peel``'s frozen lanes).
+        at (see ``repro_torch.exec.build_peel``'s frozen lanes): numpy
+        arrays, or tensors on the planner's device (a stream session's,
+        which builds them there); kept as bool / int32.
       backend: force a registry backend (``BackendKey`` or
         ``"formulation/kernel/layout"`` string); ``None`` defers to the
         planner's auto rule (imbalance-statistic keyed).
@@ -51,8 +62,8 @@ class TrussQuery:
     graph: CSRGraph
     workload: str = "ktruss"
     k: int = 3
-    frontier: Optional[np.ndarray] = None
-    frozen_truss: Optional[np.ndarray] = None
+    frontier: Union[np.ndarray, torch.Tensor, None] = None
+    frozen_truss: Union[np.ndarray, torch.Tensor, None] = None
     backend: Union[BackendKey, str, None] = None
     placement: str = "auto"
     deadline_s: Optional[float] = None
@@ -74,13 +85,13 @@ class TrussQuery:
         if self.workload == "stream_update":
             if self.frontier is None or self.frozen_truss is None:
                 raise ValueError("stream_update requires frontier= and frozen_truss=")
-            frontier = np.asarray(self.frontier, bool)
-            frozen = np.asarray(self.frozen_truss, np.int32)
+            frontier = _lanes(self.frontier, bool)
+            frozen = _lanes(self.frozen_truss, np.int32)
             nnz = self.graph.nnz
-            if frontier.shape != (nnz,) or frozen.shape != (nnz,):
+            if tuple(frontier.shape) != (nnz,) or tuple(frozen.shape) != (nnz,):
                 raise ValueError(
                     f"frontier/frozen_truss must cover all {nnz} edges, got "
-                    f"{frontier.shape} / {frozen.shape}"
+                    f"{tuple(frontier.shape)} / {tuple(frozen.shape)}"
                 )
             object.__setattr__(self, "frontier", frontier)
             object.__setattr__(self, "frozen_truss", frozen)
@@ -113,8 +124,8 @@ class TrussQuery:
         cls,
         graph: CSRGraph,
         *,
-        frontier: np.ndarray,
-        frozen_truss: np.ndarray,
+        frontier: np.ndarray | torch.Tensor,
+        frozen_truss: np.ndarray | torch.Tensor,
         **opts,
     ) -> "TrussQuery":
         """Frontier-bounded re-peel: the streaming maintenance kernel."""

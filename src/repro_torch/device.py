@@ -4,7 +4,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["resolve_device"]
+__all__ = ["canonical_device", "resolve_device"]
 
 
 def resolve_device(device: str | torch.device | None = None) -> torch.device:
@@ -19,4 +19,13 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
         raise RuntimeError(
             "no CUDA device is available; pass device='cpu' to run on the CPU"
         )
+    return dev
+
+
+def canonical_device(device) -> torch.device:
+    """``device`` with its CUDA index made explicit (``"cuda"`` names the
+    current CUDA device), so that two spellings of one card compare equal."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
     return dev

@@ -28,20 +28,12 @@ import dataclasses
 import torch
 
 from ..core.eager_fine import FineProblem
+from ..device import canonical_device
 from ..errors import InvalidGraphError
 
 __all__ = ["SLOT_AXIS", "SlotMesh", "slot_mesh", "peel_problem_specs", "shard_peel_args"]
 
 SLOT_AXIS = "slots"
-
-
-def canonical_device(device) -> torch.device:
-    """``device`` with its CUDA index made explicit (``"cuda"`` names the
-    current CUDA device), so that two spellings of one card compare equal."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and dev.index is None:
-        dev = torch.device("cuda", torch.cuda.current_device())
-    return dev
 
 
 @dataclasses.dataclass(frozen=True)

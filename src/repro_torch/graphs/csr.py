@@ -5,7 +5,10 @@ tensor helpers below (:func:`lift_csr`, :func:`edge_rows`,
 :func:`csr_degrees`, :func:`symmetrize_csr`) build the derived arrays on a
 device from a graph's lifted ``rowptr``/``colidx``, once
 :func:`check_upper` has held the graph to the upper-triangular contract
-that the symmetrization relies on.
+that the symmetrization relies on.  A graph built on a device (the stream
+path's) carries its device arrays (:func:`hold_lifted`), and a graph that
+lives on a device alone is a :class:`LiftedCSR`; :func:`lift_csr` copies
+neither again.
 
 Conventions (paper-faithful, see DESIGN.md §2/§4):
 
@@ -29,16 +32,19 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..device import canonical_device
 from ..errors import InvalidGraphError
 
 __all__ = [
     "CSRGraph",
     "DeviceCSR",
+    "LiftedCSR",
     "build_upper_csr",
     "check_upper",
     "csr_degrees",
     "edge_rows",
     "from_edges",
+    "hold_lifted",
     "lift_csr",
     "symmetrize_csr",
     "validate_csr",
@@ -196,6 +202,12 @@ class CSRGraph:
         if validate:
             validate_csr(self.n, self.rowptr, self.colidx, name=self.name)
 
+    def __getstate__(self):
+        # The device copy held for lift_csr (hold_lifted) stays behind.
+        state = dict(self.__dict__)
+        state.pop("_lifted", None)
+        return state
+
     # ------------------------------------------------------------------ #
     # Basic properties
     # ------------------------------------------------------------------ #
@@ -325,12 +337,43 @@ def check_upper(g: CSRGraph) -> None:
         )
 
 
-def lift_csr(g: CSRGraph, device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
+class LiftedCSR(NamedTuple):
+    """An upper-triangular CSR that lives on a device alone: a
+    :class:`CSRGraph`'s ``n``, ``rowptr`` (int64), ``colidx`` (int32) and
+    ``name``, as tensors.  The stream path's union graph is one; nothing
+    reads it back."""
+
+    n: int
+    rowptr: torch.Tensor
+    colidx: torch.Tensor
+    name: str = "graph"
+
+    @property
+    def nnz(self) -> int:
+        return int(self.colidx.shape[0])
+
+
+def hold_lifted(g: CSRGraph, rowptr: torch.Tensor, colidx: torch.Tensor) -> CSRGraph:
+    """Let ``g`` carry its arrays on a device (int64 ``rowptr``/``colidx``
+    equal to its own), so that :func:`lift_csr` there returns them instead
+    of copying the graph again.  Returns ``g``."""
+    object.__setattr__(g, "_lifted", (rowptr, colidx))
+    return g
+
+
+def lift_csr(g: CSRGraph | LiftedCSR, device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
     """``g``'s ``(rowptr, colidx)`` on ``device``, as int64.
 
     The one host-to-device copy of a graph: its arrays go over as stored
-    and are widened on the device.
+    and are widened on the device.  A graph that already carries them
+    there (:func:`hold_lifted`) or lives there (:class:`LiftedCSR`) is not
+    copied.
     """
+    if isinstance(g, LiftedCSR):
+        return g.rowptr.to(device), g.colidx.to(device).long()
+    held = g.__dict__.get("_lifted")
+    if held is not None and canonical_device(held[0].device) == canonical_device(device):
+        return held
 
     def lift(a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(device).long()

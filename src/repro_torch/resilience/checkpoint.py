@@ -229,7 +229,7 @@ def restore_session(path: str, session=None, **session_kwargs):
     )
     if ckpt.tri_keys is not None:
         stream._tri_cache = TriangleCache(
-            ckpt.graph, tri_keys=ckpt.tri_keys, device=stream.device
+            stream.graph, tri_keys=ckpt.tri_keys, device=stream.device
         )
     # The checkpoint's updates_applied meta is the durable lifetime count:
     # it seeds both the auto-checkpoint filename sequence and the restored

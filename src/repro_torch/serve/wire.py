@@ -152,9 +152,14 @@ def encode_query(query) -> dict:
         "backend": str(query.backend) if query.backend is not None else None,
     }
     if query.frontier is not None:
-        d["frontier"] = encode_array(np.asarray(query.frontier, bool))
-        d["frozen_truss"] = encode_array(np.asarray(query.frozen_truss, np.int32))
+        d["frontier"] = encode_array(_host(query.frontier, bool))
+        d["frozen_truss"] = encode_array(_host(query.frozen_truss, np.int32))
     return d
+
+
+def _host(a, dtype) -> np.ndarray:
+    """A query's per-edge array (numpy, or a tensor on any device) as numpy."""
+    return np.asarray(a.cpu() if hasattr(a, "cpu") else a, dtype)
 
 
 def decode_query(d: dict):

@@ -4,13 +4,14 @@ Layers (bottom-up):
 
 * :mod:`.delta`    — CSR delta application: an :class:`EdgeBatch` of
                      inserts/deletes becomes the mutated graph plus edge-id
-                     correspondences (host numpy on sorted edge keys).
+                     correspondences (torch ops on the session's device,
+                     on sorted edge keys).
 * :mod:`.frontier` — the affected-edge closure: the classic trussness
                      drift bounds (±1 per unit update) plus per-triangle
                      level tests bound exactly which edges an update can
                      re-rank; everything else provably keeps its trussness.
-                     Triangle enumeration and the closure are torch ops on
-                     the session's device.
+                     The union graph, triangle enumeration and the
+                     closure are torch ops on the session's device.
 * :mod:`.tricache` — incremental triangle state: the union graph's
                      triangle list cached as edge-key triples on the
                      device, maintained per update by enumerating only the

@@ -28,29 +28,34 @@ Every edge outside the closure provably keeps its trussness, so the
 streaming session may freeze it (the peel's frozen lanes) and re-peel only
 the frontier.
 
-Triangle enumeration and the closure are array work over every edge and
-every triangle of the graph, so they run as torch ops on an explicit
-``device`` (the owning session's; ``None`` means CUDA and raises without
-it).  :func:`union_graph` builds its CSR on the host, and the
-:class:`FrontierResult` fields are numpy arrays.
+Triangle enumeration, the union graph and the closure are array work over
+every edge and every triangle of the graph, so they run as torch ops on
+an explicit ``device`` (the owning session's; ``None`` means CUDA and
+raises without it).  :func:`union_graph` builds the union's CSR there and
+never reads it back (a ``graphs.csr.LiftedCSR``), and the
+:class:`FrontierResult` holds its arrays there, giving the reference's
+numpy fields on first use.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from collections.abc import Mapping
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from ..device import resolve_device
-from ..graphs.csr import CSRGraph
+from ..graphs.csr import CSRGraph, LiftedCSR, edge_rows, lift_csr
 from ..obs import current_registry, get_registry
-from .delta import GraphDelta, edge_keys
+from .delta import GraphDelta, keys_csr, merge_keys
 
 __all__ = [
     "ENUM_COUNTS",
     "FrontierResult",
+    "FrontierTensors",
     "edge_triangles",
     "compute_frontier",
     "union_graph",
@@ -96,7 +101,15 @@ class _EnumCounts(Mapping):
 ENUM_COUNTS = _EnumCounts()
 
 
-@dataclasses.dataclass(frozen=True)
+class FrontierTensors(NamedTuple):
+    """A frontier's per-new-edge arrays on its device."""
+
+    frontier: torch.Tensor  # (new_nnz,) bool
+    lo: torch.Tensor  # (new_nnz,) int32
+    hi: torch.Tensor  # (new_nnz,) int32
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
 class FrontierResult:
     """The affected-edge closure of one update batch.
 
@@ -104,28 +117,33 @@ class FrontierResult:
     outside it keeps its old trussness.  ``lo``/``hi`` are the per-new-edge
     trussness drift bounds the closure used; ``rounds`` is how many
     propagation sweeps reached the fixed point; ``num_triangles`` counts
-    the union graph's triangles (the closure's work set).
+    the union graph's triangles (the closure's work set); ``size`` is the
+    frontier's edge count.  The three arrays live in ``tensors`` on the
+    closure's device; ``frontier``, ``lo`` and ``hi`` are their numpy
+    copies, each read back once when first asked for.
     """
 
-    frontier: np.ndarray  # (new_nnz,) bool
-    lo: np.ndarray  # (new_nnz,) int32
-    hi: np.ndarray  # (new_nnz,) int32
     rounds: int
     num_triangles: int
+    size: int
+    tensors: FrontierTensors
 
-    @property
-    def size(self) -> int:
-        return int(self.frontier.sum())
+    @functools.cached_property
+    def frontier(self) -> np.ndarray:  # (new_nnz,) bool
+        return self.tensors.frontier.cpu().numpy()
+
+    @functools.cached_property
+    def lo(self) -> np.ndarray:  # (new_nnz,) int32
+        return self.tensors.lo.cpu().numpy()
+
+    @functools.cached_property
+    def hi(self) -> np.ndarray:  # (new_nnz,) int32
+        return self.tensors.hi.cpu().numpy()
 
     @property
     def frac(self) -> float:
-        n = int(self.frontier.shape[0])
+        n = int(self.tensors.frontier.shape[0])
         return self.size / n if n else 0.0
-
-
-def _on(a: np.ndarray, dev: torch.device) -> torch.Tensor:
-    """A host int array as an int64 tensor on ``dev``."""
-    return torch.from_numpy(np.ascontiguousarray(a, dtype=np.int64)).to(dev)
 
 
 def _ragged(counts: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -140,10 +158,11 @@ def _ragged(counts: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 
 
 def edge_triangles(
-    g: CSRGraph, *, chunk: int = 8192, device: str | torch.device | None = None
+    g: CSRGraph | LiftedCSR, *, chunk: int = 8192, device: str | torch.device | None = None
 ) -> torch.Tensor:
-    """All triangles of an upper-triangular CSR as a (T, 3) int64 tensor of
-    edge ids on ``device``.
+    """All triangles of an upper-triangular CSR (on the host or, as a
+    ``LiftedCSR``, on the device) as a (T, 3) int64 tensor of edge ids on
+    ``device``.
 
     Triangle (i < j < k) is reported as the edge ids of
     ``[(i,j), (i,k), (j,k)]``.  Same dataflow as the fine-grained support
@@ -163,9 +182,10 @@ def edge_triangles(
     nnz = g.nnz
     if nnz == 0:
         return empty
-    keys = _on(edge_keys(g), dev)
-    cols = _on(g.colidx, dev)
-    row_end = _on(g.rowptr, dev)[_on(g.row_of_edge(), dev)]
+    rowptr, cols = lift_csr(g, dev)
+    rows = edge_rows(rowptr, nnz)
+    keys = rows * (g.n + 1) + cols
+    row_end = rowptr[rows]
     # Row-i suffix after the position of (i, j): candidate edges (i, k).
     # Row v (1-based) spans [rowptr[v-1], rowptr[v]), so rowptr[i] is
     # exactly row i's end.
@@ -186,20 +206,22 @@ def edge_triangles(
     return torch.cat(out) if out else empty
 
 
-def union_graph(delta: GraphDelta) -> tuple[CSRGraph, np.ndarray]:
-    """G_old ∪ inserts, with its sorted edge keys (host numpy).
+def union_graph(delta: GraphDelta) -> tuple[LiftedCSR, torch.Tensor]:
+    """G_old ∪ inserts on the delta's device: its CSR (never read back) and
+    its sorted edge keys.
 
     The union holds every triangle of either snapshot: gained triangles
     (contain an insert, no delete), lost triangles (a delete, no insert)
-    and persistent ones are all subsets of it.
+    and persistent ones are all subsets of it.  Its keys are the old keys
+    merged with the inserts (``delta.merge_keys``, nothing deleted).
     """
+    t = delta.tensors
     n = delta.old_graph.n
-    ukeys = np.union1d(edge_keys(delta.old_graph), edge_keys(delta.new_graph))
-    u = (ukeys // (n + 1)).astype(np.int64)
-    v = (ukeys % (n + 1)).astype(np.int32)
-    rowptr = np.zeros(n + 1, dtype=np.int64)
-    rowptr[1:] = np.cumsum(np.bincount(u, minlength=n + 1)[1:])
-    return CSRGraph(n, rowptr, v, name=delta.old_graph.name + "+union"), ukeys
+    size = t.old_keys.shape[0] + t.inserts.shape[0]
+    ukeys, _, _ = merge_keys(t.old_keys, torch.zeros_like(t.deleted_old), t.inserts, size)
+    rowptr, colidx = keys_csr(ukeys, n)
+    name = delta.old_graph.name + "+union"
+    return LiftedCSR(n, rowptr, colidx.to(torch.int32), name=name), ukeys
 
 
 def _per_member(x: torch.Tensor, op) -> torch.Tensor:
@@ -209,13 +231,22 @@ def _per_member(x: torch.Tensor, op) -> torch.Tensor:
     )
 
 
+def _marked(tri: torch.Tensor, hit: torch.Tensor, size: int) -> torch.Tensor:
+    """(size,) bool: the edges of ``tri`` (T, 3) at the ``hit`` members (a
+    scatter of ``True`` into a spare last lane for the misses, no
+    readback)."""
+    out = torch.zeros(size + 1, dtype=torch.bool, device=tri.device)
+    out[torch.where(hit, tri, size).reshape(-1)] = True
+    return out[:size]
+
+
 def compute_frontier(
     trussness_old,
     delta: GraphDelta,
     *,
     chunk: int = 8192,
     tri_keys=None,
-    union: tuple[CSRGraph, np.ndarray] | None = None,
+    union: tuple[CSRGraph | LiftedCSR, torch.Tensor] | None = None,
     device: str | torch.device | None = None,
 ) -> FrontierResult:
     """Conservative affected-edge closure of ``delta`` (see module doc).
@@ -236,30 +267,30 @@ def compute_frontier(
     Returns a :class:`FrontierResult` over the **new** graph's edges.
     Inserted edges are always in the frontier; an empty batch (or one
     touching no triangles at a relevant level) yields an empty frontier.
-    The closure reads one flag back per propagation round (its exit).
+    The closure reads one flag back per propagation round (its exit), and
+    the frontier's size once.
     """
     dev = resolve_device(device)
-    g_old, g_new = delta.old_graph, delta.new_graph
+    t = delta.tensors
     t_old = torch.as_tensor(trussness_old).to(dev, torch.int64)
-    if t_old.shape[0] != g_old.nnz:
+    if t_old.shape[0] != delta.old_graph.nnz:
         raise ValueError(
-            f"trussness has {t_old.shape[0]} entries, graph has {g_old.nnz}"
+            f"trussness has {t_old.shape[0]} entries, graph has {delta.old_graph.nnz}"
         )
-    union, ukeys_np = union if union is not None else union_graph(delta)
-    nu = union.nnz
-    ukeys = _on(ukeys_np, dev)
-    old_keys, new_keys = _on(edge_keys(g_old), dev), _on(edge_keys(g_new), dev)
+    union, ukeys = union if union is not None else union_graph(delta)
+    ukeys = torch.as_tensor(ukeys).to(dev, torch.int64)
+    nu = ukeys.shape[0]
     nI, nD = delta.num_inserts, delta.num_deletes
 
-    # Union-edge classification + old-trussness lift.
-    is_old = torch.isin(ukeys, old_keys, assume_unique=True)
-    is_new = torch.isin(ukeys, new_keys, assume_unique=True)
-    is_ins = is_new & ~is_old
-    is_del = is_old & ~is_new
+    # Union-edge classification + old-trussness lift: the union is the old
+    # edges and the inserts, so each old edge's lane is a searchsorted.
+    old_u = torch.searchsorted(ukeys, t.old_keys.to(dev))
+    is_ins = torch.zeros(nu, dtype=torch.bool, device=dev)
+    is_ins[torch.searchsorted(ukeys, t.inserts.to(dev))] = True
+    is_del = torch.zeros(nu, dtype=torch.bool, device=dev)
+    is_del[old_u] = t.deleted_old.to(dev)
     t_old_u = torch.zeros(nu, dtype=torch.int64, device=dev)
-    if g_old.nnz:
-        pos = torch.searchsorted(old_keys, ukeys).clamp_(max=g_old.nnz - 1)
-        t_old_u[is_old] = t_old[pos[is_old]]
+    t_old_u[old_u] = t_old
 
     if tri_keys is None:
         tri = edge_triangles(union, chunk=chunk, device=dev)
@@ -270,47 +301,51 @@ def compute_frontier(
     num_tri = int(tri.shape[0])
 
     # Per-union-edge drift bounds (valid for BOTH snapshots' trussness).
-    lo = (t_old_u - nD).clamp_(min=2)
+    lo = torch.where(is_ins, 2, (t_old_u - nD).clamp_(min=2))
     hi = t_old_u + nI
-    lo[is_ins] = 2
     frontier_u = is_ins.clone()
     rounds = 0
     if num_tri:
         tri_has_del = is_del[tri].any(dim=1)
         tri_has_ins = is_ins[tri].any(dim=1)
+        surv = ~tri_has_del
         # Inserted edges: trussness <= 2 + (# surviving triangles through them).
-        surv_cnt = torch.bincount(tri[~tri_has_del].reshape(-1), minlength=nu)
-        hi[is_ins] = 2 + surv_cnt[is_ins]
+        surv_cnt = torch.zeros(nu, dtype=torch.int64, device=dev).index_add_(
+            0, tri.reshape(-1), surv[:, None].expand(-1, 3).reshape(-1).long()
+        )
+        hi = torch.where(is_ins, 2 + surv_cnt, hi)
 
         # min over the OTHER two edges' ceilings, per triangle member.
         relevant = _per_member(hi[tri], torch.minimum) >= lo[tri]
 
         # Seeds: members of gained/lost triangles that pass the level test.
         changed_tri = tri_has_ins ^ tri_has_del  # in exactly one snapshot
-        seed_hit = relevant & changed_tri[:, None] & ~is_del[tri]
-        frontier_u[tri[seed_hit]] = True
+        frontier_u |= _marked(tri, relevant & changed_tri[:, None] & ~is_del[tri], nu)
 
         # Propagation closure over the NEW graph's triangles only (lost
         # triangles were fully accounted as seeds; deleted edges never
         # appear in a surviving triangle, so they cannot spread).
-        surv = ~tri_has_del
-        tri_s, rel_s = tri[surv], relevant[surv]
+        rel_s = relevant & surv[:, None]
         while True:
             rounds += 1
-            in_f = frontier_u[tri_s]  # (Ts, 3)
+            in_f = frontier_u[tri]  # (T, 3)
             add = _per_member(in_f, torch.logical_or) & rel_s & ~in_f
             if not bool(add.any()):
                 break
-            frontier_u[tri_s[add]] = True
+            frontier_u |= _marked(tri, add, nu)
     else:
-        hi[is_ins] = 2
+        hi = torch.where(is_ins, 2, hi)
 
     # Project union-edge quantities onto the new graph's edge ids.
-    sel = is_new
+    new_u = torch.searchsorted(ukeys, t.new_keys.to(dev))
+    frontier = frontier_u[new_u]
     return FrontierResult(
-        frontier=frontier_u[sel].cpu().numpy(),
-        lo=lo[sel].to(torch.int32).cpu().numpy(),
-        hi=hi[sel].to(torch.int32).cpu().numpy(),
         rounds=rounds,
         num_triangles=num_tri,
+        size=int(frontier.sum()),
+        tensors=FrontierTensors(
+            frontier=frontier,
+            lo=lo[new_u].to(torch.int32),
+            hi=hi[new_u].to(torch.int32),
+        ),
     )

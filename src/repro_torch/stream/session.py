@@ -1,10 +1,9 @@
 """StreamingTrussSession: truss maintenance for one mutating graph.
 
 A session owns one evolving graph and its current truss decomposition.
-Each :meth:`update` applies an :class:`~repro_torch.stream.delta.EdgeBatch`
-(host numpy), computes the affected-edge frontier
-(``repro_torch.stream.frontier``, torch ops on the owning api session's
-device), and — only if the frontier is non-empty — submits ONE
+Each :meth:`update` applies an :class:`~repro_torch.stream.delta.EdgeBatch`,
+computes the affected-edge frontier (``repro_torch.stream.frontier``), and
+— only if the frontier is non-empty — submits ONE
 frontier-bounded ``stream_update`` :class:`repro_torch.api.TrussQuery`
 through the owning :class:`repro_torch.api.Session`: the frontier lanes
 start alive, every other edge is frozen at its maintained trussness (the
@@ -27,6 +26,16 @@ recompute:
   restores the old path);
 * deltas themselves are sorted-key merges (``repro_torch.stream.delta``).
 
+Every stage over the graph's edges (the delta, the union graph, the
+incident triangles, the frontier, the carried trussness and the frozen
+lanes) is torch ops on the owning api session's device.  The session
+keeps its state there between updates: the committed graph carries its
+device CSR (``graphs.csr.hold_lifted``) and the trussness its device
+twin, the peel's own output, so an update copies only the batch's keys
+to the device.  ``graph`` and ``trussness`` stay the host values, each
+read back once a commit (the new CSR by the delta, the trussness by the
+dispatch's unpack).
+
 Sessions ride the api session's queue, micro-batcher and compile cache,
 so updates from many concurrent sessions — and ordinary declarative
 queries — coalesce into shared dispatches.  Use the two-phase form for
@@ -48,17 +57,16 @@ import os
 from typing import TYPE_CHECKING
 
 import numpy as np
+import torch
 
 from ..errors import InvalidGraphError
-from ..graphs.csr import CSRGraph
+from ..graphs.csr import CSRGraph, hold_lifted, lift_csr
 from ..obs import MetricsRegistry, use_registry, use_tracer
 from .delta import EdgeBatch, GraphDelta, apply_batch
 from .frontier import FrontierResult, compute_frontier, union_graph
 from .tricache import TriangleCache
 
 if TYPE_CHECKING:  # pragma: no cover
-    import torch
-
     from ..api.session import Session, TrussFuture
 
 __all__ = ["StreamUpdateResult", "PendingUpdate", "StreamingTrussSession"]
@@ -82,9 +90,9 @@ class PendingUpdate:
     """Deferred half of :meth:`StreamingTrussSession.submit_update`.
 
     ``result()`` resolves the underlying api future (running the
-    session's batch group if needed), merges the re-peeled frontier with
-    the carried trussness, commits the session state, and returns the
-    :class:`StreamUpdateResult`.
+    session's batch group if needed), takes the re-peeled trussness (the
+    carried trussness, on the device, when nothing was dispatched),
+    commits the session state, and returns the :class:`StreamUpdateResult`.
     """
 
     def __init__(
@@ -92,7 +100,7 @@ class PendingUpdate:
         session: "StreamingTrussSession",
         delta: GraphDelta,
         frontier: FrontierResult,
-        carry: np.ndarray,
+        carry: torch.Tensor,
         future: "TrussFuture | None",
         union_tri_keys: torch.Tensor | None = None,
     ):
@@ -111,12 +119,15 @@ class PendingUpdate:
 
     def result(self) -> StreamUpdateResult:
         if self._result is None:
-            t_new = self._carry if self._future is None else self._future.result()
+            if self._future is None:
+                t_dev = self._carry
+                t_new = t_dev.cpu().numpy()
+            else:
+                t_new = np.asarray(self._future.result(), np.int32)
+                # The planner keeps the member's trussness on the device too.
+                t_dev = self._future.request.device_result
             self._result = self._session._commit(
-                self._delta,
-                self._frontier,
-                np.asarray(t_new, np.int32),
-                self._union_tri_keys,
+                self._delta, self._frontier, t_new, t_dev, self._union_tri_keys
             )
         return self._result
 
@@ -151,7 +162,10 @@ class StreamingTrussSession:
         # (which chains to the process-global one): counts stay isolated
         # per stream while every aggregate view still sees them.
         self.metrics = MetricsRegistry(parent=self.api.obs.metrics)
-        self.graph = graph
+        # The stream's own handle on the caller's arrays (not copied): it
+        # carries their device copy once the first update lifts them, and
+        # the caller's graph object stays as it was.
+        self.graph = CSRGraph(graph.n, graph.rowptr, graph.colidx, name=graph.name, validate=False)
         if trussness is None:
             from ..api.query import TrussQuery  # lazy: no import cycle
 
@@ -165,6 +179,7 @@ class StreamingTrussSession:
                 graph=graph.name,
             )
         self.trussness = trussness
+        self._trussness_dev: torch.Tensor | None = None  # made on first use
         self.cache_triangles = bool(cache_triangles)
         self._tri_cache: TriangleCache | None = None
         self._pending: PendingUpdate | None = None
@@ -238,6 +253,15 @@ class StreamingTrussSession:
     def kmax(self) -> int:
         return int(self.trussness.max(initial=0)) if self.graph.nnz else 0
 
+    def _device_trussness(self) -> torch.Tensor:
+        """The committed trussness on the device: the previous dispatch's
+        output, or one copy of the host array (a new or restored session)."""
+        if self._trussness_dev is None:
+            self._trussness_dev = torch.from_numpy(np.ascontiguousarray(self.trussness)).to(
+                self.device
+            )
+        return self._trussness_dev
+
     # ------------------------------------------------------------------ #
     def submit_update(self, batch: EdgeBatch, *, strict: bool = True) -> PendingUpdate:
         """Apply ``batch``, enqueue the frontier re-peel, return a handle.
@@ -252,11 +276,15 @@ class StreamingTrussSession:
                 "session already has an in-flight update; resolve it first"
             )
         tracer = self.api.obs.tracer
+        dev = self.device
         with self._instrumented():
             with tracer.span(
                 "stream.delta", inserts=len(batch.inserts), deletes=len(batch.deletes)
             ):
-                delta = apply_batch(self.graph, batch, strict=strict)
+                # A new or restored session's graph goes to the device once
+                # and stays there; every later graph is built there.
+                hold_lifted(self.graph, *lift_csr(self.graph, dev))
+                delta = apply_batch(self.graph, batch, strict=strict, device=dev)
 
             # Incremental triangle state: reuse the cached list, enumerating
             # only the wedges the batch's inserts touch.  The union graph is
@@ -265,7 +293,7 @@ class StreamingTrussSession:
             if self.cache_triangles:
                 with tracer.span("stream.triangles") as span:
                     if self._tri_cache is None:
-                        self._tri_cache = TriangleCache(self.graph, device=self.device)
+                        self._tri_cache = TriangleCache(self.graph, device=dev)
                     union_pair = union_graph(delta)
                     union_tri_keys = self._tri_cache.union_triangles(
                         delta, union=union_pair
@@ -273,11 +301,11 @@ class StreamingTrussSession:
                     span.attrs["triangles"] = int(union_tri_keys.shape[0])
             with tracer.span("stream.frontier") as span:
                 fr = compute_frontier(
-                    self.trussness,
+                    self._device_trussness(),
                     delta,
                     tri_keys=union_tri_keys,
                     union=union_pair,
-                    device=self.device,
+                    device=dev,
                 )
                 span.attrs["frontier"] = fr.size
             self.metrics.observe(
@@ -288,10 +316,11 @@ class StreamingTrussSession:
         g_new = delta.new_graph
 
         # Trussness carried over from the committed state (inserted edges
-        # start at the vacuous floor 2 and are always in the frontier).
-        carry = np.full(g_new.nnz, 2, np.int32)
-        shared = delta.new2old >= 0
-        carry[shared] = self.trussness[delta.new2old[shared]]
+        # start at the vacuous floor 2 and are always in the frontier): an
+        # inserted edge's new2old is -1, which picks the appended 2.
+        t_old = self._device_trussness()
+        carry = torch.cat([t_old, t_old.new_full((1,), 2)])[delta.tensors.new2old]
+        frontier = fr.tensors.frontier
 
         future = None
         if fr.size:
@@ -300,8 +329,8 @@ class StreamingTrussSession:
             future = self.api.submit(
                 TrussQuery.stream_update(
                     g_new,
-                    frontier=fr.frontier,
-                    frozen_truss=np.where(fr.frontier, 0, carry).astype(np.int32),
+                    frontier=frontier,
+                    frozen_truss=torch.where(frontier, 0, carry).to(torch.int32),
                 )
             )
         self._pending = PendingUpdate(self, delta, fr, carry, future, union_tri_keys)
@@ -317,10 +346,12 @@ class StreamingTrussSession:
         delta: GraphDelta,
         fr: FrontierResult,
         t_new: np.ndarray,
+        t_dev: torch.Tensor,
         union_tri_keys: torch.Tensor | None,
     ) -> StreamUpdateResult:
         self.graph = delta.new_graph
         self.trussness = t_new
+        self._trussness_dev = t_dev
         if self._tri_cache is not None and union_tri_keys is not None:
             self._tri_cache.commit(delta, union_tri_keys)
         self._pending = None

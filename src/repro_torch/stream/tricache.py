@@ -18,7 +18,10 @@ iff none of its edges was deleted), leaving exactly the new graph's
 triangle list for the next update.  Triangles are stored as a (T, 3)
 int64 tensor of composite *edge-key* triples on the cache's device —
 positional edge ids shift on every CSR rebuild, keys don't; a checkpoint
-takes them to the host with ``.cpu()``.
+takes them to the host with ``.cpu()``.  The inserted and deleted keys
+come from the delta's tensors, and the wedges are probed in the union's
+symmetrized CSR built on the device (``graphs.csr.symmetrize_csr``), so
+an update copies nothing of the graph to the device.
 
 The ``stream_enumerations{kind=full|incident}`` metric (recorded into the
 active session's :mod:`repro_torch.obs` registry; ``ENUM_COUNTS`` reads
@@ -32,10 +35,10 @@ from __future__ import annotations
 import torch
 
 from ..device import resolve_device
-from ..graphs.csr import CSRGraph
+from ..graphs.csr import CSRGraph, LiftedCSR, check_upper, edge_rows, lift_csr, symmetrize_csr
 from ..obs import current_registry
-from .delta import GraphDelta, edge_keys
-from .frontier import _on, _ragged, edge_triangles, union_graph
+from .delta import GraphDelta, device_edge_keys, isin_sorted
+from .frontier import _ragged, edge_triangles, union_graph
 
 __all__ = ["TriangleCache", "triangles_incident"]
 
@@ -48,17 +51,20 @@ def _triple_keys(n: int, tri_verts: torch.Tensor) -> torch.Tensor:
 
 
 def triangles_incident(
-    g: CSRGraph, keys, *, device: str | torch.device | None = None
+    g: CSRGraph | LiftedCSR, keys, *, device: str | torch.device | None = None
 ) -> torch.Tensor:
     """Triangles of ``g`` containing >= 1 edge of ``keys``, as key triples.
 
     ``keys`` are 1-based upper-triangular composite keys (``edge_keys``
     convention), numpy or tensor.  Each key's triangles are the common
-    neighbors of its endpoints in the symmetrized adjacency: the shorter
-    endpoint's neighbors are probed against the other's by a searchsorted
-    over the symmetrized keys.  A triangle touched by several listed edges
-    is deduplicated; rows come out sorted (``torch.unique(dim=0)``), as the
-    reference's ``np.unique(axis=0)`` gives them.
+    neighbors of its endpoints in the symmetrized adjacency, built on
+    ``device`` by :func:`~repro_torch.graphs.csr.symmetrize_csr` (the
+    order of the reference's ``undirected_csr``): the shorter endpoint's
+    neighbors are probed against the other's by a searchsorted over the
+    symmetrized keys.  A triangle touched by several listed edges is
+    deduplicated; rows come out sorted (``torch.unique(dim=0)``), as the
+    reference's ``np.unique(axis=0)`` gives them.  A host ``CSRGraph`` is
+    held to the upper-triangular contract first (``check_upper``).
     """
     current_registry().inc("stream_enumerations", kind="incident")
     dev = resolve_device(device)
@@ -66,9 +72,13 @@ def triangles_incident(
     keys = torch.as_tensor(keys).to(dev, torch.int64).reshape(-1)
     if keys.numel() == 0 or g.nnz == 0:
         return empty
-    und = g.undirected_csr()
-    rowptr, col, ukeys = _on(und.rowptr, dev), _on(und.colidx, dev), _on(edge_keys(und), dev)
+    if isinstance(g, CSRGraph):
+        check_upper(g)
+    rowptr, colidx = lift_csr(g, dev)
+    # From here on the symmetrized CSR: both directions of every edge.
+    rowptr, col, urows = symmetrize_csr(rowptr, colidx, edge_rows(rowptr, g.nnz))
     stride = g.n + 1
+    ukeys = urows * stride + col  # sorted: the symmetrization's (row, column) order
     u, v = keys // stride, keys % stride
     deg = rowptr[1:] - rowptr[:-1]  # deg[x - 1] for 1-based vertex x
     a = torch.where(deg[u - 1] <= deg[v - 1], u, v)  # walk the shorter row
@@ -105,7 +115,7 @@ class TriangleCache:
             return
         # The one full enumeration this cache ever does.
         tri = edge_triangles(g, device=self.device)
-        self.tri_keys = _on(edge_keys(g), self.device)[tri]
+        self.tri_keys = device_edge_keys(g, self.device)[tri]
 
     @property
     def num_triangles(self) -> int:
@@ -126,21 +136,19 @@ class TriangleCache:
                 "triangle cache is out of sync: delta.old_graph is not the "
                 "cached graph (commit() every update in order)"
             )
-        ins_keys = edge_keys(delta.new_graph)[delta.inserted_new]
-        if not ins_keys.size:
+        if not delta.num_inserts:
             return self.tri_keys
         g_union, _ukeys = union if union is not None else union_graph(delta)
-        gained = triangles_incident(g_union, ins_keys, device=self.device)
+        gained = triangles_incident(g_union, delta.tensors.inserts, device=self.device)
         if not gained.numel():
             return self.tri_keys
         return torch.cat([self.tri_keys, gained])
 
     def commit(self, delta: GraphDelta, union_tri_keys: torch.Tensor) -> None:
         """Advance to ``delta.new_graph``: drop deleted edges' triangles."""
-        del_keys = edge_keys(delta.old_graph)[delta.deleted_old]
         kept = union_tri_keys
-        if union_tri_keys.numel() and del_keys.size:
-            has_del = torch.isin(union_tri_keys, _on(del_keys, self.device)).any(dim=1)
-            kept = union_tri_keys[~has_del]
+        if union_tri_keys.numel() and delta.num_deletes:
+            dele = delta.tensors.deletes.to(self.device)
+            kept = union_tri_keys[~isin_sorted(union_tri_keys, dele).any(dim=1)]
         self.tri_keys = kept
         self.graph = delta.new_graph

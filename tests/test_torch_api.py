@@ -1,6 +1,8 @@
 """Port parity, front door: ``solve()``/``Session`` on a mixed query set give
 the JAX package's results and the same dispatches per bucket; the registry,
-auto rule and device defaults behave as the port promises."""
+auto rule and device defaults behave as the port promises; a batch that
+mixes stream updates with ordinary queries gets its frozen lanes built on
+the device and reads back only what its members return."""
 
 import numpy as np
 import pytest
@@ -137,3 +139,124 @@ def test_session_metrics_views():
     exe = s.executor_for(gt)
     assert exe.dispatches == 1 and exe.host_syncs >= 2
     assert "peel_slot_iters" in s.prometheus_text()
+
+
+def _mixed_stream_batch(api, g, truss, frontier, as_tensor):
+    """Every workload in one bucket: two stream updates (the port's given
+    as tensors when ``as_tensor``) between ordinary members."""
+    frozen = np.where(frontier, 0, truss).astype(np.int32)
+    other = ~frontier
+    lanes = [(frontier, frozen), (other, np.where(other, 0, truss).astype(np.int32))]
+    if as_tensor:
+        lanes[0] = tuple(torch.from_numpy(x) for x in lanes[0])
+    return [
+        api.TrussQuery.decompose(g),
+        api.TrussQuery.stream_update(g, frontier=lanes[0][0], frozen_truss=lanes[0][1]),
+        api.TrussQuery.kmax(g),
+        api.TrussQuery.ktruss(g, k=4),
+        api.TrussQuery.stream_update(g, frontier=lanes[1][0], frozen_truss=lanes[1][1]),
+        api.TrussQuery.decompose(g, k_start=4),
+    ]
+
+
+def _stream_inputs():
+    gr, gt = small_pairs()[1]
+    truss = ra.solve(ra.TrussQuery.decompose(gr), **KW).trussness
+    frontier = np.random.default_rng(6).random(gr.nnz) < 0.3
+    return gr, gt, truss, frontier
+
+
+def test_stream_lanes_are_built_on_the_device_as_the_reference_builds_them(monkeypatch):
+    """The planner's ``alive0``/``frozen``/``frozen_truss`` for a batch that
+    mixes stream updates (tensor and numpy inputs) with ordinary members
+    equal the reference's numpy build over the pack's edge ranges."""
+    import repro_torch.api.planner as tp
+    from repro_torch.exec import PeelExecutor
+
+    _, gt, truss, frontier = _stream_inputs()
+    seen = {}
+    real_pack, real_peel = tp.pack_problems, PeelExecutor.peel
+
+    def pack(*a, **k):
+        seen["packed"] = real_pack(*a, **k)
+        return seen["packed"]
+
+    def peel(self, p, **kw):
+        seen.update(kw)
+        return real_peel(self, p, **kw)
+
+    monkeypatch.setattr(tp, "pack_problems", pack)
+    monkeypatch.setattr(PeelExecutor, "peel", peel)
+    queries = _mixed_stream_batch(ta, gt, truss, frontier, as_tensor=True)
+    ta.Session(device="cpu", backend="fine/xla/aligned", chunk=64, max_batch=8).solve(queries)
+    packed = seen["packed"]
+    nnzp = packed.problem.nnz_pad
+    alive_np = np.zeros(nnzp, bool)
+    for a, b in packed.edge_ranges:
+        alive_np[a:b] = True
+    frozen_np = np.zeros(nnzp, bool)
+    ft_np = np.zeros(nnzp, np.int32)
+    for q, (a, b) in zip(queries, packed.edge_ranges):
+        if q.workload == "stream_update":
+            f = np.asarray(q.frontier)
+            alive_np[a:b] = f
+            frozen_np[a:b] = ~f
+            ft_np[a:b] = np.asarray(q.frozen_truss)
+    for name, want in (("alive0", alive_np), ("frozen", frozen_np), ("frozen_truss", ft_np)):
+        got = seen[name]
+        assert got.device.type == "cpu" and got.dtype == torch.from_numpy(want).dtype, name
+        assert np.array_equal(got.numpy(), want), name
+
+
+def test_mixed_batch_unpacks_each_result_as_the_reference_and_reads_back_only_those(monkeypatch):
+    """Every workload's result (type name, dtype, values) equals the
+    reference's in one mixed batch, and the dispatch reads back one tensor:
+    the per-slot counters plus each member's returned ranges."""
+    gr, gt, truss, frontier = _stream_inputs()
+    kw = dict(chunk=64, max_batch=8)
+    want = ra.Session(backend="fine/xla/aligned", **kw).solve(
+        _mixed_stream_batch(ra, gr, truss, frontier, as_tensor=False)
+    )
+    session = ta.Session(device="cpu", backend="fine/xla/aligned", **kw)
+    session.solve([ta.TrussQuery.kmax(gt)])  # built and warm
+    queries = _mixed_stream_batch(ta, gt, truss, frontier, as_tensor=True)
+    sizes = []
+    real_cpu = torch.Tensor.cpu
+
+    def cpu(t, *a, **k):
+        sizes.append(t.numel())
+        return real_cpu(t, *a, **k)
+
+    monkeypatch.setattr(torch.Tensor, "cpu", cpu)
+    futs = [session.submit(q) for q in queries]
+    session.flush()
+    got = [f.result() for f in futs]
+    monkeypatch.undo()
+    per_member = {"decompose": 1, "stream_update": 1, "kmax": 0, "ktruss": 2}
+    assert sizes == [4 * 8 + 1 + gt.nnz * sum(per_member[q.workload] for q in queries)]
+    for q, r, t, f in zip(queries, want, got, futs):
+        assert type(t).__name__ == type(r).__name__, q.workload
+        if q.workload == "stream_update":
+            assert t.dtype == r.dtype and np.array_equal(t, r)
+            dev = f.request.device_result
+            assert dev.dtype == torch.int32 and np.array_equal(dev.numpy(), t)
+        else:
+            _same_result(r, t)
+        if q.workload == "ktruss":
+            assert t.alive.dtype == r.alive.dtype and type(t.edges_remaining) is int
+        elif q.workload == "decompose":
+            assert type(t.kmax) is int and type(t.levels) is int
+
+
+def test_stream_update_lanes_as_tensors_keep_the_shape_checks():
+    _, gt, truss, frontier = _stream_inputs()
+    q = ta.TrussQuery.stream_update(
+        gt, frontier=torch.from_numpy(frontier).int(), frozen_truss=torch.from_numpy(truss).long()
+    )
+    assert q.frontier.dtype == torch.bool and q.frozen_truss.dtype == torch.int32
+    with pytest.raises(ValueError, match="must cover all"):
+        ta.TrussQuery.stream_update(
+            gt, frontier=torch.from_numpy(frontier[:-1]), frozen_truss=torch.from_numpy(truss)
+        )
+    with pytest.raises(ValueError, match="requires frontier"):
+        ta.TrussQuery.stream_update(gt, frontier=None, frozen_truss=torch.from_numpy(truss))

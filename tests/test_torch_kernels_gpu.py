@@ -498,6 +498,63 @@ def test_stream_update_on_the_card_matches_scratch_decompose(cuda):
     assert sess._tri_cache.tri_keys.device.type == "cuda"
 
 
+def test_stream_on_the_card_equals_the_cpu_after_every_commit(cuda):
+    """rmat-12 (``BENCH_GRAPHS``) updates through a stream on the card,
+    with every stage replayed on ``device="cpu"`` from the same committed
+    state (the CPU's own peel of rmat-12 takes most of a minute an
+    update): each update's delta and frontier equal field by field, and
+    after every commit the graph, the triangle cache and the trussness
+    (host and device) equal the CPU's, the trussness a from-scratch
+    decompose."""
+    from repro_torch.api import Session, TrussQuery
+    from repro_torch.configs import BENCH_GRAPHS
+    from repro_torch.stream import (
+        EdgeBatch, StreamingTrussSession, TriangleCache, apply_batch, compute_frontier,
+    )
+    from repro_torch.stream.frontier import union_graph
+
+    g = next(b for b in BENCH_GRAPHS if b.name == "rmat-12").build()
+    card = StreamingTrussSession.for_graph(g, device=cuda, chunk=256)
+    scratch = Session(device=cuda, backend="fine/pallas/aligned", max_batch=1, chunk=256)
+    g_cpu, t_cpu, cache = g, card.trussness, TriangleCache(g, device="cpu")
+    rng = np.random.default_rng(12)
+    for width in (1, 2, 8, 16, 64):
+        existing = set(map(tuple, (g_cpu.edge_list() - 1).tolist()))
+        ins = set()
+        while len(ins) < max(width // 2, 1):
+            a, b = sorted(int(x) for x in rng.integers(0, g.n, 2))
+            if a != b and (a, b) not in existing:
+                ins.add((a, b))
+        el = g_cpu.edge_list() - 1
+        batch = EdgeBatch.of(sorted(ins), [tuple(e) for e in el[rng.permutation(len(el))[: width // 2]]])
+        dc = apply_batch(card.graph, batch, device=cuda)
+        dh = apply_batch(g_cpu, batch, device="cpu")
+        for f, a, b in zip(dc.tensors._fields, dc.tensors, dh.tensors):
+            assert a.is_cuda and a.dtype == b.dtype and torch.equal(a.cpu(), b), (width, f)
+        union = union_graph(dh)
+        tri_keys = cache.union_triangles(dh, union=union)
+        fc = compute_frontier(card.trussness, dc, device=cuda)
+        fh = compute_frontier(t_cpu, dh, tri_keys=tri_keys, union=union, device="cpu")
+        assert (fc.rounds, fc.num_triangles, fc.size) == (fh.rounds, fh.num_triangles, fh.size)
+        for f, a, b in zip(fc.tensors._fields, fc.tensors, fh.tensors):
+            assert a.is_cuda and a.dtype == b.dtype and torch.equal(a.cpu(), b), (width, f)
+        res = card.update(batch)
+        cache.commit(dh, tri_keys)
+        g_cpu = dh.new_graph
+        want = scratch.submit(TrussQuery.decompose(g_cpu)).result().trussness
+        carry = np.where(dh.new2old >= 0, t_cpu[np.maximum(dh.new2old, 0)], 2)
+        assert np.array_equal(want[~fh.frontier], carry[~fh.frontier]), width
+        t_cpu = want
+        assert res.frontier_size == fh.size and res.num_edges == g_cpu.nnz
+        assert res.trussness.dtype == np.int32 and np.array_equal(res.trussness, want), width
+        assert np.array_equal(card.trussness, want)
+        assert card._trussness_dev.is_cuda and np.array_equal(card._trussness_dev.cpu().numpy(), want)
+        assert np.array_equal(card.graph.rowptr, g_cpu.rowptr)
+        assert card.graph.colidx.dtype == np.int32 and np.array_equal(card.graph.colidx, g_cpu.colidx)
+        assert card.graph.__dict__["_lifted"][0].is_cuda
+        assert torch.equal(card._tri_cache.tri_keys.cpu(), cache.tri_keys)
+
+
 def test_session_fused_launch_failure_is_terminal_and_loud(cuda, monkeypatch):
     """A nonzero code from the fused library's launch (here the runtime's
     ``cudaErrorCooperativeLaunchTooLarge``, returned by a wrapper around the

@@ -18,6 +18,7 @@ import threading
 
 import numpy as np
 import pytest
+import torch
 
 import repro.api as ra
 import repro.errors as rerr
@@ -145,6 +146,10 @@ def test_queries_encode_identically_and_decode_across_packages():
          ta.TrussQuery.kmax(gt, backend="fine/pallas/aligned")),
         (ra.TrussQuery.stream_update(g, frontier=frontier, frozen_truss=frozen),
          ta.TrussQuery.stream_update(gt, frontier=frontier, frozen_truss=frozen)),
+        # A stream session's query holds its lanes as tensors on its device.
+        (ra.TrussQuery.stream_update(g, frontier=frontier, frozen_truss=frozen),
+         ta.TrussQuery.stream_update(gt, frontier=torch.from_numpy(frontier),
+                                     frozen_truss=torch.from_numpy(frozen))),
     ]
     for rq, tq in pairs:
         assert json.dumps(tw.encode_query(tq)) == json.dumps(rw.encode_query(rq))

@@ -3,13 +3,18 @@
 graphs and batches, on the CPU.  Every comparison is exact, dtype included:
 delta maps, triangle lists in order, frontier/``lo``/``hi``/``rounds``,
 triangle-cache keys, multi-step session state and counters, and
-checkpoints moved between the two packages."""
+checkpoints moved between the two packages; then the device stages
+themselves (the delta's tensors, the union graph, the symmetrized CSR,
+the session's device state), which no update may copy or validate on the
+host."""
 
 import json
 import os
+import pickle
 
 import numpy as np
 import pytest
+import torch
 
 import repro.resilience as rr
 import repro.stream as rs
@@ -22,6 +27,7 @@ from repro.errors import CheckpointError as RefCheckpointError
 from repro.graphs import CSRGraph, clustered, erdos, from_edges, road
 from repro.stream.frontier import union_graph as ref_union_graph
 from repro_torch.errors import CheckpointError
+from repro_torch.graphs import csr as tcsr
 from repro_torch.stream.frontier import union_graph
 
 CPU = dict(device="cpu")
@@ -82,7 +88,7 @@ def test_apply_batch_maps_match_reference(n_ins, n_del):
     assert_same(br.inserts, bt.inserts)
     assert_same(br.deletes, bt.deletes)
     gt = torch_graph(g)
-    _same_delta(rs.apply_batch(g, br), ts.apply_batch(gt, bt))
+    _same_delta(rs.apply_batch(g, br), ts.apply_batch(gt, bt, **CPU))
     assert gt.nnz == g.nnz  # the old graph is not mutated
 
 
@@ -98,11 +104,11 @@ def test_apply_batch_conflicts_match_reference():
         with pytest.raises(ValueError) as er:
             rs.apply_batch(g, br)
         with pytest.raises(ValueError) as et:
-            ts.apply_batch(gt, bt)
+            ts.apply_batch(gt, bt, **CPU)
         assert str(et.value) == str(er.value)
     # Lenient mode drops the conflicts exactly as the reference does.
     br, bt = _batches([dup, missing, (5, 7)], [missing, tuple(el[3])])
-    _same_delta(rs.apply_batch(g, br, strict=False), ts.apply_batch(gt, bt, strict=False))
+    _same_delta(rs.apply_batch(g, br, strict=False), ts.apply_batch(gt, bt, strict=False, **CPU))
 
 
 # --------------------------------------------------------------------- #
@@ -148,7 +154,7 @@ def test_compute_frontier_matches_reference(seed):
     rng = np.random.default_rng(100 + seed)
     for n_ins, n_del in FRONTIER_CASES:
         br, bt = _batches(*_random_batch(rng, g, n_ins, n_del))
-        dr, dt = rs.apply_batch(g, br), ts.apply_batch(gt, bt)
+        dr, dt = rs.apply_batch(g, br), ts.apply_batch(gt, bt, **CPU)
         fr = rs.compute_frontier(t_old, dr)
         _same_frontier(fr, ts.compute_frontier(t_old, dt, **CPU))
         _same_frontier(fr, ts.compute_frontier(t_old, dt, chunk=8, **CPU))
@@ -169,7 +175,7 @@ def test_compute_frontier_matches_reference(seed):
 def test_compute_frontier_rejects_wrong_trussness_length():
     g = erdos(30, 5.0, seed=0)
     gt = torch_graph(g)
-    d = ts.apply_batch(gt, ts.EdgeBatch.of())
+    d = ts.apply_batch(gt, ts.EdgeBatch.of(), **CPU)
     with pytest.raises(ValueError, match="entries"):
         ts.compute_frontier(np.zeros(g.nnz + 1, np.int32), d, **CPU)
 
@@ -185,7 +191,7 @@ def test_triangle_cache_matches_reference_over_updates():
     assert_same(cr.tri_keys, ct.tri_keys, "seed list")
     for n_ins, n_del in [(3, 2), (4, 0), (0, 3), (2, 2)]:
         br, bt = _batches(*_random_batch(rng, gr, n_ins, n_del))
-        dr, dt = rs.apply_batch(gr, br), ts.apply_batch(gt, bt)
+        dr, dt = rs.apply_batch(gr, br), ts.apply_batch(gt, bt, **CPU)
         ur, ut = ref_union_graph(dr), union_graph(dt)
         ins_keys = rs.edge_keys(dr.new_graph)[dr.inserted_new]
         assert_same(
@@ -201,7 +207,7 @@ def test_triangle_cache_matches_reference_over_updates():
         assert cr.num_triangles == ct.num_triangles
         gr, gt = dr.new_graph, dt.new_graph
     with pytest.raises(RuntimeError, match="out of sync"):
-        ct.union_triangles(ts.apply_batch(torch_graph(g), ts.EdgeBatch.of()))
+        ct.union_triangles(ts.apply_batch(torch_graph(g), ts.EdgeBatch.of(), **CPU))
 
 
 # --------------------------------------------------------------------- #
@@ -375,3 +381,155 @@ def test_checkpoint_errors_are_typed(tmp_path):
         tr.load_checkpoint(path)
     with pytest.raises(RefCheckpointError, match="version"):
         rr.load_checkpoint(path)
+
+
+# --------------------------------------------------------------------- #
+# (g) the device stages, field by field
+# --------------------------------------------------------------------- #
+DELTA_CASES = {"inserts": (4, 0), "deletes": (0, 4), "both": (3, 3), "empty": (0, 0)}
+
+
+def _conflicting_batch(rng, g):
+    """A lenient feed's batch: fresh inserts and real deletes, plus an
+    existing insert, a missing delete and a pair on both sides."""
+    ins, dels = _random_batch(rng, g, 3, 2)
+    el = g.edge_list() - 1
+    existing = set(map(tuple, el))
+    missing = [
+        (a, b) for a in range(g.n) for b in range(a + 1, g.n)
+        if (a, b) not in existing and (a, b) not in ins
+    ]
+    return ins + [tuple(el[0]), missing[0]], dels + [missing[1], missing[0]]
+
+
+@pytest.mark.parametrize("case", [*DELTA_CASES, "lenient"])
+def test_device_delta_tensors_match_reference(case):
+    g = erdos(50, 6.0, seed=4)
+    gt = torch_graph(g)
+    rng = np.random.default_rng(21)
+    if case == "lenient":
+        ins, dels = _conflicting_batch(rng, g)
+    else:
+        ins, dels = _random_batch(rng, g, *DELTA_CASES[case])
+    strict = case != "lenient"
+    br, bt = _batches(ins, dels)
+    dr = rs.apply_batch(g, br, strict=strict)
+    dt = ts.apply_batch(gt, bt, strict=strict, **CPU)
+    t = dt.tensors
+    assert dt.device.type == "cpu"
+    for f in ("old2new", "new2old", "inserted_new", "deleted_old"):
+        assert_same(getattr(dr, f), getattr(t, f), f)
+    assert_same(rs.edge_keys(g), t.old_keys, "old keys")
+    assert_same(rs.edge_keys(dr.new_graph), t.new_keys, "new keys")
+    assert_same(rs.edge_keys(dr.new_graph)[dr.inserted_new], t.inserts, "inserted keys")
+    assert_same(rs.edge_keys(g)[dr.deleted_old], t.deletes, "deleted keys")
+    assert (dt.num_inserts, dt.num_deletes) == (dr.num_inserts, dr.num_deletes)
+    _same_graph(dr.new_graph, dt.new_graph)
+    # The new graph carries its CSR on the device: lifting it copies nothing.
+    rowptr, colidx = tcsr.lift_csr(dt.new_graph, torch.device("cpu"))
+    assert rowptr is tcsr.lift_csr(dt.new_graph, torch.device("cpu"))[0]
+    assert_same(dr.new_graph.rowptr, rowptr, "held rowptr")
+    assert_same(dr.new_graph.colidx.astype(np.int64), colidx, "held colidx")
+
+
+def test_strict_errors_keep_the_reference_order():
+    """Several conflicts in one batch: both sides first, then an existing
+    insert, then a missing delete, with the reference's counts."""
+    g = erdos(40, 5.0, seed=0)
+    gt = torch_graph(g)
+    el = g.edge_list() - 1
+    existing = set(map(tuple, el))
+    missing = [(a, b) for a in range(g.n) for b in range(a + 1, g.n) if (a, b) not in existing]
+    cases = [
+        ([tuple(el[0]), tuple(el[1])], [missing[0], missing[1], missing[2]]),
+        ([tuple(el[0]), missing[0]], [missing[0], missing[1]]),
+        ([missing[3]], [missing[4], tuple(el[2])]),
+    ]
+    for ins, dels in cases:
+        br, bt = _batches(ins, dels)
+        with pytest.raises(ValueError) as er:
+            rs.apply_batch(g, br)
+        with pytest.raises(ValueError) as et:
+            ts.apply_batch(gt, bt, **CPU)
+        assert type(et.value) is type(er.value) and str(et.value) == str(er.value)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_union_graph_and_incident_triangles_follow_the_reference_path(seed, monkeypatch):
+    """The union's keys and CSR built on the device, its symmetrization
+    against the reference's ``undirected_csr``, and the incident triangles
+    (rows in order) from the device union and from a host graph, neither
+    calling ``undirected_csr``."""
+    g = clustered(3, 12, 0.7, seed=seed)
+    gt = torch_graph(g)
+    br, bt = _batches(*_random_batch(np.random.default_rng(30 + seed), g, 5, 2))
+    dr, dt = rs.apply_batch(g, br), ts.apply_batch(gt, bt, **CPU)
+    ur, ut = ref_union_graph(dr), union_graph(dt)
+    assert isinstance(ut[0], tcsr.LiftedCSR)
+    _same_graph(ur[0], ut[0])
+    assert_same(ur[1], ut[1], "union keys")
+    und = ur[0].undirected_csr()
+    rowptr, colidx = tcsr.lift_csr(ut[0], torch.device("cpu"))
+    urowptr, ucol, _ = tcsr.symmetrize_csr(rowptr, colidx, tcsr.edge_rows(rowptr, ut[0].nnz))
+    assert_same(und.rowptr, urowptr, "symmetrized rowptr")
+    assert_same(und.colidx.astype(np.int64), ucol, "symmetrized colidx")
+    want = rs.triangles_incident(ur[0], rs.edge_keys(dr.new_graph)[dr.inserted_new])
+    assert want.shape[0] > 0
+
+    def refused(self):
+        raise AssertionError("the stream path called undirected_csr")
+
+    monkeypatch.setattr(tcsr.CSRGraph, "undirected_csr", refused)
+    assert_same(want, ts.triangles_incident(ut[0], dt.tensors.inserts, **CPU), "device union")
+    host_union = tcsr.CSRGraph(ur[0].n, ur[0].rowptr, ur[0].colidx, name=ur[0].name)
+    assert_same(want, ts.triangles_incident(host_union, dt.tensors.inserts, **CPU), "host union")
+
+
+def test_session_state_stays_on_the_device_between_updates(monkeypatch):
+    """After the first update the session's graph carries its device CSR
+    and its trussness is the peel's output on the device; later updates
+    build nothing on the host (no ``row_of_edge``, ``undirected_csr`` or
+    CSR validation) and stay equal to the reference's stream."""
+    g = erdos(50, 6.0, seed=5)
+    sr = rs.StreamingTrussSession.for_graph(g, chunk=64)
+    st_ = ts.StreamingTrussSession.for_graph(torch_graph(g), chunk=64, **CPU)
+    rng = np.random.default_rng(8)
+    br, bt = _batches(*_random_batch(rng, g, 2, 2))
+    _same_update(sr.update(br), st_.update(bt))
+
+    def refused(*_a, **_k):
+        raise AssertionError("a host stage ran on the stream path")
+
+    monkeypatch.setattr(tcsr.CSRGraph, "undirected_csr", refused)
+    monkeypatch.setattr(tcsr.CSRGraph, "row_of_edge", refused)
+    monkeypatch.setattr(tcsr, "validate_csr", refused)
+    for n_ins, n_del in [(3, 1), (0, 2), (2, 0)]:
+        br, bt = _batches(*_random_batch(rng, sr.graph, n_ins, n_del))
+        held = st_._trussness_dev
+        _same_update(sr.update(br), st_.update(bt))
+        assert "_lifted" in st_.graph.__dict__
+        assert st_._trussness_dev is not held or sr.update_dispatches == 0
+        assert_same(sr.trussness, st_._trussness_dev, "device trussness")
+        assert_same(sr._tri_cache.tri_keys, st_._tri_cache.tri_keys, "tri_keys")
+    assert st_.stats() == sr.stats()
+    # A pickled graph leaves its device copy behind.
+    back = pickle.loads(pickle.dumps(st_.graph))
+    assert "_lifted" not in back.__dict__
+    _same_graph(sr.graph, back)
+
+
+def test_failed_strict_update_leaves_the_session_untouched():
+    g = erdos(40, 5.0, seed=3)
+    st_ = ts.StreamingTrussSession.for_graph(torch_graph(g), chunk=64, **CPU)
+    rng = np.random.default_rng(2)
+    st_.update(ts.EdgeBatch.of(*_random_batch(rng, g, 2, 1)))
+    graph, truss = st_.graph, st_.trussness.copy()
+    tri, t_dev = st_._tri_cache.tri_keys.clone(), st_._trussness_dev.clone()
+    dup = tuple(st_.graph.edge_list()[0] - 1)
+    with pytest.raises(ValueError, match="already exist"):
+        st_.update(ts.EdgeBatch.of([dup], []))
+    assert st_.graph is graph and st_.updates_applied == 1
+    assert_same(truss, st_.trussness)
+    assert torch.equal(tri, st_._tri_cache.tri_keys) and torch.equal(t_dev, st_._trussness_dev)
+    res = st_.update(ts.EdgeBatch.of(*_random_batch(rng, _ref_graph(graph), 2, 2)))
+    assert_same(trussness_numpy(_ref_graph(st_.graph)).astype(np.int32), res.trussness)
