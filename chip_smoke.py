@@ -192,6 +192,15 @@ Phases (any failure exits non-zero):
    (these launches are not the main path's count); the submit latency as
    in phase 12 (c); then the graph peel beside the eager loop's split as
    in phase 3.
+14. the contig layout: rmat-15's and road-512's three-query batches
+   through ``Session(max_batch=8, backend="fine/pallas/contig")``, one
+   dispatch each, ``support_fine_cuda`` once a trip, every answer bit for
+   bit the aligned path's (phase 5's; a ``fine/pallas/aligned`` session's
+   on road-512), and a warm repeat replaying the trip graph. Its launches
+   are ``launches_by_path["phase14_contig"]``.
+
+Each span split (phases 12 (c) and 13) also counts the solve's copies to
+the card and its readbacks, in all and inside ``plan`` and ``pack``.
 
 Phases 9, 10 and 11 print the trip-graph captures made in this process
 while they ran: how many, and their host seconds.
@@ -216,7 +225,9 @@ holds no kernel against its plain version and prints neither the
     python3 chip_smoke.py --prep-only [--src DIR]
 
 runs phase 1, then the packs, span splits and submit latencies of phase 12
-(c) (rmat-15) and phase 13 (road-512) alone, with the ``repro_torch`` under
+(c) (rmat-15) and phase 13 (road-512) alone, and each batch's stage split
+(``stage_split``: ``plan`` and ``pack`` by stage, each between two
+synchronizations, host and device ms), with the ``repro_torch`` under
 ``DIR``, and prints them as one ``prep`` JSON line: for comparing two
 trees' graph preparation in one session.  No kernel check, no result line.
 
@@ -632,7 +643,7 @@ def eager_trip_loop(torch, p, bucket, *, timed: bool = True):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     sums = pm._SlotSums(slot_ids, int(k0.shape[0]), aligned=True)
-    st = pm.init_peel_state(slot_ids, k0, alive0, frozen, ftruss, sums=sums)
+    st = pm.init_peel_state(p, slot_ids, k0, single, alive0, frozen, ftruss, sums=sums)
     lanes = slot_ids.long()
     while not bool(st.done.all()):
         st = pm._peel_step(support, p, lanes, sums, single, frozen, ftruss, st)
@@ -830,45 +841,155 @@ def phase_peel_split(torch, g, bucket, tag: str, session_trips: int | None = Non
 
 
 class Copies:
-    """Bytes copied between the host and the card through ``Tensor.to``,
-    ``Tensor.cuda``, ``Tensor.cpu`` and ``Tensor.copy_`` while :meth:`run`
-    runs (every way the port lifts a host array or reads one back): to the
-    card, a count and a sum; to the host, each copy with the host time it
-    started (to place it in a span)."""
+    """Bytes copied between the host and the card while :meth:`run` runs.
+    To the card: through ``Tensor.to``, ``Tensor.cuda`` and
+    ``Tensor.copy_`` (every way the port lifts a host array), a count and
+    a sum, and each copy with the host time it started. To the host:
+    through those, ``Tensor.cpu``, and the readbacks of a CUDA tensor's
+    values (``tolist``, ``item``, ``bool()``, ``int()``, ``float()``),
+    each with the host time it started (to place it in a span)."""
+
+    READS = ("tolist", "item", "__bool__", "__int__", "__float__")
 
     def __init__(self):
         self.bytes = 0  # host to card
         self.copies = 0
+        self.writes: list[tuple[float, int]] = []  # host to card: (perf_counter s, bytes)
         self.reads: list[tuple[float, int]] = []  # card to host: (perf_counter s, bytes)
 
     def read_bytes(self, lo: float = float("-inf"), hi: float = float("inf")) -> int:
         """Bytes read back by copies that started in ``[lo, hi)``."""
         return sum(n for t, n in self.reads if lo <= t < hi)
 
+    def within(self, spans) -> dict:
+        """Copies each way that started inside any of ``spans`` (trace
+        events): bytes and count."""
+        def inside(t):
+            return any(e["ts"] / 1e6 <= t < (e["ts"] + e["dur"]) / 1e6 for e in spans)
+
+        w = [n for t, n in self.writes if inside(t)]
+        r = [n for t, n in self.reads if inside(t)]
+        return {"h2d_mb": sum(w) / 1e6, "h2d_copies": len(w), "read_mb": sum(r) / 1e6,
+                "readbacks": len(r)}
+
     def run(self, torch, fn):
-        orig = {name: getattr(torch.Tensor, name) for name in ("to", "cuda", "cpu", "copy_")}
+        names = ("to", "cuda", "cpu", "copy_") + self.READS
+        own = {name: name in torch.Tensor.__dict__ for name in names}
+        orig = {name: getattr(torch.Tensor, name) for name in names}
 
         def counted(name):
             def method(t, *args, **kwargs):
                 t0 = time.perf_counter()
+                if name in self.READS:
+                    if t.is_cuda:
+                        self.reads.append((t0, t.numel() * t.element_size()))
+                    return orig[name](t, *args, **kwargs)
                 out = orig[name](t, *args, **kwargs)
                 src = args[0] if name == "copy_" else t
                 nbytes = src.numel() * src.element_size()
                 if out.is_cuda and not src.is_cuda:
                     self.bytes += nbytes
                     self.copies += 1
+                    self.writes.append((t0, nbytes))
                 elif src.is_cuda and not out.is_cuda:
                     self.reads.append((t0, nbytes))
                 return out
             return method
 
-        for name in orig:
+        for name in names:
             setattr(torch.Tensor, name, counted(name))
         try:
             return fn()
         finally:
             for name, method in orig.items():
-                setattr(torch.Tensor, name, method)
+                if own[name]:
+                    setattr(torch.Tensor, name, method)
+                else:
+                    delattr(torch.Tensor, name)
+
+
+# The stages of a query's ``plan`` and a member's ``pack``, as module
+# attributes of the ``repro_torch`` that ``--src`` names (a name that
+# tree lacks is skipped): (module, attribute, label).
+PREP_STAGES = (
+    ("repro_torch.api.planner", "bucket_for", "bucket_for (host)"),
+    ("repro_torch.api.planner", "lift_csr", "plan: lift"),
+    ("repro_torch.api.planner", "undirected_max_degree", "plan: undirected max degree"),
+    ("repro_torch.api.planner", "upper_violation", "plan: upper-triangular test"),
+    ("repro_torch.api.planner", "imbalance_parts", "plan: imbalance sums"),
+    ("repro_torch.api.planner", "imbalance_stats", "imbalance_stats"),
+    ("repro_torch.graphs.stats", "lift_csr", "imbalance_stats: lift"),
+    ("repro_torch.core.eager_fine", "prepare_fine", "prepare_fine"),
+    ("repro_torch.core.eager_fine", "check_upper", "prepare_fine: check_upper"),
+    ("repro_torch.core.eager_fine", "lift_csr", "prepare_fine: lift"),
+    ("repro_torch.core.eager_fine", "symmetrize_csr", "prepare_fine: symmetrize"),
+    ("repro_torch.graphs.pack", "validate_fused_tiling", "validate_fused_tiling"),
+)
+
+
+def stage_split(torch, tag: str, g, reps: int = 3) -> dict:
+    """``g``'s three-query batch through a fresh traced auto-rule
+    ``Session(max_batch=8)``: once cold, then ``reps`` warm solves with
+    every stage of :data:`PREP_STAGES` the tree has timed, the card
+    synchronized before and after each call (host clock) and two CUDA
+    events around it (device time). Prints, per stage, its calls and the
+    median solve's host and device ms; ``prepare_fine``'s rest is its
+    time less its own stages'. The synchronizations slow the solve, so the
+    spans of these runs are not the span split's."""
+    import importlib
+
+    from repro_torch.api import Session
+    from repro_torch.examples.tracing import traced_solve
+
+    session = Session(max_batch=8, device="cuda", trace=True)
+    traced_solve(session, rmat15_queries(g))
+    patched, runs = [], []
+    for mod_name, attr, label in PREP_STAGES:
+        mod = importlib.import_module(mod_name)
+        fn = getattr(mod, attr, None)
+        if fn is None:
+            continue
+
+        def timed(*a, _fn=fn, _label=label, **k):
+            torch.cuda.synchronize()
+            ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            ev0.record()
+            try:
+                return _fn(*a, **k)
+            finally:
+                ev1.record()
+                torch.cuda.synchronize()
+                row = runs[-1].setdefault(_label, [0, 0.0, 0.0])
+                row[0] += 1
+                row[1] += (time.perf_counter() - t0) * 1e3
+                row[2] += ev0.elapsed_time(ev1)
+
+        setattr(mod, attr, timed)
+        patched.append((mod, attr, fn))
+    try:
+        for _ in range(reps):
+            runs.append({})
+            _, _, ms = traced_solve(session, rmat15_queries(g))
+            runs[-1]["spans"] = [0, ms["plan"], ms["pack"]]
+    finally:
+        for mod, attr, fn in patched:
+            setattr(mod, attr, fn)
+    runs.sort(key=lambda r: r["spans"][1] + r["spans"][2])
+    mid = runs[len(runs) // 2]
+    pf = mid.get("prepare_fine")
+    if pf is not None:
+        inner = [mid.get(k, [0, 0.0, 0.0]) for k in
+                 ("prepare_fine: check_upper", "prepare_fine: lift", "prepare_fine: symmetrize")]
+        mid["prepare_fine: rest"] = [pf[0], pf[1] - sum(r[1] for r in inner),
+                                     pf[2] - sum(r[2] for r in inner)]
+    spans = mid.pop("spans")
+    log(f"{tag} stage split (warm, median of {reps} synchronized solves; calls, host ms, "
+        f"device ms): " + "; ".join(f"{k} {c}x {h:.3f} / {d:.3f}" for k, (c, h, d) in mid.items())
+        + f"; these runs' plan {spans[1]:.2f} ms, pack {spans[2]:.2f} ms")
+    return {"stages": {k: {"calls": c, "host_ms": h, "device_ms": d}
+                       for k, (c, h, d) in mid.items()},
+            "plan_ms": spans[1], "pack_ms": spans[2]}
 
 
 def check_pack(torch, tag: str, graphs, bucket, slots: int = 8) -> dict:
@@ -944,6 +1065,8 @@ def span_split(torch, tag: str, g, want, backend: str, counts, trips: int | None
         wall = (time.perf_counter() - t0) * 1e3
         (unpack,) = [e for e in events if e["ph"] == "X" and e["name"] == "unpack"]
         unpack_mb = copies.read_bytes(unpack["ts"] / 1e6, (unpack["ts"] + unpack["dur"]) / 1e6) / 1e6
+        by_span = {s: copies.within([e for e in events if e["ph"] == "X" and e["name"] == s])
+                   for s in ("plan", "pack")}
         fused, support = counts.fused - fused0, counts.support - support0
         level_steps = int(session.obs.metrics.value("peel_fused_levels") - levels0)
         for name, a, b in zip(QUERIES, results, want):
@@ -967,15 +1090,23 @@ def span_split(torch, tag: str, g, want, backend: str, counts, trips: int | None
             f"{s} {ms[s]:.2f}" for s in SPANS + ("outside",)) + f" ms; wall {wall:.2f} ms; "
             f"fused_level_cuda launches {fused}, support_fine_cuda launches {support}; "
             f"0 retries, 0 fallbacks; answers as expected; unpack read back {unpack_mb:.3f} MB, "
-            f"the solve {copies.read_bytes() / 1e6:.3f} MB in {len(copies.reads)} copies")
+            f"the solve {copies.read_bytes() / 1e6:.3f} MB in {len(copies.reads)} readbacks; "
+            f"to the card {copies.bytes / 1e6:.3f} MB in {copies.copies} copies; " + "; ".join(
+                f"{s} {c['h2d_mb']:.3f} MB in {c['h2d_copies']} copies to the card, "
+                f"{c['readbacks']} readbacks of {c['read_mb'] * 1e3:.3f} kB"
+                for s, c in by_span.items()))
         out[run] = {**{s: ms[s] for s in SPANS + ("outside",)}, "wall": wall,
-                    "unpack_mb": unpack_mb, "read_mb": copies.read_bytes() / 1e6}
+                    "unpack_mb": unpack_mb, "read_mb": copies.read_bytes() / 1e6,
+                    "readbacks": len(copies.reads), "h2d_mb": copies.bytes / 1e6,
+                    "h2d_copies": copies.copies, "by_span": by_span}
     return out
 
 
 def submit_latency(torch, tag: str, g, want, backends) -> dict:
-    """``Session.submit``'s latency for one auto-rule query on ``g`` (the
-    planner's imbalance statistics): alone (median of 5 after one), and
+    """``Session.submit``'s latency for one auto-rule query on a new graph
+    object over ``g``'s arrays (the planner's lift of it and its one
+    readback: the bucket, the upper-triangular test and the imbalance
+    statistics): alone (median of 5 after one), and
     for each submit made, one every millisecond, by this thread while
     another thread solves ``g``'s batch on a warm session pinned to each
     of ``backends``; only the submits that start inside that solve's
@@ -986,11 +1117,16 @@ def submit_latency(torch, tag: str, g, want, backends) -> dict:
 
     from repro_torch.api import Session, TrussQuery
 
+    from repro_torch.graphs import CSRGraph
+
     probe = Session(max_batch=8, device="cuda")  # its queue is never served
 
     def submit():
+        # A graph object of its own for each query, so that no pending
+        # query's lift of it is reused: the latency of a graph's first plan.
+        fresh = CSRGraph(g.n, g.rowptr, g.colidx, name=g.name, validate=False)
         t0 = time.perf_counter()
-        probe.submit(TrussQuery.kmax(g))
+        probe.submit(TrussQuery.kmax(fresh))
         return t0, (time.perf_counter() - t0) * 1e3
 
     def check(results, what):
@@ -1054,6 +1190,7 @@ def prep_only(torch, smi, src: Path) -> int:
         out[name].update(span_split(torch, f"prep {name}", g, want, backend, LaunchCounts(),
                                     futs[0].stats.dispatch_trips))
         out[name]["submit"] = submit_latency(torch, f"prep {name}", g, want, SUBMIT_UNDER[name])
+        out[name]["split"] = stage_split(torch, f"prep {name}", g)
         del futs
     log(smi)
     log("prep " + json.dumps(out))
@@ -1111,6 +1248,45 @@ def phase_road(torch) -> int:
     submit_latency(torch, "phase13 road-512", g, want, SUBMIT_UNDER["road-512"])
     phase_peel_split(torch, g, bucket, "phase13", trips)
     return launches
+
+
+def phase_contig(torch, rmat15, rmat15_want) -> int:
+    """Phase 14: the contig layout on the card. rmat-15's and road-512's
+    three-query batches through ``Session(max_batch=8,
+    backend="fine/pallas/contig")``: one dispatch, no retry or fallback,
+    ``support_fine_cuda`` launched once a trip, every answer bit for bit
+    the aligned path's (rmat-15's: ``rmat15_want``; road-512's: a
+    ``fine/pallas/aligned`` session's, run first); then a warm repeat that
+    replays the trip graph. Returns the support launches of the two first
+    dispatches."""
+    from repro_torch.configs import LARGE_GRAPHS
+    from repro_torch.kernels import support_fine_cuda
+
+    road = next(b for b in LARGE_GRAPHS if b.name == "road-512").build()
+    _, road_futs, _ = run_session(torch, road, max_batch=8, backend="fine/pallas/aligned")
+    total = 0
+    for name, g, want in (("rmat-15", rmat15, rmat15_want),
+                          ("road-512", road, [f.result() for f in road_futs])):
+        support_fine_cuda.launches = 0
+        session, futs, wall = run_session(torch, g, max_batch=8, backend="fine/pallas/contig")
+        launches = support_fine_cuda.launches
+        st = session.stats()
+        trips = futs[0].stats.dispatch_trips
+        if (st["device_dispatches"] != 1 or st["retries"] or st["backend_fallbacks"]
+                or launches != trips or trips == 0):
+            raise AssertionError(
+                f"phase14 {name} contig: {st['device_dispatches']} dispatches, {st['retries']} "
+                f"retries, {st['backend_fallbacks']} fallbacks, {launches} support launches "
+                f"over {trips} trips")
+        for query, f, w in zip(QUERIES, futs, want):
+            if not same_result(query, f.result(), w):
+                raise AssertionError(f"phase14 {name} contig: {query} != the aligned path's")
+        log(f"phase14 {name} Session(max_batch=8, backend='fine/pallas/contig'): {wall:.2f}s wall "
+            f"(first dispatch), total_iters {trips}, support_fine_cuda launches {launches}; "
+            "every answer == the aligned path's")
+        log(f"phase14 {name} contig {warm_repeat(torch, session, g, futs, f'phase14 {name}')}")
+        total += launches
+    return total
 
 
 def phase_fused_main(torch, g, pallas_futs, pallas_wall):
@@ -1199,7 +1375,7 @@ def phase_fused_kernel(torch, g, bucket) -> dict:
     slot_ids, k0, single = main_path_slots(torch, bucket)
     frozen = torch.zeros(p.nnz_pad, dtype=torch.bool, device=dev)
     ftruss = torch.zeros(p.nnz_pad, dtype=torch.int32, device=dev)
-    st0 = init_peel_state(slot_ids, k0, p.colidx != 0, frozen, ftruss)
+    st0 = init_peel_state(p, slot_ids, k0, single, p.colidx != 0, frozen, ftruss)
     cfg = FusedConfig().clamp(bucket.nnz_pad)  # the planner's pick without a store
 
     def kernel(st, stamps=None):
@@ -1699,7 +1875,7 @@ def hold_frozen_kernels(torch, held, window: int, key) -> float:
     single = torch.as_tensor(np.asarray(call["single_level"], bool), device=dev)
     slot_ids = call["slot_ids"].to(dev, torch.int32)
     alive0, frozen, ftruss = call["alive0"], call["frozen"], call["frozen_truss"]
-    st0 = init_peel_state(slot_ids, k0, alive0, frozen, ftruss)
+    st0 = init_peel_state(p, slot_ids, k0, single, alive0, frozen, ftruss)
     cfg = exe.fused_config
     got = fused_level_cuda(p, st0, frozen, ftruss, single, block=cfg.block, schedule=cfg.schedule)
     want = fused_level_torch(p, st0, frozen, ftruss, single, window=window, block=cfg.block)
@@ -2759,10 +2935,13 @@ def main(argv: list[str]) -> int:
     log(f"phase10 {time.perf_counter() - t10:.1f}s")
     mesh = with_captures("phase11", lambda: phase_mesh(torch, g, want, pallas_wall))
     examples = phase_examples(torch, g, want)
-    del want
     t13 = time.perf_counter()
     road = phase_road(torch)
     log(f"phase13 {time.perf_counter() - t13:.1f}s")
+    t14 = time.perf_counter()
+    contig = phase_contig(torch, g, want)
+    log(f"phase14 {time.perf_counter() - t14:.1f}s")
+    del want
     profiled_peel(torch, g, bucket)
     for nums in (numbers, fused_numbers):  # the frozen-lane checks count too
         nums["max_abs_err"] = max(nums["max_abs_err"], stream["max_abs_err"])
@@ -2773,10 +2952,11 @@ def main(argv: list[str]) -> int:
             source="src/repro_torch/kernels/csrc/support_fine.cu",
             replaces="src/repro/kernels/support_fine.py:86",
             launches=launches + stream["support"] + resilience["support"] + mesh["support"]
-            + examples["support"] + road,
+            + examples["support"] + road + contig,
             launches_by_path=dict(
                 phase3=launches, phase9=stream["support"], phase10=resilience["support"],
                 phase11=mesh["support"], examples=examples["support"], phase13=road,
+                phase14_contig=contig,
             ),
             **numbers,
         ),

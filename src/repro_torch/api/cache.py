@@ -22,9 +22,10 @@ import threading
 from typing import Callable, Hashable, NamedTuple
 
 import numpy as np
+import torch
 
 from ..errors import CompileError, TrussError
-from ..graphs.csr import CSRGraph
+from ..graphs.csr import CSRGraph, csr_degrees
 from ..obs import MetricsRegistry
 from ..obs.events import EXECUTOR_BUILD, record_event
 
@@ -87,11 +88,31 @@ def bucket_for(g: CSRGraph, *, chunk: int = 256, min_window: int = 8) -> Bucket:
     deg = g.degrees()
     indeg = np.bincount(g.colidx, minlength=g.n + 1)
     und_max = int((deg + indeg).max(initial=0))
+    return bucket_from_degree(g, und_max, chunk=chunk, min_window=min_window)
+
+
+def bucket_from_degree(
+    g: CSRGraph, und_max: int, *, chunk: int = 256, min_window: int = 8
+) -> Bucket:
+    """:func:`bucket_for`'s bucket from ``g``'s maximum undirected degree
+    ``und_max``, found elsewhere (:func:`undirected_max_degree`, on a
+    device)."""
     return Bucket(
         n_pad=_next_pow2(max(g.n, 1)),
         nnz_pad=_next_pow2(max(g.nnz, chunk)),
         window=_next_pow2(max(min_window, und_max)),
     )
+
+
+def undirected_max_degree(rowptr: torch.Tensor, colidx: torch.Tensor) -> torch.Tensor:
+    """() int64 on the arrays' device: the largest undirected degree of the
+    upper-triangular CSR ``rowptr``/``colidx``, each vertex's out-degree
+    plus its in-degree.  The in-degrees are an ``index_add_`` into an
+    ``(n + 1,)`` zero tensor (``torch.bincount`` on CUDA reads its input's
+    maximum back to size its output)."""
+    cols = colidx.long()
+    indeg = torch.zeros(rowptr.shape[0], dtype=torch.int64, device=cols.device)
+    return (csr_degrees(rowptr) + indeg.index_add_(0, cols, torch.ones_like(cols))).max()
 
 
 def bucket_str(bucket: Bucket) -> str:

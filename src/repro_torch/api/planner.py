@@ -27,6 +27,7 @@ from __future__ import annotations
 import dataclasses
 import itertools
 import threading
+import weakref
 from typing import Any, Optional
 
 import numpy as np
@@ -35,12 +36,13 @@ import torch
 from ..core.truss import KTrussResult, TrussDecomposition
 from ..device import canonical_device, resolve_device
 from ..errors import DeviceError, InvalidGraphError, TrussError
+from ..graphs.csr import CSRGraph, LiftedCSR, lift_csr, not_upper, upper_violation
 from ..graphs.pack import pack_problems
-from ..graphs.stats import imbalance_stats
+from ..graphs.stats import ImbalanceStats, imbalance_parts, stats_from_parts
 from ..obs import clock as obs_clock
 from ..obs import current_tracer, record_peel_batch
 from ..resilience.faults import inject
-from .cache import Bucket, CompileCache, bucket_for
+from .cache import Bucket, CompileCache, bucket_from_degree, undirected_max_degree
 from .query import TrussQuery
 from .registry import (
     BackendKey,
@@ -50,7 +52,7 @@ from .registry import (
     runs_hand_kernel,
 )
 
-__all__ = ["RequestStats", "QueryState", "PlannedBatch", "Plan", "Planner"]
+__all__ = ["RequestStats", "GraphLift", "QueryState", "PlannedBatch", "Plan", "Planner"]
 
 _ids = itertools.count()
 
@@ -72,6 +74,27 @@ class RequestStats:
     dispatch_trips: int = 0  # peel loop trips of the batch's dispatch (shared)
 
 
+@dataclasses.dataclass(eq=False)
+class GraphLift:
+    """A query graph's CSR on the planner's device, and what ``plan`` read
+    back of it: the bucket, the first row that is not strictly upper
+    triangular (``low``: the row and its first column, ``(0, 0)`` when
+    none) and, for the auto rule, the imbalance statistics.
+
+    Queries on one ``CSRGraph`` object share one lift while any of them
+    holds it (:class:`QueryState`'s ``lift``, dropped when its dispatch's
+    unpack ends): the graph goes to the device once, ``plan`` reads back
+    once, and ``pack`` copies and reads back nothing.  The caller's graph
+    is not touched."""
+
+    graph: CSRGraph
+    csr: Optional[LiftedCSR] = None
+    bucket: Optional[Bucket] = None
+    low: tuple[int, int] = (0, 0)
+    stats: Optional[ImbalanceStats] = None
+    lock: threading.Lock = dataclasses.field(default_factory=threading.Lock)
+
+
 @dataclasses.dataclass
 class QueryState:
     """A submitted query with its planner assignment (queue entry)."""
@@ -86,6 +109,10 @@ class QueryState:
     # the unpack, beside the host result (a stream session keeps it as
     # its committed state, so nothing is copied back to the device).
     device_result: Optional[torch.Tensor] = None
+    # The query's graph on the planner's device (``Planner.assign``),
+    # shared with the other pending queries on the same graph object;
+    # ``None`` once the dispatch's unpack has ended.
+    lift: Optional[GraphLift] = None
 
     @property
     def group(self) -> tuple[Bucket, BackendKey]:
@@ -221,6 +248,10 @@ class Planner:
         self.queries_planned = 0  # guarded-by: _stats_lock
         self.plan_time_s = 0.0  # guarded-by: _stats_lock
         self.backend_choices: dict[tuple[Bucket, BackendKey], int] = {}  # guarded-by: _stats_lock
+        # The live lifts, by the id of their graph (which each holds, so the
+        # id is not reused while it lives); an entry goes when the last
+        # query holding it lets it go.
+        self._lifts: weakref.WeakValueDictionary = weakref.WeakValueDictionary()  # guarded-by: _stats_lock
 
     # ------------------------------------------------------------------ #
     # Assignment: query -> (bucket, backend)
@@ -229,7 +260,9 @@ class Planner:
         """Canonicalize one query: shape bucket + registry backend."""
         t0 = obs_clock.now()
         with current_tracer().span("plan", workload=query.workload) as span:
-            bucket = bucket_for(query.graph, chunk=self.chunk)
+            key = query.backend if query.backend is not None else self.backend
+            lift = self._lift(query.graph, stats=key is None)
+            bucket = lift.bucket
             if query.placement == "sharded" and self.mesh is None:
                 raise ValueError("placement='sharded' needs a session mesh")
             if query.placement == "replicated" and self.mesh is not None:
@@ -237,10 +270,9 @@ class Planner:
                     "placement='replicated' conflicts with the session mesh "
                     "(placement is per-session; open a mesh-less session)"
                 )
-            key = query.backend if query.backend is not None else self.backend
             if key is None:
                 key = choose_backend(
-                    imbalance_stats(query.graph, device=self.device),
+                    lift.stats,
                     kernel=self.kernel,
                     layout=self.layout,
                 )
@@ -272,11 +304,39 @@ class Planner:
             self.backend_choices[(bucket, key)] = (
                 self.backend_choices.get((bucket, key), 0) + 1
             )
-        state = QueryState(query=query, bucket=bucket, backend=key)
+        state = QueryState(query=query, bucket=bucket, backend=key, lift=lift)
         state.stats.plan_time_s = dt
         state.stats.bucket = bucket
         state.stats.backend = key
         return state
+
+    def _lift(self, graph: CSRGraph, *, stats: bool) -> GraphLift:
+        """``graph``'s live lift on the planner's device, made on first use,
+        with its bucket, its upper-triangular test and (``stats``) its
+        imbalance statistics read back in one readback for what it lacks."""
+        with self._stats_lock:
+            lift = self._lifts.get(id(graph))
+            if lift is None:
+                lift = self._lifts[id(graph)] = GraphLift(graph)
+        with lift.lock:
+            if lift.csr is None:
+                lift.csr = LiftedCSR(graph.n, *lift_csr(graph, self.device), graph.name)
+            rowptr, colidx = lift.csr.rowptr, lift.csr.colidx
+            parts = []
+            if lift.bucket is None:
+                parts += [undirected_max_degree(rowptr, colidx), *upper_violation(rowptr, colidx)]
+            if stats and lift.stats is None:
+                parts += imbalance_parts(rowptr, colidx, graph.nnz)
+            if parts:
+                values = torch.stack(parts).tolist()  # plan's one readback
+                if lift.bucket is None:
+                    und_max, row, col = values[:3]
+                    values = values[3:]
+                    lift.bucket = bucket_from_degree(graph, und_max, chunk=self.chunk)
+                    lift.low = (row, col)
+                if values:
+                    lift.stats = stats_from_parts(graph, values)
+        return lift
 
     def plan(self, states: list[QueryState]) -> Plan:
         """Group assigned queries into dispatchable batches (FIFO within a
@@ -437,8 +497,16 @@ class Planner:
         with tracer.span(
             "pack", members=len(queries), slots=batch.slots, layout=backend.layout
         ):
+            members = []
+            for st in queries:
+                if st.lift is None:  # not assigned here: the pack lifts and checks it
+                    members.append(st.query.graph)
+                    continue
+                if st.lift.low[0]:
+                    raise not_upper(st.lift.graph.name, *st.lift.low)
+                members.append(st.lift.csr)
             packed = pack_problems(
-                [st.query.graph for st in queries],
+                members,
                 slot_n=bucket.n_pad,
                 slot_nnz=bucket.nnz_pad,
                 slots=batch.slots,
@@ -575,6 +643,8 @@ class Planner:
                         )
                     )
 
+        for st in queries:
+            st.lift = None  # the dispatch is done with the graph's lift
         # The paper's load-imbalance statistic, observed at runtime: the
         # per-slot iteration spread of THIS dispatch, per (bucket, backend).
         record_peel_batch(

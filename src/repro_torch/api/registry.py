@@ -84,6 +84,7 @@ class BackendSpec:
         *,
         window: int,
         chunk: int = 256,
+        row_chunk: int = 32,
         max_iters: int | None = None,
         mesh=None,
         mode: str | None = None,
@@ -103,6 +104,7 @@ class BackendSpec:
             backend=self.key.kernel,
             window=window,
             chunk=chunk,
+            row_chunk=row_chunk,
             max_iters=max_iters,
             mesh=mesh,
             fused_config=fused_config,

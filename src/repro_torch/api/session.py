@@ -525,6 +525,7 @@ class Session:
     def _shed(self, state: QueryState, err: BaseException) -> None:
         """Mark a timed-out query dead: reclaim its queue slot, fail its
         future, count the shed."""
+        state.lift = None
         with self._cv:
             self.queue.discard(state)
             fut = self._futures.pop(state.id, None)
@@ -554,6 +555,9 @@ class Session:
                         fut._fail(e)
                 self._cv.notify_all()
             raise
+        finally:
+            for st in batch:
+                st.lift = None  # a member that failed keeps no lift either
         m = self.obs.metrics
         with self._cv:
             for out in outcomes:

@@ -34,6 +34,7 @@ import torch
 from ..device import resolve_device
 from ..graphs.csr import (
     CSRGraph,
+    LiftedCSR,
     check_upper,
     csr_degrees,
     edge_rows,
@@ -121,7 +122,7 @@ def problem_from_arrays(
 
 
 def prepare_fine(
-    g: CSRGraph,
+    g: CSRGraph | LiftedCSR,
     chunk: int = 1024,
     *,
     nnz_pad: int | None = None,
@@ -134,10 +135,13 @@ def prepare_fine(
     ``nnz_pad``/``unnz_pad`` override the default round-up-to-chunk padding
     with explicit targets so callers (the serving compile cache) can
     canonicalize many graphs onto one static shape.  The only host-to-device
-    copy is ``g``'s ``rowptr`` and ``colidx`` (:func:`lift_csr`): every
+    copy is ``g``'s ``rowptr`` and ``colidx`` (:func:`lift_csr`; none for a
+    :class:`LiftedCSR`, or a graph that holds its arrays there): every
     derived array is built on ``device`` by torch ops, equal to the
-    reference's host arrays.  A CSR that is not strictly upper triangular
-    raises :class:`~repro_torch.errors.InvalidGraphError` (:func:`check_upper`).
+    reference's host arrays.  A ``CSRGraph`` that is not strictly upper
+    triangular raises :class:`~repro_torch.errors.InvalidGraphError`
+    (:func:`check_upper`, on the device, before the symmetrization); a
+    ``LiftedCSR`` was held to that contract by whoever lifted it.
     """
     dev = resolve_device(device)
     nnzp = max(_round_up(g.nnz, chunk), chunk) if nnz_pad is None else int(nnz_pad)
@@ -148,8 +152,9 @@ def prepare_fine(
     if unnzp < unnz:
         raise ValueError(f"unnz_pad={unnzp} < undirected nnz={unnz}")
 
-    check_upper(g)
     rowptr, colidx = lift_csr(g, dev)
+    if not isinstance(g, LiftedCSR):
+        check_upper(g, rowptr, colidx)
     rows = edge_rows(rowptr, g.nnz)
     urowptr, ucolidx, urows = symmetrize_csr(rowptr, colidx, rows)
     # Map undirected nonzeros to directed edge ids: entry (a,b) of the

@@ -197,8 +197,10 @@ def _is_aligned(slot_ids: torch.Tensor, num_slots: int) -> torch.Tensor:
 
 
 def init_peel_state(
+    p: FineProblem,
     slot_ids: torch.Tensor,
     k0: torch.Tensor,
+    single_level: torch.Tensor,
     alive0: torch.Tensor,
     frozen: torch.Tensor,
     frozen_truss: torch.Tensor,
@@ -207,8 +209,9 @@ def init_peel_state(
 ) -> PeelState:
     """The peel's starting carry.  Frozen lanes carry their known
     trussness straight through to the output; free lanes start at the
-    vacuous floor.  ``sums`` is the peel's per-slot summer; by default one
-    for any slot ids (sorted) is built."""
+    vacuous floor.  ``p`` and ``single_level`` are taken in the
+    reference's positions and not used.  ``sums`` is the peel's per-slot
+    summer; by default one for any slot ids (sorted) is built."""
     num_slots = int(k0.shape[0])
     lanes = slot_ids.long()
     if sums is None:
@@ -490,7 +493,9 @@ class _Peel:
                     [alive0.any(), _is_aligned(slot_ids, num_slots)]
                 ).tolist()
                 sums = _SlotSums(slot_ids, num_slots, aligned=aligned)
-                st = init_peel_state(slot_ids, k0, alive0, frozen, frozen_truss, sums=sums)
+                st = init_peel_state(
+                    p, slot_ids, k0, single_level, alive0, frozen, frozen_truss, sums=sums
+                )
                 step = (p, slot_ids.long(), sums, single_level, frozen, frozen_truss)
                 if any_alive and limit > 0 and alive0.is_cuda:
                     runs.append(self._graph(j, args, aligned, limit, step, st))
@@ -595,7 +600,7 @@ class _FusedPeel:
     ) -> PeelState:
         num_slots = int(k0.shape[0])
         limit = trip_cap(self.max_iters, p, alive0)
-        st = init_peel_state(slot_ids, k0, alive0, frozen, frozen_truss)
+        st = init_peel_state(p, slot_ids, k0, single_level, alive0, frozen, frozen_truss)
         tracer = current_tracer()
         registry = current_registry()
         level = 0
@@ -672,6 +677,7 @@ class PeelExecutor:
         backend: str = "xla",
         window: int | None = None,
         chunk: int = 256,
+        row_chunk: int = 32,
         max_iters: int | None = None,
         mesh=None,
         support: SupportFn | None = None,
@@ -710,6 +716,7 @@ class PeelExecutor:
                 backend=backend,
                 window=window,
                 chunk=chunk,
+                row_chunk=row_chunk,
             )
         self.support = support
         self.mesh = mesh

@@ -4,11 +4,11 @@ Host-side construction and validation are numpy (:class:`CSRGraph`); the
 tensor helpers below (:func:`lift_csr`, :func:`edge_rows`,
 :func:`csr_degrees`, :func:`symmetrize_csr`) build the derived arrays on a
 device from a graph's lifted ``rowptr``/``colidx``, once
-:func:`check_upper` has held the graph to the upper-triangular contract
-that the symmetrization relies on.  A graph built on a device (the stream
-path's) carries its device arrays (:func:`hold_lifted`), and a graph that
-lives on a device alone is a :class:`LiftedCSR`; :func:`lift_csr` copies
-neither again.
+:func:`check_upper` (on the device) has held the graph to the
+upper-triangular contract that the symmetrization relies on.  A graph
+built on a device (the stream path's) carries its device arrays
+(:func:`hold_lifted`), and a graph that lives on a device alone is a
+:class:`LiftedCSR`; :func:`lift_csr` copies neither again.
 
 Conventions (paper-faithful, see DESIGN.md §2/§4):
 
@@ -46,7 +46,9 @@ __all__ = [
     "from_edges",
     "hold_lifted",
     "lift_csr",
+    "not_upper",
     "symmetrize_csr",
+    "upper_violation",
     "validate_csr",
 ]
 
@@ -311,37 +313,62 @@ class CSRGraph:
 # ---------------------------------------------------------------------- #
 # Tensor helpers: the derived arrays above, built on a graph's device
 # ---------------------------------------------------------------------- #
-def check_upper(g: CSRGraph) -> None:
+def upper_violation(rowptr: torch.Tensor, colidx: torch.Tensor) -> torch.Tensor:
+    """(2,) int64 on the arrays' device: the first 1-based row whose first
+    column lies at or below it, and that column; ``(0, 0)`` when every
+    column lies above its row.
+
+    Columns ascend within a validated row, so each nonempty row's first
+    column decides.  ``torch.argmax`` names the first maximum, so the row
+    is the first offender, as numpy's ``nonzero(...)[0]`` names it.
+    """
+    n, nnz = rowptr.shape[0] - 1, colidx.shape[0]
+    if n == 0 or nnz == 0:
+        return torch.zeros(2, dtype=torch.int64, device=rowptr.device)
+    starts = rowptr[:-1]
+    first = colidx[starts.clamp(max=nnz - 1)].long()
+    rows = torch.arange(1, n + 1, dtype=torch.int64, device=rowptr.device)
+    low = (starts < rowptr[1:]) & (first <= rows)
+    at = torch.cat([low, low.new_ones(1)]).to(torch.int32).argmax()  # n: no offender
+    found = at < n
+    row = torch.where(found, at + 1, 0)
+    return torch.stack([row, torch.where(found, first[at.clamp(max=n - 1)], 0)])
+
+
+def not_upper(name: str, row: int, col: int) -> InvalidGraphError:
+    """The error of a CSR whose column ``col`` lies at or below its row ``row``."""
+    return InvalidGraphError(
+        f"graph {name!r}: column {col} at or below row {row}: the CSR must be "
+        "strictly upper triangular (each edge once, as (min, max))",
+        row=row,
+        kind="not_upper",
+        graph=name,
+    )
+
+
+def check_upper(g: "CSRGraph | LiftedCSR", rowptr: torch.Tensor, colidx: torch.Tensor) -> None:
     """Raise :class:`InvalidGraphError` (``kind="not_upper"``) unless every
-    column of ``g`` lies above its row.
+    column of ``g``, lifted as ``rowptr``/``colidx``, lies above its row.
 
     :func:`validate_csr` leaves upper-triangularity to the builders, but
     :func:`symmetrize_csr` needs it: a CSR that already holds both
     directions of an edge (a symmetric one, the commonest misuse) would
-    symmetrize into duplicate entries and wrong supports.  Columns ascend
-    within a validated row, so each nonempty row's first column decides:
-    one vectorized compare over the rows, on the host.
+    symmetrize into duplicate entries and wrong supports.  The test
+    (:func:`upper_violation`) runs on the arrays' device and reads back
+    two integers.
     """
-    starts = np.asarray(g.rowptr[:-1])
-    rows = np.nonzero(starts < np.asarray(g.rowptr[1:]))[0]  # 0-based, nonempty
-    low = np.nonzero(np.asarray(g.colidx)[starts[rows]] <= rows + 1)[0]
-    if low.size:
-        row = int(rows[low[0]]) + 1
-        col = int(g.colidx[starts[row - 1]])
-        raise InvalidGraphError(
-            f"graph {g.name!r}: column {col} at or below row {row}: the CSR must be "
-            "strictly upper triangular (each edge once, as (min, max))",
-            row=row,
-            kind="not_upper",
-            graph=g.name,
-        )
+    row, col = upper_violation(rowptr, colidx).tolist()
+    if row:
+        raise not_upper(g.name, row, col)
 
 
 class LiftedCSR(NamedTuple):
     """An upper-triangular CSR that lives on a device alone: a
-    :class:`CSRGraph`'s ``n``, ``rowptr`` (int64), ``colidx`` (int32) and
-    ``name``, as tensors.  The stream path's union graph is one; nothing
-    reads it back."""
+    :class:`CSRGraph`'s ``n``, ``rowptr`` (int64), ``colidx`` (int32 or
+    int64) and ``name``, as tensors.  Whoever builds one holds it to the
+    contract (:func:`check_upper`), so the preparation does not test it
+    again.  The stream path's union graph is one, and so is the planner's
+    lift of a query's graph; nothing reads it back."""
 
     n: int
     rowptr: torch.Tensor

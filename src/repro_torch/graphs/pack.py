@@ -23,7 +23,7 @@ import torch
 
 from ..device import resolve_device
 from ..errors import InvalidGraphError
-from .csr import CSRGraph
+from .csr import CSRGraph, LiftedCSR, check_upper, lift_csr
 
 __all__ = [
     "PackedGraph",
@@ -72,7 +72,9 @@ class PackedProblem:
     slot_n: int
     slots: int
     layout: str = "contig"
-    packed: PackedGraph | None = None  # union CSRGraph; contig layout only
+    # The reference's host union (contig layout); the port builds the union
+    # on the device (``LiftedCSR``) and keeps no host copy of it.
+    packed: PackedGraph | None = None
 
 
 def pack_graphs(
@@ -92,12 +94,7 @@ def pack_graphs(
         raise ValueError("pack_graphs needs at least one graph")
     b = int(slots if slots is not None else len(graphs))
     sn = int(slot_n if slot_n is not None else max(g.n for g in graphs))
-    if len(graphs) > b:
-        raise ValueError(f"{len(graphs)} graphs > {b} slots")
-    if any(g.n > sn for g in graphs):
-        raise ValueError(f"member graph exceeds slot_n={sn}")
-    if b * sn + 1 >= np.iinfo(np.int32).max:
-        raise ValueError("packed vertex space overflows int32")
+    _check_grid(graphs, slot_n=sn, slots=b)
 
     counts = np.zeros(b * sn + 1, dtype=np.int64)
     col_parts: list[np.ndarray] = []
@@ -115,6 +112,18 @@ def pack_graphs(
     return PackedGraph(
         graph=union, slot_n=sn, slots=b, edge_ranges=tuple(edge_ranges)
     )
+
+
+def _check_grid(graphs, *, slot_n: int, slots: int) -> None:
+    """The members fit a ``slots × slot_n`` vertex grid that int32 can number."""
+    if not graphs:
+        raise ValueError("pack_graphs needs at least one graph")
+    if len(graphs) > slots:
+        raise ValueError(f"{len(graphs)} graphs > {slots} slots")
+    if any(g.n > slot_n for g in graphs):
+        raise ValueError(f"member graph exceeds slot_n={slot_n}")
+    if slots * slot_n + 1 >= np.iinfo(np.int32).max:
+        raise ValueError("packed vertex space overflows int32")
 
 
 def _check_member_capacity(graphs, *, slot_n: int, slot_nnz: int) -> None:
@@ -185,9 +194,9 @@ def pack_problems(
             f"batch nnz={total} exceeds the packed capacity "
             f"{b} slots x slot_nnz={slot_nnz} = {b * slot_nnz}"
         )
-    pg = pack_graphs(graphs, slot_n=slot_n, slots=b)
+    union, edge_ranges = _lifted_union(graphs, slot_n=slot_n, slots=b, device=device)
     problem = prepare_fine(
-        pg.graph,
+        union,
         chunk=chunk,
         nnz_pad=b * slot_nnz,
         unnz_pad=2 * b * slot_nnz,
@@ -196,12 +205,34 @@ def pack_problems(
     return PackedProblem(
         problem=problem,
         slot_nnz=int(slot_nnz),
-        edge_ranges=pg.edge_ranges,
+        edge_ranges=edge_ranges,
         slot_n=int(slot_n),
         slots=b,
         layout="contig",
-        packed=pg,
     )
+
+
+def _lifted_union(graphs, *, slot_n: int, slots: int, device):
+    """:func:`pack_graphs`'s disjoint union, built on ``device`` from each
+    member's lift (:func:`~repro_torch.graphs.csr.lift_csr`: a member
+    already there is not copied), as a :class:`LiftedCSR` with the
+    members' edge ranges.  A union with a host member is held to the
+    upper-triangular contract here (one readback); members that are
+    ``LiftedCSR`` were held to it when they were lifted."""
+    _check_grid(graphs, slot_n=slot_n, slots=slots)
+    dev = resolve_device(device)
+    counts = torch.zeros(slots * slot_n + 1, dtype=torch.int64, device=dev)
+    cols, edge_ranges, at = [], [], 0
+    for i, g in enumerate(graphs):
+        rowptr, colidx = lift_csr(g, dev)
+        counts[i * slot_n + 1 : i * slot_n + g.n + 1] = torch.diff(rowptr)
+        cols.append(colidx.long() + i * slot_n)
+        edge_ranges.append((at, at + g.nnz))
+        at += g.nnz
+    union = LiftedCSR(slots * slot_n, torch.cumsum(counts, 0), torch.cat(cols), "packed")
+    if not all(isinstance(g, LiftedCSR) for g in graphs):
+        check_upper(union, union.rowptr, union.colidx)
+    return union, tuple(edge_ranges)
 
 
 def _pack_problems_aligned(
@@ -320,7 +351,8 @@ def validate_fused_tiling(problem, *, slots: int, block: int) -> None:
     a mis-sized block, or a pack whose row starts spill across a slot
     boundary — would silently mix members' edges into one tile/slot
     reduction; instead it raises the typed :class:`InvalidGraphError`
-    naming the offending slot.  Reads ``rowptr``/``deg`` back to the host.
+    naming the offending slot.  The band test runs on the pack's device,
+    which reads back one int32: the first offending row, or -1.
     """
     nnzp = int(problem.colidx.shape[0])
     if slots < 1 or nnzp % slots:
@@ -338,28 +370,30 @@ def validate_fused_tiling(problem, *, slots: int, block: int) -> None:
             slot=1 if slots > 1 else 0,
             kind="fused_tiling",
         )
-    rowptr = problem.rowptr.cpu().numpy()
-    deg = problem.deg.cpu().numpy()
-    n_tot = rowptr.shape[0] - 1
+    n_tot = problem.rowptr.shape[0] - 1
     if n_tot % slots:
         raise InvalidGraphError(
             f"packed vertex count {n_tot} does not divide into {slots} slots",
             kind="fused_tiling",
         )
     slot_n = n_tot // slots
-    v = np.arange(1, n_tot + 1)
-    start = rowptr[:-1].astype(np.int64)  # rowptr[v-1] begins row v
-    extent = deg[1:].astype(np.int64)
-    slot_of = (v - 1) // slot_n
-    lo = slot_of.astype(np.int64) * slot_nnz
+    # The band test on the device: row v (1-based) starts at rowptr[v-1]
+    # and holds deg[v] lanes, inside [slot * slot_nnz, (slot+1) * slot_nnz).
+    start = problem.rowptr[:-1].long()
+    extent = problem.deg[1:].long()
+    slot_of = torch.arange(n_tot, device=start.device) // max(slot_n, 1)
+    lo = slot_of * slot_nnz
     bad = (extent > 0) & ((start < lo) | (start + extent > lo + slot_nnz))
-    if bad.any():
-        i = int(np.argmax(bad))
+    # The first bad row (argmax names the first maximum, as numpy's does),
+    # or -1: the one readback.
+    at = torch.cat([bad, bad.new_ones(1)]).to(torch.int32).argmax()
+    i = int(torch.where(at < n_tot, at, -1).to(torch.int32))
+    if i >= 0:
         raise InvalidGraphError(
-            f"slot {int(slot_of[i])}: row {int(v[i])} spans lanes "
+            f"slot {i // slot_n}: row {i + 1} spans lanes "
             f"[{int(start[i])}, {int(start[i] + extent[i])}) outside its "
-            f"aligned band [{int(lo[i])}, {int(lo[i] + slot_nnz)}); the "
+            f"aligned band [{i // slot_n * slot_nnz}, {(i // slot_n + 1) * slot_nnz}); the "
             "fused kernel's per-slot tiles would mix members",
-            slot=int(slot_of[i]),
+            slot=i // slot_n,
             kind="fused_tiling",
         )

@@ -19,15 +19,23 @@ import torch
 from ..device import resolve_device
 from .csr import CSRGraph, csr_degrees, edge_rows, lift_csr
 
-__all__ = ["ImbalanceStats", "imbalance_stats", "coarse_task_work", "fine_task_work"]
+__all__ = [
+    "ImbalanceStats",
+    "coarse_task_work",
+    "fine_task_work",
+    "imbalance_parts",
+    "imbalance_stats",
+    "stats_from_parts",
+]
 
 
-def _fine(g: CSRGraph, dev: torch.device) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """``(fine, rows, deg)`` of ``g`` on ``dev``, int64: the per-edge work,
-    each edge's row and the degrees."""
-    rowptr, colidx = lift_csr(g, dev)
+def _fine(
+    rowptr: torch.Tensor, colidx: torch.Tensor, nnz: int
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``(fine, rows, deg)`` of a lifted CSR, int64 on its device: the
+    per-edge work, each edge's row and the degrees."""
     deg = csr_degrees(rowptr)
-    rows = edge_rows(rowptr, g.nnz)
+    rows = edge_rows(rowptr, nnz)
     return deg[rows] + deg[colidx], rows, deg
 
 
@@ -44,13 +52,13 @@ def coarse_task_work(g: CSRGraph, *, device: str | torch.device | None = None) -
     a_i12[j+1:] with row κ.  Work(i) = Σ_{κ ∈ N⁺(i)} (deg(i) + deg(κ)),
     the standard merge-cost model for sorted intersections.
     """
-    return _coarse(*_fine(g, resolve_device(device))).cpu().numpy()
+    return _coarse(*_fine(*lift_csr(g, resolve_device(device)), g.nnz)).cpu().numpy()
 
 
 def fine_task_work(g: CSRGraph, *, device: str | torch.device | None = None) -> np.ndarray:
     """Per-edge work estimate for the fine decomposition (Alg. 3), built on
     ``device`` (``None`` = CUDA) and returned as the host's int64 array."""
-    return _fine(g, resolve_device(device))[0].cpu().numpy()
+    return _fine(*lift_csr(g, resolve_device(device)), g.nnz)[0].cpu().numpy()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -75,23 +83,27 @@ class ImbalanceStats:
         return dataclasses.asdict(self)
 
 
-def imbalance_stats(g: CSRGraph, *, device: str | torch.device | None = None) -> ImbalanceStats:
-    """The paper's imbalance statistics of ``g``, its work vectors built on
-    ``device`` (``None`` = CUDA).
-
-    The device reduces them to integer sums, maxima and counts, read back
-    once; the ratios are taken here in float64.  Every sum is an exact
-    integer below 2^53, so ``float(sum) / count`` is numpy's ``mean`` bit
-    for bit and the result equals the reference's.
-    """
-    fine, rows, deg = _fine(g, resolve_device(device))
+def imbalance_parts(rowptr: torch.Tensor, colidx: torch.Tensor, nnz: int) -> list[torch.Tensor]:
+    """The integer sums, maxima and counts :func:`imbalance_stats` reads
+    back, as eight () int64 tensors on the arrays' device (``nnz`` is the
+    host's count: sizing reads nothing back)."""
+    fine, rows, deg = _fine(rowptr, colidx, nnz)
     coarse = _coarse(fine, rows, deg)
     parts = [deg.sum(), deg.max()]  # deg[0] == 0: never empty, never raises the max
     # Work is never negative, so the positive entries' sum and maximum are
     # the whole vector's (a zero appended keeps the maximum of an empty one).
     for w in (coarse, fine):
         parts += [w.sum(), torch.cat([w, w.new_zeros(1)]).max(), (w > 0).sum()]
-    d_sum, d_max, c_sum, c_max, c_cnt, f_sum, f_max, f_cnt = torch.stack(parts).tolist()
+    return parts
+
+
+def stats_from_parts(g: CSRGraph, values) -> ImbalanceStats:
+    """``g``'s :class:`ImbalanceStats` from the eight integers of
+    :func:`imbalance_parts`, read back.  The ratios are taken here in
+    float64.  Every sum is an exact integer below 2^53, so ``float(sum) /
+    count`` is numpy's ``mean`` bit for bit and the result equals the
+    reference's."""
+    d_sum, d_max, c_sum, c_max, c_cnt, f_sum, f_max, f_cnt = values
 
     def _imb(total: int, top: int, count: int) -> float:
         return float(top) / max(float(total) / count, 1e-9) if count else 1.0
@@ -112,3 +124,11 @@ def imbalance_stats(g: CSRGraph, *, device: str | torch.device | None = None) ->
         coarse_tasks=c_cnt,
         fine_tasks=f_cnt,
     )
+
+
+def imbalance_stats(g: CSRGraph, *, device: str | torch.device | None = None) -> ImbalanceStats:
+    """The paper's imbalance statistics of ``g``, its work vectors built on
+    ``device`` (``None`` = CUDA) and reduced there to integer sums, maxima
+    and counts (:func:`imbalance_parts`), read back once."""
+    rowptr, colidx = lift_csr(g, resolve_device(device))
+    return stats_from_parts(g, torch.stack(imbalance_parts(rowptr, colidx, g.nnz)).tolist())

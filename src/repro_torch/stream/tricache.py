@@ -72,9 +72,9 @@ def triangles_incident(
     keys = torch.as_tensor(keys).to(dev, torch.int64).reshape(-1)
     if keys.numel() == 0 or g.nnz == 0:
         return empty
-    if isinstance(g, CSRGraph):
-        check_upper(g)
     rowptr, colidx = lift_csr(g, dev)
+    if isinstance(g, CSRGraph):
+        check_upper(g, rowptr, colidx)
     # From here on the symmetrized CSR: both directions of every edge.
     rowptr, col, urows = symmetrize_csr(rowptr, colidx, edge_rows(rowptr, g.nnz))
     stride = g.n + 1

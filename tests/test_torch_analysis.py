@@ -396,7 +396,7 @@ def test_cli_reports_and_exits_zero(tmp_path):
     assert proc.returncode == 0, proc.stdout + proc.stderr
     data = json.loads(report.read_text())
     assert data["tool"] == "repro_torch.analysis"
-    assert data["counts"] == {"new": 0, "baselined": 2, "stale_baseline": 0}
+    assert data["counts"] == {"new": 0, "baselined": 1, "stale_baseline": 0}
     assert data["files_scanned"] > 60
 
 

@@ -94,6 +94,56 @@ def test_backend_grid_spellings_and_default_kernel():
         ta.get_backend("fine/fused/contig")
 
 
+@pytest.mark.parametrize("row_chunk", [8, 32])
+def test_registry_executor_takes_row_chunk_like_reference(row_chunk):
+    """``BackendSpec.make_executor(row_chunk=...)`` builds a coarse executor
+    whose peel equals the reference's on the same pack."""
+    from repro.graphs import pack_problems
+    from _torch_parity import torch_problem
+
+    graphs = [g for g, _ in small_pairs()][:2]
+    buckets = [ra.bucket_for(g, chunk=64) for g in graphs]
+    window = max(b.window for b in buckets)
+    slots, slot_nnz = 2, max(b.nnz_pad for b in buckets)
+    pp = pack_problems(graphs, slot_n=max(b.n_pad for b in buckets), slot_nnz=slot_nnz,
+                       slots=slots, chunk=64, layout="aligned")
+    slot_ids = np.repeat(np.arange(slots, dtype=np.int32), slot_nnz)
+    kw = dict(window=window, chunk=64, row_chunk=row_chunk)
+    ref = ra.get_backend("coarse/xla/aligned").make_executor(**kw).peel(
+        pp.problem, slot_ids=slot_ids, k0=[3, 4]
+    )
+    tex = ta.get_backend("coarse/xla/aligned").make_executor(**kw)
+    got = tex.peel(torch_problem(pp.problem), slot_ids=slot_ids, k0=[3, 4])
+    assert tex.support.keywords["row_chunk"] == row_chunk
+    for f in ref._fields:
+        assert np.array_equal(np.asarray(getattr(ref, f)), getattr(got, f).numpy()), f
+
+
+def _three(api, g):
+    return [api.TrussQuery.decompose(g), api.TrussQuery.kmax(g), api.TrussQuery.ktruss(g, k=4)]
+
+
+@pytest.mark.parametrize("backend", [None, "fine/xla/contig"])
+def test_a_batch_on_one_graph_lifts_it_once_and_reads_back_once_in_plan(monkeypatch, backend):
+    """Three queries on one graph object: its arrays go to the device once,
+    in ``plan``, which reads back once for the batch; ``pack`` copies and
+    reads back nothing.  The answers are the reference's, the caller's
+    graph is left alone, and no lift outlives the dispatch."""
+    from _torch_traffic import plan_pack_traffic
+
+    gr, gt = small_pairs()[0]
+    kw = dict(backend=backend, chunk=64, max_batch=8)
+    want = ra.Session(**kw).solve(_three(ra, gr))
+    session = ta.Session(device="cpu", **kw)
+    got, lifts, reads = plan_pack_traffic(monkeypatch, session, _three(ta, gt), gt)
+    assert lifts == ["plan", "plan"]  # rowptr and colidx, once
+    assert reads == {"plan": 1, "pack": 0}
+    for r, t in zip(want, got):
+        _same_result(r, t)
+    assert "_lifted" not in gt.__dict__ and len(session.planner._lifts) == 0
+    assert session.stats()["device_dispatches"] == 1
+
+
 def test_entry_points_default_to_cuda_and_never_fall_back(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     _, gt = small_pairs()[0]

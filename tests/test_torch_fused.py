@@ -88,7 +88,7 @@ def _levels_both(pp, p, slot_ids, window, block, schedule, k0, single, alive0, f
     args = [jnp.asarray(x) for x in (slot_ids, k0, single, alive0, frozen, ftruss)]
     rst = rpeel.init_peel_state(pp.problem, *args)
     tk0, tsingle, talive0, tfrozen, tftruss = (torch.from_numpy(x) for x in (k0, single, alive0, frozen, ftruss))
-    tst = tpeel.init_peel_state(torch.from_numpy(slot_ids), tk0, talive0, tfrozen, tftruss)
+    tst = tpeel.init_peel_state(p, torch.from_numpy(slot_ids), tk0, tsingle, talive0, tfrozen, tftruss)
     _assert_states(rst, tst)
     levels = 0
     while not bool(np.asarray(rst.done).all()):
@@ -138,8 +138,8 @@ def test_make_fused_level_refuses_bad_configs():
     frozen = torch.zeros(p.nnz_pad, dtype=torch.bool)
     ftruss = torch.zeros(p.nnz_pad, dtype=torch.int32)
     st = tpeel.init_peel_state(
-        torch.from_numpy(slot_ids), torch.tensor([3, 3], dtype=torch.int32),
-        p.colidx != 0, frozen, ftruss,
+        p, torch.from_numpy(slot_ids), torch.tensor([3, 3], dtype=torch.int32),
+        torch.zeros(2, dtype=torch.bool), p.colidx != 0, frozen, ftruss,
     )
     with pytest.raises(ValueError, match="does not divide"):
         step(p, st, frozen, ftruss, torch.zeros(2, dtype=torch.bool))

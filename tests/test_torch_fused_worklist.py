@@ -96,8 +96,8 @@ def test_fused_level_cuda_refuses_cpu_tensors():
     slot_ids = torch.zeros(p.nnz_pad, dtype=torch.int32)
     frozen = torch.zeros(p.nnz_pad, dtype=torch.bool)
     st = tpeel.init_peel_state(
-        slot_ids, torch.tensor([3], dtype=torch.int32), p.colidx != 0, frozen,
-        torch.zeros(p.nnz_pad, dtype=torch.int32),
+        p, slot_ids, torch.tensor([3], dtype=torch.int32), torch.zeros(1, dtype=torch.bool),
+        p.colidx != 0, frozen, torch.zeros(p.nnz_pad, dtype=torch.int32),
     )
     before = fused_level_cuda.launches
     with pytest.raises(ValueError, match="CUDA"):
@@ -145,7 +145,7 @@ def test_done_slot_state_is_a_fixed_point_of_the_level(name):
     slot_ids = torch.arange(slots, dtype=torch.int32).repeat_interleave(slot_nnz)
     single = torch.tensor(single)
     k0 = torch.tensor(k0, dtype=torch.int32)
-    st = tpeel.init_peel_state(slot_ids, k0, alive0, frozen, ftruss)
+    st = tpeel.init_peel_state(p, slot_ids, k0, single, alive0, frozen, ftruss)
     checked = 0
     while not bool(st.done.all()):
         out = fused_level_torch(p, st, frozen, ftruss, single, window=window, block=32)
@@ -180,9 +180,9 @@ def test_all_done_level_prunes_with_zero_support_like_reference():
     ref_step = ref_make_fused_level(window=b.window, block=32, schedule="bsearch", interpret=True)
     args = [jnp.asarray(x) for x in (slot_ids, k0, single, alive0, frozen, ftruss)]
     rst = ref_step(pp.problem, rpeel.init_peel_state(pp.problem, *args), args[4], args[5], args[2])
-    t_args = [torch.from_numpy(x) for x in (slot_ids, k0, alive0, frozen, ftruss)]
+    t_args = [torch.from_numpy(x) for x in (slot_ids, k0, single, alive0, frozen, ftruss)]
     tst = fused_level_torch(
-        p, tpeel.init_peel_state(*t_args), t_args[3], t_args[4], torch.from_numpy(single),
+        p, tpeel.init_peel_state(p, *t_args), t_args[4], t_args[5], t_args[2],
         window=b.window, block=32,
     )
     assert bool(tst.done.all()) and int(tst.support.sum()) > 0

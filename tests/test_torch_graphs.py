@@ -19,7 +19,7 @@ import repro_torch.configs as tc
 import repro_torch.core as tcore
 import repro_torch.errors as terr
 import repro_torch.graphs as tg
-from _torch_parity import assert_same, small_pairs, torch_graph
+from _torch_parity import assert_same, small_pairs, torch_graph, torch_problem
 
 GENERATORS = [
     ("erdos", dict(n=150, avg_degree=6.0, seed=3)),
@@ -161,6 +161,115 @@ def test_symmetric_csr_is_refused_like_reference(entry):
         rows = port.row_of_edge()
         first_low = int(rows[port.colidx <= rows][0])  # rows ascend in edge order
         assert (got.value.kind, got.value.row) == ("not_upper", first_low)
+
+
+_KTRUSS = {b.name: b for b in rc.BENCH_GRAPHS + rc.LARGE_GRAPHS}
+
+
+@pytest.mark.parametrize("name", list(_KTRUSS) + ["empty", "no-vertices"])
+def test_bucket_from_the_device_equals_reference(name):
+    """``bucket_for`` on the host and the planner's bucket, its undirected
+    maximum degree an ``index_add_`` on the lift, are the reference's on
+    every ``configs.ktruss`` graph and on empty ones."""
+    from repro_torch.api.cache import bucket_from_degree, undirected_max_degree
+    from repro_torch.graphs.csr import lift_csr
+
+    if name in _KTRUSS:
+        gr = _KTRUSS[name].build()
+    else:
+        gr = rg.from_edges(6 if name == "empty" else 0, np.zeros((0, 2), np.int64), name)
+    gt = torch_graph(gr)
+    for chunk in (64, 256):
+        want = tuple(ra.bucket_for(gr, chunk=chunk))
+        assert tuple(ta.bucket_for(gt, chunk=chunk)) == want
+        und_max = int(undirected_max_degree(*lift_csr(gt, torch.device("cpu"))))
+        assert tuple(bucket_from_degree(gt, und_max, chunk=chunk)) == want
+    if gr.n:
+        planner = ta.Planner(device="cpu", chunk=256)
+        assert tuple(planner.assign(ta.TrussQuery.kmax(gt)).bucket) == tuple(ra.bucket_for(gr))
+
+
+def _not_upper(g, case):
+    """``g`` made not strictly upper triangular: both directions of every
+    edge (``symmetric``), or one row given a column below it (``lower``)."""
+    if case == "symmetric":
+        return _symmetric(tg.CSRGraph, g)
+    pairs = g.edge_list().astype(np.int64)
+    row = int(pairs[len(pairs) // 2, 0])
+    low = next(c for c in range(1, row) if c not in set(pairs[pairs[:, 0] == row, 1]))
+    pairs = np.concatenate([pairs, [[row, low]]])
+    pairs = pairs[np.lexsort((pairs[:, 1], pairs[:, 0]))]
+    rowptr = np.zeros(g.n + 1, np.int64)
+    rowptr[1:] = np.cumsum(np.bincount(pairs[:, 0], minlength=g.n + 1)[1:])
+    return tg.CSRGraph(g.n, rowptr, pairs[:, 1].astype(np.int32), name=g.name + "-low")
+
+
+@pytest.mark.parametrize("case", ["symmetric", "lower"])
+def test_device_check_upper_names_the_first_low_row(case):
+    """The test on the lift names the first nonempty row whose first column
+    lies at or below it, with the host check's text, row, kind and graph,
+    through ``check_upper``, ``prepare_fine`` and a ``Session``; an upper
+    graph passes."""
+    from repro_torch.graphs.csr import check_upper, lift_csr
+
+    _, gt = small_pairs()[2]
+    bad = _not_upper(gt, case)
+    starts, ends = bad.rowptr[:-1], bad.rowptr[1:]
+    rows = np.nonzero(starts < ends)[0]
+    low = rows[bad.colidx[starts[rows]] <= rows + 1]
+    row = int(low[0]) + 1
+    col = int(bad.colidx[starts[row - 1]])
+    text = (f"graph {bad.name!r}: column {col} at or below row {row}: the CSR must be "
+            "strictly upper triangular (each edge once, as (min, max))")
+    cpu = torch.device("cpu")
+    check_upper(gt, *lift_csr(gt, cpu))
+    for entry in (lambda: check_upper(bad, *lift_csr(bad, cpu)),
+                  lambda: tcore.prepare_fine(bad, chunk=64, device="cpu")):
+        with pytest.raises(terr.InvalidGraphError) as got:
+            entry()
+        assert (str(got.value), got.value.row, got.value.kind, got.value.graph) == (
+            text, row, "not_upper", bad.name)
+    with pytest.raises(terr.QueryFailedError) as failed:
+        ta.Session(device="cpu").solve([ta.TrussQuery.decompose(bad)])
+    assert str(failed.value.cause) == text and failed.value.cause.row == row
+
+
+def _tiling_case(case):
+    """A two-member aligned pack, reference and port, broken as ``case``
+    says: a row spilling out of slot 0 or slot 1, a block that does not
+    divide the slot, or a vertex count that does not divide the slots."""
+    graphs = [rg.rmat(5, 6, seed=1), rg.erdos(25, 4.0, seed=0)]
+    pr = rg.pack_problems(graphs, slot_n=64, slot_nnz=256, slots=2, chunk=64, layout="aligned")
+    ref = pr.problem._replace(**{f: np.asarray(getattr(pr.problem, f)) for f in pr.problem._fields})
+    slots, block = 2, 32
+    if case.startswith("spill"):
+        slot = int(case[-1])
+        rowptr, deg = ref.rowptr.copy(), ref.deg
+        v = slot * 64 + int(np.argmax(deg[slot * 64 + 1 : (slot + 1) * 64 + 1] > 0)) + 1
+        rowptr[v - 1] = (slot + 1) * 256 - 1
+        ref = ref._replace(rowptr=rowptr)
+    elif case == "block":
+        block = 512
+    else:
+        ref = ref._replace(rowptr=ref.rowptr[:-1], deg=ref.deg[:-1])
+    return ref, torch_problem(ref), slots, block
+
+
+@pytest.mark.parametrize("case", ["spill-0", "spill-1", "block", "vertices"])
+def test_device_tiling_check_raises_the_reference_error(case):
+    """The band test on the device (one int32 read back) names the same
+    slot and row with the same text and kind as the reference's numpy
+    check."""
+    from repro.graphs.pack import validate_fused_tiling as ref_check
+    from repro_torch.graphs.pack import validate_fused_tiling
+
+    ref, port, slots, block = _tiling_case(case)
+    with pytest.raises(rerr.InvalidGraphError) as want:
+        ref_check(ref, slots=slots, block=block)
+    with pytest.raises(terr.InvalidGraphError) as got:
+        validate_fused_tiling(port, slots=slots, block=block)
+    assert (str(got.value), got.value.slot, got.value.kind) == (
+        str(want.value), want.value.slot, want.value.kind)
 
 
 @pytest.mark.parametrize("name", ["rmat-12", "ba-6k", "edge-cases"])

@@ -90,6 +90,30 @@ def test_graph_preparation_on_the_card_equals_the_cpu(cuda, which):
             assert a.is_cuda and torch.equal(a.cpu(), c), (layout, f)
 
 
+@pytest.mark.parametrize("backend", [None, "fine/pallas/contig"])
+def test_a_batch_on_one_graph_lifts_it_once_on_the_card(cuda, monkeypatch, backend):
+    """A three-query batch on one graph copies it to the card once, in
+    ``plan``, which reads back once; ``pack`` copies and reads back
+    nothing; the fused tiling check (the auto rule's pick on rmat-9) and
+    the answers are the CPU's."""
+    from _torch_traffic import plan_pack_traffic
+    from repro_torch.api import Session, TrussQuery
+
+    g = tg.rmat(9, 8, seed=5)
+
+    def three():
+        return [TrussQuery.decompose(g), TrussQuery.kmax(g), TrussQuery.ktruss(g, k=4)]
+
+    kw = dict(backend=backend, max_batch=8, kernel="pallas")
+    want = Session(device="cpu", **kw).solve(three())
+    session = Session(device=cuda, **kw)
+    got, lifts, reads = plan_pack_traffic(monkeypatch, session, three(), g)
+    assert lifts == ["plan", "plan"] and reads == {"plan": 1, "pack": 0}
+    assert np.array_equal(got[0].trussness, want[0].trussness) and got[1] == want[1]
+    assert np.array_equal(got[2].alive, want[2].alive)
+    assert len(session.planner._lifts) == 0
+
+
 def _support_case(name, cuda):
     """(problem, window, alive) of one edge case of the support kernel."""
     if name == "split_hub":  # every clique lane's shorter row exceeds SPLIT_ROW
@@ -202,7 +226,7 @@ def test_fused_level_kernel_matches_plain_version_for_every_candidate(cuda):
     ftruss = ftruss * frozen
     alive0 = (p.colidx != 0) & ~frozen
     for cfg in candidate_configs(pp.slot_nnz):
-        st = init_peel_state(slot_ids, k0, alive0, frozen, ftruss)
+        st = init_peel_state(p, slot_ids, k0, single, alive0, frozen, ftruss)
         levels = 0
         while not bool(st.done.all()):
             before = fused_level_cuda.launches
@@ -241,8 +265,8 @@ def test_fused_level_kernel_refuses_mis_tiled_block(cuda):
     k0 = torch.full((4,), 3, dtype=torch.int32, device=cuda)
     frozen = torch.zeros(p.nnz_pad, dtype=torch.bool, device=cuda)
     ftruss = torch.zeros(p.nnz_pad, dtype=torch.int32, device=cuda)
-    st = init_peel_state(slot_ids, k0, p.colidx != 0, frozen, ftruss)
     single = torch.zeros(4, dtype=torch.bool, device=cuda)
+    st = init_peel_state(p, slot_ids, k0, single, p.colidx != 0, frozen, ftruss)
     before = fused_level_cuda.launches
     with pytest.raises(ValueError, match="does not divide"):
         fused_level_cuda(p, st, frozen, ftruss, single, block=2 * pp.slot_nnz, schedule="compare")
@@ -277,7 +301,7 @@ def test_fused_level_launch_error_raises(cuda):
     lanes = torch.arange(slots, dtype=torch.int32, device=cuda)
     frozen = torch.zeros(slots, dtype=torch.bool, device=cuda)
     st = init_peel_state(
-        lanes, torch.full((slots,), 3, dtype=torch.int32, device=cuda),
+        p, lanes, torch.full((slots,), 3, dtype=torch.int32, device=cuda), frozen,
         frozen, frozen, torch.zeros(slots, dtype=torch.int32, device=cuda),
     )
     before = fused_level_cuda.launches
@@ -356,7 +380,7 @@ def test_fused_level_kernel_whole_peel_cases(cuda, name):
     slot_nnz = p.nnz_pad // k0.numel()
     lanes_done = lambda st: st.done.repeat_interleave(slot_nnz)  # noqa: E731
     for cfg in candidate_configs(slot_nnz):
-        st = init_peel_state(slot_ids, k0, alive0, frozen, ftruss)
+        st = init_peel_state(p, slot_ids, k0, single, alive0, frozen, ftruss)
         levels, copied = 0, 0
         while not bool(st.done.all()):
             log = torch.full((64,), -1, dtype=torch.int32, device=cuda)
@@ -715,7 +739,7 @@ def _eager_trip_loop(support, p, slot_ids, k0, single, alive0, frozen, ftruss):
 
     aligned = bool(pm._is_aligned(slot_ids, int(k0.shape[0])))
     sums = pm._SlotSums(slot_ids, int(k0.shape[0]), aligned=aligned)
-    st = pm.init_peel_state(slot_ids, k0, alive0, frozen, ftruss, sums=sums)
+    st = pm.init_peel_state(p, slot_ids, k0, single, alive0, frozen, ftruss, sums=sums)
     lanes = slot_ids.long()
     while not bool(st.done.all()):
         st = pm._peel_step(support, p, lanes, sums, single, frozen, ftruss, st)

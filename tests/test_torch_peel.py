@@ -72,6 +72,38 @@ def test_peel_state_matches_reference_per_slot(cfg):
     assert tex.host_syncs == LIVE_SHARD_SYNCS + 1
 
 
+@pytest.mark.parametrize("row_chunk", [8, 32])
+def test_coarse_executor_takes_row_chunk_like_reference(row_chunk):
+    """``row_chunk`` goes through ``PeelExecutor`` to the coarse support in
+    the reference's position, and the peel answers as the reference's."""
+    cfg = dict(CONFIGS[3], row_chunk=row_chunk)
+    args = dict(k0=[3, 4, 3, 3], single_level=[False, True, False, False])
+    ref, got, tex = _peel_both(cfg, args)
+    for f in ref._fields:
+        assert_same(getattr(ref, f), getattr(got, f), f)
+    assert tex.support.keywords["row_chunk"] == row_chunk
+    assert texec.PeelExecutor(granularity="coarse", window=8, row_chunk=row_chunk).support
+
+
+def test_init_peel_state_takes_the_reference_positional_order():
+    """``(p, slot_ids, k0, single_level, alive0, frozen, frozen_truss)``,
+    the same arguments in the same places, give the reference's state."""
+    import jax.numpy as jnp
+    import repro.exec.peel as rpeel
+
+    _, pp, _, slot_ids = _batch()
+    real = np.asarray(pp.problem.colidx) != 0
+    rng = np.random.default_rng(5)
+    frozen = real & (rng.random(real.shape[0]) < 0.2)
+    ftruss = np.where(frozen, rng.integers(2, 6, real.shape[0]), 0).astype(np.int32)
+    args = (slot_ids, np.array([3, 4, 3, 3], np.int32), np.array([False, True, False, False]),
+            real & ~frozen, frozen, ftruss)
+    ref = rpeel.init_peel_state(pp.problem, *(jnp.asarray(a) for a in args))
+    got = tpeel.init_peel_state(torch_problem(pp.problem), *(torch.from_numpy(a) for a in args))
+    for f in ref._fields:
+        assert_same(getattr(ref, f), getattr(got, f), f)
+
+
 def test_frozen_lanes_match_reference():
     """The masked sub-problem the streaming layer peels: a random frontier
     is free, everything else frozen at its known trussness."""
