@@ -41,6 +41,7 @@ from ..graphs.pack import pack_problems
 from ..graphs.stats import ImbalanceStats, imbalance_parts, stats_from_parts
 from ..obs import clock as obs_clock
 from ..obs import current_tracer, record_peel_batch
+from ..obs.device_time import dispatch_device_time
 from ..resilience.faults import inject
 from .cache import Bucket, CompileCache, bucket_from_degree, undirected_max_degree
 from .query import TrussQuery
@@ -63,7 +64,10 @@ class RequestStats:
 
     queue_time_s: float = 0.0  # submit -> batch formation
     pack_time_s: float = 0.0  # host-side block-diagonal packing (shared)
-    device_time_s: float = 0.0  # the batch's single peel dispatch (shared)
+    # The batch's single peel dispatch (shared): on CUDA its launches'
+    # device time between CUDA events (fused levels, trip-graph replays),
+    # on the CPU, where the peel runs on the host, its host wall.
+    device_time_s: float = 0.0
     plan_time_s: float = 0.0  # bucket + backend assignment for THIS query
     compile_hit: bool = False  # did the batch reuse a cached executor
     bucket: Optional[Bucket] = None
@@ -562,27 +566,31 @@ class Planner:
 
         # peel() synchronizes (it reads the done flags back when its trip
         # loop has ended; the fused loop after every level), so dt covers
-        # the whole dispatch.
+        # the whole dispatch.  On CUDA the device time is its launches'
+        # event intervals, which the peel reads after those readbacks.
         inject("clock_skew", bucket=bucket, backend=str(backend), queries=qids)
         inject("device_oom", bucket=bucket, backend=str(backend), queries=qids)
         inject("dispatch", bucket=bucket, backend=str(backend), queries=qids)
         t0 = obs_clock.now()
         try:
-            st_dev = exe.peel(
-                packed.problem,
-                slot_ids=slot_ids,
-                k0=k0,
-                single_level=single_level,
-                alive0=alive0,
-                frozen=frozen,
-                frozen_truss=frozen_truss,
-            )
+            with dispatch_device_time() as launches:
+                st_dev = exe.peel(
+                    packed.problem,
+                    slot_ids=slot_ids,
+                    k0=k0,
+                    single_level=single_level,
+                    alive0=alive0,
+                    frozen=frozen,
+                    frozen_truss=frozen_truss,
+                )
         except Exception as e:
             fault = self._typed_fault(e, bucket, backend)
             if fault is e:
                 raise
             raise fault from e
         dt = obs_clock.now() - t0
+        if packed.problem.device.type == "cuda":
+            dt = launches.seconds
 
         with tracer.span("unpack", members=len(queries)):
             # One batched copy of what the members return: the per-slot

@@ -320,6 +320,8 @@ class Session:
 
     @property
     def device_time_s(self) -> float:
+        """Seconds of the dispatches' peels: on CUDA the launches' time
+        between CUDA events, on the CPU the host wall."""
         return self.obs.metrics.value("device_seconds_total")
 
     @property

@@ -23,7 +23,9 @@ Both devices read back alike: once per shard before its first trip (is
 any lane alive, and are the slot ids the aligned layout), then once per
 live shard after its loop (the exit condition, with the support passes
 the device counted), two a live shard whatever its trips; the executor
-counts every readback in ``host_syncs``.  A **dispatch** is one
+counts every readback in ``host_syncs``.  On CUDA each replay is
+bracketed by a pair of timing events (``repro_torch.obs.device_time``),
+read once the loop's exit has been read back.  A **dispatch** is one
 :meth:`PeelExecutor.peel` call: one packed batch peeled to completion,
 however many trips it takes.  ``total_iters`` counts trips exactly as the
 reference's loop counter does.
@@ -36,7 +38,8 @@ slot, :class:`_SlotSums`) is exact.
 :func:`build_fused_peel` is the fused form: each level's support→prune
 fixed point runs inside one launch of the fused level kernel
 (``repro_torch.kernels.peel_fused``), and the host loop steps levels with
-one readback per level.
+one readback per level; each launch's inner trips, and on CUDA its device
+time between two events, are recorded once the next readback returns.
 
 With a mesh (``repro_torch.distributed``), :class:`PeelExecutor` splits a
 packed batch into per-device blocks of whole slots and runs the blocks in
@@ -61,7 +64,9 @@ from ..core.eager_coarse import support_coarse_eager
 from ..core.eager_fine import FineProblem, support_fine_eager, support_fine_owner
 from ..errors import DeviceError, TrussError
 from ..obs import current_registry, current_tracer
+from ..obs.device_time import EventPair, add_device_seconds
 from ..obs.events import PEEL_CAPTURE, record_event
+from ..obs.names import PEEL_LEVEL_DEVICE_SECONDS, PEEL_LEVEL_TRIPS
 
 __all__ = [
     "PeelState",
@@ -362,6 +367,7 @@ class _TripGraph:
         self.st = PeelState(*(torch.empty_like(t) for t in st))
         dev = st.alive.device
         self.passes = torch.zeros((), dtype=torch.int32, device=dev)
+        self.events = EventPair(dev)  # each replay's timing pair
         self.load(step, st)
         self.graph = torch.cuda.CUDAGraph()
         self.side = torch.cuda.Stream(dev)  # the capture's stream
@@ -419,17 +425,21 @@ class _TripGraph:
 
         try:
             with torch.cuda.device(self.st.alive.device):
+                self.events.start()
                 self.graph.replay()
+                self.events.stop()
         except RuntimeError as e:
             raise DeviceError(
                 f"replaying the peel's trip graph failed: {e}", site=GRAPH_SITE, cause=e
             ) from e
 
     def ran(self, passes: int) -> None:
-        """Add the support passes the replay counted on the device."""
+        """Add the support passes the replay counted on the device, and the
+        replay's device seconds (the loop's exit has been read back)."""
         from ..kernels.support_fine import support_fine_cuda  # lazy: CUDA only
 
         support_fine_cuda.launches += passes
+        add_device_seconds(self.events.seconds())
 
     def result(self) -> PeelState:
         """The state, cloned: a later dispatch overwrites the buffers."""
@@ -580,6 +590,13 @@ def build_peel(support: SupportFn, *, max_iters: int | None = None) -> _Peel:
     return _Peel(support, max_iters)
 
 
+def _live_lanes(st: PeelState, num_slots: int) -> torch.Tensor:
+    """() int32 on the state's device: the alive lanes of the slots not done
+    (the fused layout: lane block ``s`` is slot ``s``)."""
+    per_slot = st.alive.reshape(num_slots, -1).sum(1, dtype=torch.int32)
+    return torch.where(st.done, 0, per_slot).sum(dtype=torch.int32)
+
+
 class _FusedPeel:
     """The peel callable :func:`build_fused_peel` returns (see there)."""
 
@@ -603,19 +620,39 @@ class _FusedPeel:
         st = init_peel_state(p, slot_ids, k0, single_level, alive0, frozen, frozen_truss)
         tracer = current_tracer()
         registry = current_registry()
-        level = 0
+        events = EventPair(alive0.device) if alive0.is_cuda else None  # reused each level
+        level, device_s = 0, 0.0
+        trips_before = lanes = None  # the last launch's: total_iters before it, alive lanes
         while True:
-            # One readback per level: the loop condition and the cap check.
             self.host_syncs += 1
-            all_done, trips = torch.stack(  # trusslint: disable=R1
-                [st.done.all().to(torch.int32), st.total_iters]
-            ).tolist()
+            parts = [st.done.all().to(torch.int32), st.total_iters]
+            if tracer.enabled:
+                parts.append(_live_lanes(st, num_slots))
+            # One readback per level: the loop condition and the cap check
+            # (while tracing, with the alive lanes the next launch starts on).
+            all_done, trips, *lanes_next = torch.stack(parts).tolist()  # trusslint: disable=R1
+            if level:  # the last launch has ended: read its events
+                seconds = None
+                if events is not None:
+                    seconds = events.seconds()
+                    device_s += seconds
+                if tracer.enabled:
+                    attrs = {"level": level - 1, "trips": trips - trips_before, "alive_lanes": lanes}
+                    if seconds is not None:
+                        attrs["device_ms"] = 1e3 * seconds
+                    tracer.instant("peel-level.done", **attrs)
             if all_done or trips >= limit:
                 break  # a fired cap: the executor's all-done belt raises
             with tracer.span("peel-level", level=level, slots=num_slots):
-                st = self.level_step(p, st, frozen, frozen_truss, single_level)
+                st = self.level_step(p, st, frozen, frozen_truss, single_level, events=events)
             registry.inc("peel_fused_levels")
+            trips_before, lanes = trips, (lanes_next[0] if lanes_next else None)
             level += 1
+        if level:  # once a dispatch: the loop's trips (total_iters starts at 0) and device time
+            registry.inc(PEEL_LEVEL_TRIPS, trips)
+            if events is not None:
+                registry.inc(PEEL_LEVEL_DEVICE_SECONDS, device_s)
+                add_device_seconds(device_s)
         return st
 
 
@@ -634,7 +671,15 @@ def build_fused_peel(
     one launch (``repro_torch.kernels.peel_fused.make_fused_level``), and
     the host loop steps levels — one ``"peel-level"`` span and one
     ``peel_fused_levels`` tick per launch, and one readback per level
-    (``host_syncs``).  A fired iteration cap returns the un-done state;
+    (``host_syncs``).  After that readback the last launch's two timing
+    events are read on CUDA; while tracing, a ``"peel-level.done"`` instant
+    event carries the level, its inner trips (the step in ``total_iters``),
+    the alive lanes of the live slots it started on (one more integer in
+    the same readback) and, on CUDA, its device ms.  Once a dispatch,
+    ``peel_level_trips`` adds the loop's trips and, on CUDA,
+    ``peel_level_device_seconds`` its launches' event time, which is also
+    the dispatch's device time.  A fired iteration cap returns the un-done
+    state;
     :meth:`PeelExecutor.peel`'s all-done belt raises the typed
     ``DeviceError`` exactly as on the unfused path.
     """

@@ -584,7 +584,8 @@ __global__ void __launch_bounds__(kThreads, kBsearch ? 8 : 4) peel_fused_kernel(
 }
 
 template <bool kBsearch>
-cudaError_t launch(Args& args, int device, cudaStream_t stream) {
+cudaError_t launch(Args& args, int device, cudaStream_t stream, cudaEvent_t begin,
+                   cudaEvent_t end) {
   const void* fn = reinterpret_cast<const void*>(&peel_fused_kernel<kBsearch>);
   const size_t smem = 3 * sizeof(int32_t) * static_cast<size_t>(args.num_slots);
   cudaError_t err;
@@ -605,8 +606,12 @@ cudaError_t launch(Args& args, int device, cudaStream_t stream) {
   if (grid > enough) grid = enough;
   if (grid < 1) grid = 1;
   void* params[] = {&args};
-  return cudaLaunchCooperativeKernel(fn, dim3(static_cast<unsigned>(grid)), dim3(kThreads),
-                                     params, smem, stream);
+  // The timing events bracket the launch call alone, after the queries above.
+  if (begin != nullptr && (err = cudaEventRecord(begin, stream)) != cudaSuccess) return err;
+  if ((err = cudaLaunchCooperativeKernel(fn, dim3(static_cast<unsigned>(grid)), dim3(kThreads),
+                                         params, smem, stream)) != cudaSuccess)
+    return err;
+  return end != nullptr ? cudaEventRecord(end, stream) : cudaSuccess;
 }
 
 }  // namespace
@@ -615,7 +620,8 @@ extern "C" {
 
 // Launches one level on `stream`; returns the cudaError_t of the launch
 // (0 = success).  Pointers in the order of struct Args; `counts` must come
-// zeroed; trip_log and stamps may be null.
+// zeroed; trip_log and stamps may be null.  `begin` and `end` (cudaEvent_t,
+// or null) are recorded on `stream` just before and just after the launch.
 int peel_fused_launch(const void* colidx, const void* edge_row, const void* urowptr,
                       const void* udeg, const void* ucolidx, const void* u2d,
                       const void* alive_in, const void* supp_in, const void* truss_in,
@@ -629,7 +635,8 @@ int peel_fused_launch(const void* colidx, const void* edge_row, const void* urow
                       long long unnzp, int nrows,
                       int slot_nnz,
                       int num_slots, int block, int inner_limit, int split_row, int split_ways,
-                      int trip_log_len, int bsearch, int device, void* stream) {
+                      int trip_log_len, int bsearch, int device, void* stream, void* begin,
+                      void* end) {
   // Lanes are int32 in the worklists.
   if (nnzp <= 0 || nnzp > INT_MAX || nrows < 1 || num_slots < 1 || block < 1 || nnzp % block ||
       slot_nnz % block || split_ways < 1 || split_row < 0)
@@ -657,7 +664,9 @@ int peel_fused_launch(const void* colidx, const void* edge_row, const void* urow
       static_cast<int64_t>(unnzp),           nrows,
       slot_nnz, num_slots, block, inner_limit, split_row, split_ways, trip_log_len};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t err = bsearch ? launch<true>(args, device, s) : launch<false>(args, device, s);
+  const cudaEvent_t b = static_cast<cudaEvent_t>(begin), e = static_cast<cudaEvent_t>(end);
+  const cudaError_t err =
+      bsearch ? launch<true>(args, device, s, b, e) : launch<false>(args, device, s, b, e);
   // A refused call is reported here; clear it from the runtime's last-error
   // state so that it is not charged to the caller's next launch.
   if (err != cudaSuccess) cudaGetLastError();

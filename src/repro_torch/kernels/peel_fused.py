@@ -205,7 +205,7 @@ def load_peel_fused() -> BuiltLibrary:
         [ctypes.c_void_p] * 37
         + [ctypes.c_longlong, ctypes.c_longlong]
         + [ctypes.c_int] * 10
-        + [ctypes.c_void_p]
+        + [ctypes.c_void_p] * 3  # the stream, the timing events (or null)
     )
     fn.restype = ctypes.c_int
     occ = built.lib.peel_fused_blocks_per_sm
@@ -260,6 +260,7 @@ def fused_level_cuda(
     schedule: str,
     trip_log: torch.Tensor | None = None,
     stamps: torch.Tensor | None = None,
+    events=None,
 ) -> PeelState:
     """One truss level of every live slot, by the CUDA kernel (one
     cooperative launch).  A refused or failed launch raises
@@ -269,7 +270,11 @@ def fused_level_cuda(
     ``trip_log`` ((2 * T,) int32) receives for each of the first T inner
     trips the worklist's unsplit and split lanes; ``stamps`` ((6,) int64)
     CTA 0's clock (``%globaltimer``, ns) at entry, rows compacted, first
-    worklist built, inner loop done, bookkeeping done and exit."""
+    worklist built, inner loop done, bookkeeping done and exit.
+    ``events`` (a ``repro_torch.obs.device_time.EventPair`` on the state's
+    device): the library records its two events on the launch's stream
+    just before and just after the launch call, so their interval holds
+    the launch alone, not the scratch set-up or the library's queries."""
     num_slots, slot_nnz = _geometry(p, state, block)
     dev = _check_cuda_inputs(p, state, frozen, frozen_truss, single_level)
     if trip_log is not None and (
@@ -338,6 +343,7 @@ def fused_level_cuda(
             int(schedule == "bsearch"),
             dev.index if dev.index is not None else torch.cuda.current_device(),
             stream,
+            *(events.handles() if events is not None else (None, None)),
         )
     if rc:
         msg = built.lib.peel_fused_error_string(rc).decode()
@@ -354,9 +360,10 @@ fused_level_cuda.launches = 0
 def make_fused_level(*, window: int, block: int = 128, schedule: str = "bsearch"):
     """Build the one-launch-per-level step for one configuration.
 
-    Returns ``level_step(p, state, frozen, frozen_truss, single_level) ->
-    PeelState`` advancing every live slot by exactly one truss level.
-    CUDA tensors go to :func:`fused_level_cuda`, CPU tensors to
+    Returns ``level_step(p, state, frozen, frozen_truss, single_level, *,
+    events=None) -> PeelState`` advancing every live slot by exactly one
+    truss level.  CUDA tensors go to :func:`fused_level_cuda` (with
+    ``events``, the launch's timing pair), CPU tensors to
     :func:`fused_level_torch`.  ``window`` must cover the bucket's max
     undirected degree; ``block`` must divide the packed ``slot_nnz``
     (checked here and, with slot attribution, by
@@ -367,11 +374,12 @@ def make_fused_level(*, window: int, block: int = 128, schedule: str = "bsearch"
     if block < 1 or (block & (block - 1)) != 0:
         raise ValueError(f"fused block must be a power of two, got {block}")
 
-    def level_step(p, state, frozen, frozen_truss, single_level):
+    def level_step(p, state, frozen, frozen_truss, single_level, *, events=None):
         dev = state.alive.device
         if dev.type == "cuda":
             return fused_level_cuda(
-                p, state, frozen, frozen_truss, single_level, block=block, schedule=schedule
+                p, state, frozen, frozen_truss, single_level, block=block, schedule=schedule,
+                events=events,
             )
         if dev.type != "cpu":
             raise ValueError(f"the fused level runs on CUDA or the CPU, got {dev}")

@@ -16,7 +16,10 @@ planner's auto rule can later be calibrated from observed device time
 instead of the static two-threshold heuristic (see ROADMAP's cost-model
 item): the registry accumulates, per backend per shape class,
 
-* ``peel_device_time_s``   — dispatch wall time histogram,
+* ``peel_device_time_s``   — dispatch device time histogram (on CUDA
+  the launches' time between CUDA events, ``repro_torch.obs.device_time``;
+  on the CPU, where the peel runs on the host, its wall time), with
+  ``peel_device_seconds_total`` its sum,
 * ``peel_slot_iters``      — per-slot iteration histogram (the
   imbalance's raw material),
 * ``peel_batch_imbalance`` — per-batch max/mean slot-iteration ratio
@@ -79,6 +82,8 @@ def record_peel_batch(
     arrays (``PeelState``); only the first ``batch_size`` slots are real
     members — pad slots are excluded from the statistics (they retire on
     the first trip and would dilute the imbalance toward 1/B).
+    ``device_time_s`` is the dispatch's ``RequestStats.device_time_s``:
+    device time on CUDA, host wall on the CPU.
     """
     m = metrics if metrics is not None else current_registry()
     labels = {"bucket": _bucket_label(bucket), "backend": str(backend)}

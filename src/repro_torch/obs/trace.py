@@ -19,7 +19,10 @@ Design points:
   memory.
 
 Timestamps come from the observability clock (:mod:`repro_torch.obs.clock`),
-so traces, metrics, and deadline accounting share one timeline.
+so traces, metrics, and deadline accounting share one timeline.  While a
+``torch.profiler`` records, a span also opens a
+``torch.profiler.record_function`` range of its name, so the spans sit on
+the device trace's own timeline too.
 """
 
 from __future__ import annotations
@@ -31,6 +34,8 @@ import json
 import os
 import threading
 from typing import Any
+
+import torch
 
 from .clock import now as _now
 
@@ -50,22 +55,30 @@ class Span:
 
     ``attrs`` may be extended while the span is open
     (``sp.attrs["batch"] = 4``); the dict is written into the event's
-    ``args`` at close.
+    ``args`` at close.  Opened while a ``torch.profiler`` records, the span
+    also holds a ``record_function`` range of its name.
     """
 
-    __slots__ = ("_tracer", "name", "attrs", "_t0")
+    __slots__ = ("_tracer", "name", "attrs", "_t0", "_range")
 
     def __init__(self, tracer: "Tracer", name: str, attrs: dict[str, Any]):
         self._tracer = tracer
         self.name = name
         self.attrs = attrs
+        self._range = None
 
     def __enter__(self) -> "Span":
+        if torch.autograd._profiler_enabled():
+            self._range = torch.profiler.record_function(self.name)
+            self._range.__enter__()
         self._t0 = _now()
         return self
 
     def __exit__(self, *exc) -> None:
         t1 = _now()
+        if self._range is not None:
+            self._range.__exit__(*exc)
+            self._range = None
         self._tracer._record(self.name, self._t0, t1 - self._t0, self.attrs)
 
 
