@@ -66,7 +66,11 @@ from ..errors import DeviceError, TrussError
 from ..obs import current_registry, current_tracer
 from ..obs.device_time import EventPair, add_device_seconds
 from ..obs.events import PEEL_CAPTURE, record_event
-from ..obs.names import PEEL_LEVEL_DEVICE_SECONDS, PEEL_LEVEL_TRIPS
+from ..obs.names import (
+    PEEL_LEVEL_DEVICE_SECONDS,
+    PEEL_LEVEL_TRIPS,
+    PEEL_LEVEL_TRIPS_INCREMENTAL,
+)
 
 __all__ = [
     "PeelState",
@@ -621,35 +625,50 @@ class _FusedPeel:
         tracer = current_tracer()
         registry = current_registry()
         events = EventPair(alive0.device) if alive0.is_cuda else None  # reused each level
+        # The launches add their update trips here (the plain version none).
+        incremental = torch.zeros((), dtype=torch.int32, device=alive0.device)
         level, device_s = 0, 0.0
-        trips_before = lanes = None  # the last launch's: total_iters before it, alive lanes
+        # The last launch's: total_iters and update trips before it, alive lanes.
+        trips_before = updates_before = lanes = None
         while True:
             self.host_syncs += 1
-            parts = [st.done.all().to(torch.int32), st.total_iters]
+            parts = [st.done.all().to(torch.int32), st.total_iters, incremental]
             if tracer.enabled:
                 parts.append(_live_lanes(st, num_slots))
-            # One readback per level: the loop condition and the cap check
-            # (while tracing, with the alive lanes the next launch starts on).
-            all_done, trips, *lanes_next = torch.stack(parts).tolist()  # trusslint: disable=R1
+            # One readback per level: the loop condition, the cap check and
+            # the update trips so far (while tracing, with the alive lanes
+            # the next launch starts on).
+            read = torch.stack(parts).tolist()  # trusslint: disable=R1
+            all_done, trips, updates, *lanes_next = read
             if level:  # the last launch has ended: read its events
                 seconds = None
                 if events is not None:
                     seconds = events.seconds()
                     device_s += seconds
                 if tracer.enabled:
-                    attrs = {"level": level - 1, "trips": trips - trips_before, "alive_lanes": lanes}
+                    attrs = {
+                        "level": level - 1,
+                        "trips": trips - trips_before,
+                        "update_trips": updates - updates_before,
+                        "alive_lanes": lanes,
+                    }
                     if seconds is not None:
                         attrs["device_ms"] = 1e3 * seconds
                     tracer.instant("peel-level.done", **attrs)
             if all_done or trips >= limit:
                 break  # a fired cap: the executor's all-done belt raises
             with tracer.span("peel-level", level=level, slots=num_slots):
-                st = self.level_step(p, st, frozen, frozen_truss, single_level, events=events)
+                st = self.level_step(
+                    p, st, frozen, frozen_truss, single_level, events=events,
+                    incremental=incremental,
+                )
             registry.inc("peel_fused_levels")
-            trips_before, lanes = trips, (lanes_next[0] if lanes_next else None)
+            trips_before, updates_before = trips, updates
+            lanes = lanes_next[0] if lanes_next else None
             level += 1
         if level:  # once a dispatch: the loop's trips (total_iters starts at 0) and device time
             registry.inc(PEEL_LEVEL_TRIPS, trips)
+            registry.inc(PEEL_LEVEL_TRIPS_INCREMENTAL, updates)
             if events is not None:
                 registry.inc(PEEL_LEVEL_DEVICE_SECONDS, device_s)
                 add_device_seconds(device_s)
@@ -674,9 +693,12 @@ def build_fused_peel(
     (``host_syncs``).  After that readback the last launch's two timing
     events are read on CUDA; while tracing, a ``"peel-level.done"`` instant
     event carries the level, its inner trips (the step in ``total_iters``),
-    the alive lanes of the live slots it started on (one more integer in
-    the same readback) and, on CUDA, its device ms.  Once a dispatch,
-    ``peel_level_trips`` adds the loop's trips and, on CUDA,
+    how many of them took their supports from the last trip's deaths (a
+    count the launches add to on the device, in the same readback; 0 on
+    the CPU), the alive lanes of the live slots it started on (one more
+    integer in the same readback) and, on CUDA, its device ms.  Once a
+    dispatch, ``peel_level_trips`` adds the loop's trips,
+    ``peel_level_trips_incremental`` its update trips and, on CUDA,
     ``peel_level_device_seconds`` its launches' event time, which is also
     the dispatch's device time.  A fired iteration cap returns the un-done
     state;

@@ -48,6 +48,27 @@
 // limited instead by the latency of data-dependent probes into rows that
 // mostly sit in L2, and by the fixed cost of two grid barriers a trip.
 // What the design does about it:
+// - phase (a) of a trip is one of two things.  A count: every lane of the
+//   worklist intersects its two rows (always on a launch's first trip).
+//   Or an update from the deaths of the trip before, D: trip i+1's support
+//   of a surviving lane e is trip i's minus the triangles of e that lost an
+//   edge in D, since both count triangles whose other two edges are alive
+//   or frozen-live and A(i+1) is A(i) minus D.  Each dying lane d = (x, y)
+//   intersects its two rows, whose entries are still present (alive,
+//   frozen-live or dying; a dying entry is marked 2 in calive by the prune
+//   and cleared to 0 by the next trip's prune, after the update that reads
+//   it); for each c found, with f = (x, c) and g = (y, c), the triangle is
+//   skipped when f or g is dying with a smaller lane than d (that lane owns
+//   it, so each lost triangle is taken once), and otherwise each of f and g
+//   that is an alive survivor loses 1 (an integer atomic on supp: exact in
+//   any order; frozen-live, dying and dead lanes never move).  A death
+//   costs about one intersection of its pair, so a trip updates when its
+//   dying lanes are at most its surviving lanes, and counts otherwise: a
+//   rule every CTA applies to the same list counters after the prune's
+//   barrier.  Each compacted entry keeps the lane it stands for (clane);
+//   the prune appends its deaths to a death list per trip parity, split as
+//   the worklists are.  Either way the supports, and so the state, are bit
+//   for bit those of a count;
 // - a worklist: at launch, the alive lanes of live slots are compacted
 //   (warp ballots, one atomic per warp) into a list in scratch; each trip's
 //   prune phase writes the survivors into the other of two lists, so a trip
@@ -59,15 +80,16 @@
 // - the shorter of the two rows is walked (bsearch probes the longer);
 // - a lane whose shorter (compacted) row has more than split_row entries
 //   is split into split_ways chunks of that row, separate work items that
-//   several warps take; they add into acc[t] with integer atomics (exact
-//   in any order), which is why the prune is a phase of its own behind a
-//   grid barrier;
+//   several warps take; on a count they add into acc[t] with integer
+//   atomics (exact in any order), which is why the prune is a phase of its
+//   own behind a grid barrier; an update's decrements go to supp directly,
+//   and so do those of a split dying lane's chunks;
 // - each launch first compacts every undirected row to its entries that
 //   are alive or frozen-live (a warp a row, into ccol/calive/cdeg): at
 //   high k the rows of the surviving core are mostly dead entries, so the
 //   walks and searches of every trip are over what is left at launch.
-//   Within the launch a death clears the lane's two compacted entries (two
-//   binary searches), behind the same barrier;
+//   Within the launch a death marks the lane's two compacted entries dying
+//   (two binary searches) and the next trip's prune clears them;
 // - the per-slot latch is kept in every CTA's shared memory, computed from
 //   the same counts, so all CTAs agree on when the loop ends.
 //
@@ -80,7 +102,7 @@
 // advancing the side whose window ends lower, and jumping (binary search)
 // over a run of one row that lies wholly below the other's window.  Both
 // count every match exactly once, so the state is bit-identical for every
-// block x schedule.
+// block x schedule.  An update walks the flattened probes under both.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <limits.h>
@@ -96,6 +118,7 @@ using intersect::count_flat;
 using intersect::kFull;
 using intersect::kWarp;
 using intersect::lower_bound;
+using intersect::match_flat;
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / kWarp;
@@ -105,9 +128,14 @@ constexpr int kUnroll = 4;  // groups of 32 row entries per step of the compacti
 // trip parities first (64-bit, at the front so that they are 8-byte
 // aligned: warps claim past the end of the list, so the cursor outgrows
 // the item count), then changed[2][S] and left[S], then the lengths of the
-// two lists (unsplit, split) per parity.
+// two worklists (unsplit, split) per parity, then those of the two death
+// lists.
 constexpr int kCursorWords = 4;
-enum : int { kRegCount = 0, kSplitCount = 2 };
+enum : int { kRegCount = 0, kSplitCount = 2, kDeathCounts = 4 };
+// calive: a compacted entry that is absent (dead), present (alive or
+// frozen-live), or dying (killed by the last prune; present to the update
+// that reads its death, absent to a count).
+enum : uint8_t { kAbsent = 0, kPresent = 1, kDying = 2 };
 
 struct Args {
   // The packed problem (read-only).
@@ -143,21 +171,23 @@ struct Args {
   uint8_t* done;
   int32_t* titers;
   int32_t* edges;
-  // Scratch: the rows compacted at launch, ccol and calive (unnzp; row v
-  // keeps its start, urowptr[v-1], and holds cdeg[v] entries); lists
-  // (2 x nnzp: per parity, unsplit lanes from the front, split lanes from
-  // the back); acc (nnzp, split lanes' sums); counts (see above);
-  // trip_log (2 x
-  // trip_log_len, optional: per trip, the worklist's unsplit and split
-  // lanes).
+  // Scratch: the rows compacted at launch, ccol, calive and clane (unnzp;
+  // row v keeps its start, urowptr[v-1], and holds cdeg[v] entries; clane
+  // the lane of each entry); lists and deaths (2 x nnzp each: per parity,
+  // unsplit lanes from the front, split lanes from the back); acc (nnzp,
+  // split lanes' sums); counts (see above); trip_log (2 x trip_log_len,
+  // optional: per trip, the worklist's unsplit and split lanes).
   int32_t* ccol;
   uint8_t* calive;
+  int32_t* clane;
   int32_t* cdeg;
   int32_t* lists;
+  int32_t* deaths;
   int32_t* acc;
   int32_t* counts;
   int32_t* trip_log;
-  int64_t* stamps;  // optional: six %globaltimer readings of CTA 0 (ns)
+  int64_t* stamps;       // optional: six %globaltimer readings of CTA 0 (ns)
+  int32_t* incremental;  // optional: the launch adds its update trips
   int64_t nnzp;
   int64_t unnzp;
   int32_t nrows;
@@ -254,9 +284,10 @@ __device__ __forceinline__ int count_merge(const Args& a, const Item& it, int la
       ib = lower_bound(col, it.l0, ib + nb, it.dl, amin);
       continue;
     }
-    // Dead or absent entries compare as -1 (a) and -2 (b): never equal.
-    const int32_t ma = (lane < na && __ldcg(a.calive + it.s0 + ia + lane)) ? va : -1;
-    const int32_t mb = (lane < nb && __ldcg(a.calive + it.l0 + ib + lane)) ? vb : -2;
+    // Entries not present, or past the window, compare as -1 (a) and -2
+    // (b): never equal.
+    const int32_t ma = (lane < na && __ldcg(a.calive + it.s0 + ia + lane) == kPresent) ? va : -1;
+    const int32_t mb = (lane < nb && __ldcg(a.calive + it.l0 + ib + lane) == kPresent) ? vb : -2;
 #pragma unroll
     for (int k = 0; k < kWarp; ++k) count += ma == __shfl_sync(kFull, mb, k);
     if (amax <= bmax) ia += na;
@@ -269,6 +300,32 @@ __device__ __forceinline__ void put_result(const Args& a, const Item& it, int co
   if (it.t < 0) return;
   if (it.whole) a.supp[it.t] = count;
   else if (count) atomicAdd(a.acc + it.t, count);
+}
+
+// The survivors of one dying lane d's triangle, found by the probe of
+// entry u whose match is entry w (see the top: the update).
+__device__ __forceinline__ void lose_triangle(const Args& a, int32_t d, int32_t u, uint8_t flag_u,
+                                              int32_t w) {
+  const uint8_t flag_w = __ldcg(a.calive + w);
+  if (flag_w == kAbsent) return;
+  const int32_t f = __ldcg(a.clane + u), g = __ldcg(a.clane + w);
+  // A dying edge with a smaller lane owns the triangle.
+  if ((flag_u == kDying && f < d) || (flag_w == kDying && g < d)) return;
+  if (flag_u == kPresent && __ldcg(a.alive + f)) atomicSub(a.supp + f, 1);
+  if (flag_w == kPresent && __ldcg(a.alive + g)) atomicSub(a.supp + g, 1);
+}
+
+// Items [q0, q1) of the death list, claimed by this warp; q1 - q0 <= 32.
+__device__ void run_updates(const Args& a, const int32_t* list, int64_t q0, int64_t q1,
+                            int32_t n_reg, const int32_t* latch, int lane) {
+  const int n_items = static_cast<int>(q1 - q0);
+  Item mine{-1, 0, 0, 0, 0, 1};
+  if (lane < n_items) mine = resolve(a, list, q0 + lane, n_reg, latch);
+  // Flags are written by other CTAs during the launch: read via L2.
+  match_flat<true>(a.ccol, a.calive, mine.s0, mine.n, mine.l0, mine.dl, mine.t, lane,
+                   [&](int32_t d, int32_t u, uint8_t flag_u, int32_t w) {
+                     lose_triangle(a, d, u, flag_u, w);
+                   });
 }
 
 // Items [q0, q1) of the worklist, claimed by this warp; q1 - q0 <= 32.
@@ -299,13 +356,13 @@ __device__ void run_items(const Args& a, const int32_t* list, int64_t q0, int64_
   }
 }
 
-// Appends lane t (where `keep`) to the parity-`p` list, unsplit lanes at
-// the front and split lanes at the back; one atomic per warp and side.
+// Appends lane t (where `keep`) to the parity-`p` list of `lists` (the
+// worklists or the death lists, whose lengths are at `ctr`), unsplit lanes
+// at the front and split lanes at the back; one atomic per warp and side.
 // Warp-uniform call.
-__device__ __forceinline__ void append(const Args& a, int p, bool keep, bool split, int32_t t,
-                                       int lane) {
-  int32_t* list = a.lists + p * a.nnzp;
-  int32_t* ctr = a.counts + kCursorWords + 3 * a.num_slots;
+__device__ __forceinline__ void append(const Args& a, int32_t* lists, int32_t* ctr, int p,
+                                       bool keep, bool split, int32_t t, int lane) {
+  int32_t* list = lists + p * a.nnzp;
   const unsigned lt = (1u << lane) - 1;
   const unsigned m_reg = __ballot_sync(kFull, keep && !split);
   const unsigned m_spl = __ballot_sync(kFull, keep && split);
@@ -328,17 +385,17 @@ __device__ __forceinline__ bool is_split(const Args& a, int32_t t) {
   return min(a.cdeg[a.edge_row[t]], a.cdeg[b]) > a.split_row;
 }
 
-// Clears the two undirected alive flags of the directed lane t = (a, b).
-__device__ void clear_undirected(const Args& a, int32_t t) {
+// Sets the two compacted entries of the directed lane t = (a, b) to `flag`.
+__device__ void mark_undirected(const Args& a, int32_t t, uint8_t flag) {
   const int32_t b = a.colidx[t];
   if (b == 0) return;
   const int32_t ra = a.edge_row[t];
   const int32_t a0 = row_start(a, ra), da = a.cdeg[ra];
   const int32_t b0 = row_start(a, b), db = a.cdeg[b];
   const int32_t i = lower_bound(a.ccol, a0, 0, da, b);
-  if (i < da && a.ccol[a0 + i] == b) a.calive[a0 + i] = 0;
+  if (i < da && a.ccol[a0 + i] == b) a.calive[a0 + i] = flag;
   const int32_t j = lower_bound(a.ccol, b0, 0, db, ra);
-  if (j < db && a.ccol[b0 + j] == ra) a.calive[b0 + j] = 0;
+  if (j < db && a.ccol[b0 + j] == ra) a.calive[b0 + j] = flag;
 }
 
 // Whether any slot is still live; also a CTA barrier over latch.
@@ -371,14 +428,15 @@ __global__ void __launch_bounds__(kThreads, kBsearch ? 8 : 4) peel_fused_kernel(
   int32_t* changed_all = a.counts + kCursorWords;  // changed[2][S]
   int32_t* left = changed_all + 2 * S;
   int32_t* ctr = changed_all + 3 * S;
+  int32_t* dctr = ctr + kDeathCounts;
   unsigned long long* cursor = reinterpret_cast<unsigned long long*>(a.counts);
   int32_t* warp_counts = warp_counts_all[warp];
   stamp(a, 0);
 
   // Phase 0: the working alive copy; every undirected row of a slot that is
   // not done compacted to its entries alive or frozen-live at launch
-  // (entries keep their order, so rows stay sorted); then the first
-  // worklist.
+  // (entries keep their order, so rows stay sorted), with their lanes; then
+  // the first worklist.
   for (int s = threadIdx.x; s < S; s += blockDim.x) {
     latch[s] = 0;
     iters[s] = a.iters_in[s];
@@ -411,24 +469,26 @@ __global__ void __launch_bounds__(kThreads, kBsearch ? 8 : 4) peel_fused_kernel(
       // other, so that a hub row is not one long chain of dependent loads.
       for (int32_t i0 = 0; i0 < n; i0 += kUnroll * kWarp) {
         bool on[kUnroll];
-        int32_t c[kUnroll];
+        int32_t c[kUnroll], e[kUnroll];
 #pragma unroll
         for (int j = 0; j < kUnroll; ++j) {
           const int32_t i = i0 + j * kWarp + lane;
-          const int32_t e = i < n ? a.u2d[rs + i] : static_cast<int32_t>(a.nnzp);
+          e[j] = i < n ? a.u2d[rs + i] : static_cast<int32_t>(a.nnzp);
           c[j] = i < n ? a.ucolidx[rs + i] : 0;
           on[j] = false;
-          if (e < a.nnzp) {
-            const bool al = a.alive_in[e], fz = a.frozen[e];
-            on[j] = al || (fz && a.ftruss[e] >= a.cur_k_in[e / a.slot_nnz]);
+          if (e[j] < a.nnzp) {
+            const bool al = a.alive_in[e[j]], fz = a.frozen[e[j]];
+            on[j] = al || (fz && a.ftruss[e[j]] >= a.cur_k_in[e[j] / a.slot_nnz]);
           }
         }
 #pragma unroll
         for (int j = 0; j < kUnroll; ++j) {
           const unsigned m = __ballot_sync(kFull, on[j]);
           if (on[j]) {
-            a.ccol[rs + kept + __popc(m & lt)] = c[j];
-            a.calive[rs + kept + __popc(m & lt)] = 1;
+            const int32_t at = rs + kept + __popc(m & lt);
+            a.ccol[at] = c[j];
+            a.calive[at] = kPresent;
+            a.clane[at] = e[j];
           }
           kept += __popc(m);
         }
@@ -446,12 +506,12 @@ __global__ void __launch_bounds__(kThreads, kBsearch ? 8 : 4) peel_fused_kernel(
       split = keep && is_split(a, static_cast<int32_t>(t));
       if (split) a.acc[t] = 0;
     }
-    append(a, 0, keep, split, static_cast<int32_t>(t), lane);
+    append(a, a.lists, ctr, 0, keep, split, static_cast<int32_t>(t), lane);
   }
   grid.sync();
   stamp(a, 2);
 
-  int32_t trips = 0;
+  int32_t trips = 0, updates = 0;
   // any_live first: its barrier also orders the last latch update before
   // the reads below.
   while (any_live(a, latch) && trips < a.inner_limit) {
@@ -459,14 +519,25 @@ __global__ void __launch_bounds__(kThreads, kBsearch ? 8 : 4) peel_fused_kernel(
     const int32_t* list = a.lists + p * a.nnzp;
     const int32_t n_reg = __ldcg(ctr + kRegCount + p);
     const int32_t n_split = __ldcg(ctr + kSplitCount + p);
-    const int64_t n_items = n_reg + static_cast<int64_t>(n_split) * a.split_ways;
+    // The last trip's deaths, in the death list of the other parity.
+    const int32_t* dead = a.deaths + (p ^ 1) * a.nnzp;
+    const int32_t d_reg = __ldcg(dctr + kRegCount + (p ^ 1));
+    const int32_t d_split = __ldcg(dctr + kSplitCount + (p ^ 1));
+    // Every CTA reads the same counters: the choice is the grid's.
+    const bool update =
+        trips > 0 && static_cast<int64_t>(d_reg) + d_split <= static_cast<int64_t>(n_reg) + n_split;
+    updates += update;
     if (a.trip_log != nullptr && blockIdx.x == 0 && threadIdx.x == 0 && trips < a.trip_log_len) {
       a.trip_log[2 * trips] = n_reg;
       a.trip_log[2 * trips + 1] = n_split;
     }
 
-    // (a) supports: warps claim up to `block` items at a time; fewer when
-    // the list is short, so that every warp of the grid gets a share.
+    // (a) supports, by a count of the worklist or an update from the death
+    // list: warps claim up to `block` items at a time; fewer when the list
+    // is short, so that every warp of the grid gets a share.
+    const int32_t* items = update ? dead : list;
+    const int32_t i_reg = update ? d_reg : n_reg;
+    const int64_t n_items = i_reg + static_cast<int64_t>(update ? d_split : n_split) * a.split_ways;
     const int64_t n_warps = static_cast<int64_t>(gridDim.x) * kWarps;
     int64_t share = (n_items + n_warps - 1) / n_warps;
     if (share > a.block) share = a.block;
@@ -478,17 +549,26 @@ __global__ void __launch_bounds__(kThreads, kBsearch ? 8 : 4) peel_fused_kernel(
       const int64_t base = static_cast<int64_t>(__shfl_sync(kFull, claimed, 0));
       if (base >= n_items) break;
       const int64_t end = min(base + claim, n_items);
-      for (int64_t q = base; q < end; q += kWarp)
-        run_items<kBsearch>(a, list, q, min(q + kWarp, end), n_reg, latch, warp_counts, lane);
+      for (int64_t q = base; q < end; q += kWarp) {
+        if (update)
+          run_updates(a, items, q, min(q + kWarp, end), i_reg, latch, lane);
+        else
+          run_items<kBsearch>(a, items, q, min(q + kWarp, end), i_reg, latch, warp_counts, lane);
+      }
     }
     grid.sync();
 
-    // (b) the prune: survivors go to the other list.
+    // (b) the prune: survivors go to the other worklist, deaths to this
+    // parity's death list, their entries marked dying; the last trip's
+    // deaths, read by (a), are cleared.
+    const int64_t d_lanes = d_reg + static_cast<int64_t>(d_split);
+    for (int64_t q = tid; q < d_lanes; q += nthreads)
+      mark_undirected(a, __ldcg(q < d_reg ? dead + q : dead + a.nnzp - 1 - (q - d_reg)), kAbsent);
     int32_t* changed = changed_all + p * S;
     const int64_t n_lanes = n_reg + static_cast<int64_t>(n_split);
     for (int64_t q0 = wbase; q0 < n_lanes; q0 += wstride) {  // warp-uniform
       const int64_t q = q0 + lane;
-      bool keep = false, split = false;
+      bool keep = false, split = false, dies = false;
       int32_t t = 0;
       if (q < n_lanes) {
         split = q >= n_reg;
@@ -496,7 +576,7 @@ __global__ void __launch_bounds__(kThreads, kBsearch ? 8 : 4) peel_fused_kernel(
         const int32_t slot = t / a.slot_nnz;
         if (!latch[slot]) {
           int32_t s;
-          if (split) {
+          if (split && !update) {
             s = __ldcg(a.acc + t);
             a.supp[t] = s;
             a.acc[t] = 0;
@@ -507,19 +587,22 @@ __global__ void __launch_bounds__(kThreads, kBsearch ? 8 : 4) peel_fused_kernel(
           if (!keep) {
             a.alive[t] = 0;
             atomicAdd(changed + slot, 1);
-            if (!(a.frozen[t] && a.ftruss[t] >= a.cur_k_in[slot])) clear_undirected(a, t);
+            dies = !(a.frozen[t] && a.ftruss[t] >= a.cur_k_in[slot]);
+            if (dies) mark_undirected(a, t, kDying);
           }
         }
       }
-      append(a, p ^ 1, keep, split, t, lane);
+      append(a, a.lists, ctr, p ^ 1, keep, split, t, lane);
+      append(a, a.deaths, dctr, p, dies, split, t, lane);
     }
     grid.sync();
 
     // (c) the per-slot latch, identically in every CTA.  CTA 0 zeroes the
     // other parity of `changed` (every CTA read it last trip, before the
-    // barrier above; the next trip adds to it only after a barrier) and
-    // this parity's list counters and cursor (read this trip, before the
-    // barrier above; refilled on the next trip, after a barrier).
+    // barrier above; the next trip adds to it only after a barrier), this
+    // parity's worklist counters and cursor and the other parity's death
+    // list counters (read this trip, before the barrier above; refilled on
+    // the next trip, after a barrier).
     int32_t* other = changed_all + (p ^ 1) * S;
     for (int s = threadIdx.x; s < S; s += blockDim.x) {
       const int32_t ch = __ldcg(changed + s);
@@ -532,6 +615,8 @@ __global__ void __launch_bounds__(kThreads, kBsearch ? 8 : 4) peel_fused_kernel(
     if (blockIdx.x == 0 && threadIdx.x == 0) {
       ctr[kRegCount + p] = 0;
       ctr[kSplitCount + p] = 0;
+      dctr[kRegCount + (p ^ 1)] = 0;
+      dctr[kSplitCount + (p ^ 1)] = 0;
       cursor[p] = 0;
     }
     ++trips;
@@ -578,7 +663,10 @@ __global__ void __launch_bounds__(kThreads, kBsearch ? 8 : 4) peel_fused_kernel(
       a.done[s] = a.done_in[s] || retired;
       a.edges[s] = a.done_in[s] ? a.edges_in[s] : n_left;
     }
-    if (threadIdx.x == 0) a.titers[0] = a.titers_in[0] + trips;
+    if (threadIdx.x == 0) {
+      a.titers[0] = a.titers_in[0] + trips;
+      if (a.incremental != nullptr) *a.incremental += updates;
+    }
   }
   stamp(a, 5);
 }
@@ -620,8 +708,9 @@ extern "C" {
 
 // Launches one level on `stream`; returns the cudaError_t of the launch
 // (0 = success).  Pointers in the order of struct Args; `counts` must come
-// zeroed; trip_log and stamps may be null.  `begin` and `end` (cudaEvent_t,
-// or null) are recorded on `stream` just before and just after the launch.
+// zeroed; trip_log, stamps and incremental may be null.  `begin` and `end`
+// (cudaEvent_t, or null) are recorded on `stream` just before and just
+// after the launch.
 int peel_fused_launch(const void* colidx, const void* edge_row, const void* urowptr,
                       const void* udeg, const void* ucolidx, const void* u2d,
                       const void* alive_in, const void* supp_in, const void* truss_in,
@@ -630,8 +719,9 @@ int peel_fused_launch(const void* colidx, const void* edge_row, const void* urow
                       const void* titers_in, const void* frozen, const void* ftruss,
                       const void* single, void* alive, void* supp, void* truss, void* cur_k,
                       void* kmax, void* levels, void* iters, void* done, void* titers,
-                      void* edges, void* ccol, void* calive, void* cdeg, void* lists, void* acc,
-                      void* counts, void* trip_log, void* stamps, long long nnzp,
+                      void* edges, void* ccol, void* calive, void* clane, void* cdeg, void* lists,
+                      void* deaths, void* acc, void* counts, void* trip_log, void* stamps,
+                      void* incremental, long long nnzp,
                       long long unnzp, int nrows,
                       int slot_nnz,
                       int num_slots, int block, int inner_limit, int split_row, int split_ways,
@@ -657,10 +747,12 @@ int peel_fused_launch(const void* colidx, const void* edge_row, const void* urow
       static_cast<int32_t*>(levels),         static_cast<int32_t*>(iters),
       static_cast<uint8_t*>(done),           static_cast<int32_t*>(titers),
       static_cast<int32_t*>(edges),          static_cast<int32_t*>(ccol),
-      static_cast<uint8_t*>(calive),         static_cast<int32_t*>(cdeg),
-      static_cast<int32_t*>(lists),          static_cast<int32_t*>(acc),
+      static_cast<uint8_t*>(calive),         static_cast<int32_t*>(clane),
+      static_cast<int32_t*>(cdeg),           static_cast<int32_t*>(lists),
+      static_cast<int32_t*>(deaths),         static_cast<int32_t*>(acc),
       static_cast<int32_t*>(counts),         static_cast<int32_t*>(trip_log),
-      static_cast<int64_t*>(stamps),         static_cast<int64_t>(nnzp),
+      static_cast<int64_t*>(stamps),         static_cast<int32_t*>(incremental),
+      static_cast<int64_t>(nnzp),
       static_cast<int64_t>(unnzp),           nrows,
       slot_nnz, num_slots, block, inner_limit, split_row, split_ways, trip_log_len};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);

@@ -24,9 +24,13 @@ The kernel computes only what can change the state: the alive lanes of
 slots that are neither done nor latched, from a worklist it compacts in
 scratch; a done slot's ``alive``, ``support`` and ``trussness`` are copied
 from the state in (its fixed point; see the source for why the copy is
-exact).  Lanes whose shorter (compacted) row exceeds :data:`SPLIT_ROW`
-entries are split into :data:`SPLIT_WAYS` work items.  ``block`` is the
-most worklist items a warp claims at a time.
+exact).  After a launch's first trip, a trip whose last prune killed at
+most as many lanes as it kept takes its supports from those deaths (each
+lost triangle taken off its surviving edges) instead of counting every
+alive lane again; the supports are the count's either way.  Lanes whose
+shorter (compacted) row exceeds :data:`SPLIT_ROW` entries are split into
+:data:`SPLIT_WAYS` work items.  ``block`` is the most worklist items a warp
+claims at a time.
 
 The tensors' device picks the implementation, with no fallback between
 them: :func:`fused_level_cuda` launches the hand-written Hopper kernel
@@ -72,21 +76,25 @@ SPLIT_WAYS = 8
 NUM_STAMPS = 6
 # `counts` holds, besides the per-slot counters (changed x 2, left), the
 # item cursor per trip parity (64-bit: four int32 words) and the lengths
-# of the two worklists (unsplit, split) per parity (four words).
-_COUNTER_WORDS = 8
+# of the two worklists and of the two death lists (unsplit, split) per
+# parity (eight words).
+_COUNTER_WORDS = 12
 
 
 def scratch_elements(nnzp: int, unnzp: int, nrows: int, num_slots: int) -> dict[str, int]:
     """Elements of each scratch buffer of one :func:`fused_level_cuda`
     launch: the undirected rows compacted at launch (``ccol`` int32,
-    ``calive`` uint8, ``cdeg`` int32 per row), ``lists`` (two worklists of
-    lanes, int32), ``acc`` (split lanes' sums, int32) and ``counts``
-    (int32, zeroed)."""
+    ``calive`` uint8, ``clane`` int32: the lane of each entry, ``cdeg``
+    int32 per row), ``lists`` and ``deaths`` (two worklists of lanes and
+    two lists of the lanes a trip killed, int32), ``acc`` (split lanes'
+    sums, int32) and ``counts`` (int32, zeroed)."""
     return {
         "ccol": unnzp,
         "calive": unnzp,
+        "clane": unnzp,
         "cdeg": nrows,
         "lists": 2 * nnzp,
+        "deaths": 2 * nnzp,
         "acc": nnzp,
         "counts": 3 * num_slots + _COUNTER_WORDS,
     }
@@ -202,7 +210,7 @@ def load_peel_fused() -> BuiltLibrary:
     built = load_library("peel_fused")
     fn = built.lib.peel_fused_launch
     fn.argtypes = (
-        [ctypes.c_void_p] * 37
+        [ctypes.c_void_p] * 40
         + [ctypes.c_longlong, ctypes.c_longlong]
         + [ctypes.c_int] * 10
         + [ctypes.c_void_p] * 3  # the stream, the timing events (or null)
@@ -260,17 +268,20 @@ def fused_level_cuda(
     schedule: str,
     trip_log: torch.Tensor | None = None,
     stamps: torch.Tensor | None = None,
+    incremental: torch.Tensor | None = None,
     events=None,
 ) -> PeelState:
     """One truss level of every live slot, by the CUDA kernel (one
     cooperative launch).  A refused or failed launch raises
     :class:`repro_torch.errors.DeviceError`.
 
-    Two optional diagnostics, CUDA tensors the kernel writes into:
+    Three optional diagnostics, CUDA tensors the kernel writes into:
     ``trip_log`` ((2 * T,) int32) receives for each of the first T inner
     trips the worklist's unsplit and split lanes; ``stamps`` ((6,) int64)
     CTA 0's clock (``%globaltimer``, ns) at entry, rows compacted, first
-    worklist built, inner loop done, bookkeeping done and exit.
+    worklist built, inner loop done, bookkeeping done and exit;
+    ``incremental`` (one int32) has the launch's update trips (those that
+    took their supports from the last trip's deaths) added to it.
     ``events`` (a ``repro_torch.obs.device_time.EventPair`` on the state's
     device): the library records its two events on the launch's stream
     just before and just after the launch call, so their interval holds
@@ -289,6 +300,11 @@ def fused_level_cuda(
     ):
         raise ValueError(f"stamps must be a contiguous ({NUM_STAMPS},) int64 tensor on the "
                          "state's device")
+    if incremental is not None and (
+        incremental.device != dev or incremental.dtype != torch.int32 or incremental.numel() != 1
+        or not incremental.is_contiguous()
+    ):
+        raise ValueError("incremental must be one contiguous int32 on the state's device")
     built = load_peel_fused()
     nnzp, unnzp = p.nnz_pad, int(p.ucolidx.shape[0])
 
@@ -309,9 +325,9 @@ def fused_level_cuda(
     )
     nrows = int(p.udeg.shape[0])
     n = scratch_elements(nnzp, unnzp, nrows, num_slots)
-    ccol, cdeg = i32(n["ccol"]), i32(n["cdeg"])
+    ccol, clane, cdeg = i32(n["ccol"]), i32(n["clane"]), i32(n["cdeg"])
     calive = torch.empty(n["calive"], dtype=torch.uint8, device=dev)
-    lists, acc = i32(n["lists"]), i32(n["acc"])
+    lists, deaths, acc = i32(n["lists"]), i32(n["deaths"]), i32(n["acc"])
     counts = torch.zeros(n["counts"], dtype=torch.int32, device=dev)
     ptrs = [
         x.data_ptr()
@@ -322,10 +338,10 @@ def fused_level_cuda(
             frozen, frozen_truss, single_level,
             out.alive, out.support, out.trussness, out.cur_k, out.kmax, out.levels,
             out.iters, out.done, out.total_iters, out.edges_alive,
-            ccol, calive, cdeg, lists, acc, counts,
+            ccol, calive, clane, cdeg, lists, deaths, acc, counts,
         )
     ]
-    ptrs += [x.data_ptr() if x is not None else None for x in (trip_log, stamps)]
+    ptrs += [x.data_ptr() if x is not None else None for x in (trip_log, stamps, incremental)]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = built.lib.peel_fused_launch(
@@ -361,10 +377,12 @@ def make_fused_level(*, window: int, block: int = 128, schedule: str = "bsearch"
     """Build the one-launch-per-level step for one configuration.
 
     Returns ``level_step(p, state, frozen, frozen_truss, single_level, *,
-    events=None) -> PeelState`` advancing every live slot by exactly one
-    truss level.  CUDA tensors go to :func:`fused_level_cuda` (with
-    ``events``, the launch's timing pair), CPU tensors to
-    :func:`fused_level_torch`.  ``window`` must cover the bucket's max
+    events=None, incremental=None) -> PeelState`` advancing every live slot
+    by exactly one truss level.  CUDA tensors go to :func:`fused_level_cuda`
+    (with ``events``, the launch's timing pair, and ``incremental``, the
+    count its update trips are added to), CPU tensors to
+    :func:`fused_level_torch`, which counts every trip and adds nothing to
+    ``incremental``.  ``window`` must cover the bucket's max
     undirected degree; ``block`` must divide the packed ``slot_nnz``
     (checked here and, with slot attribution, by
     ``repro_torch.graphs.pack.validate_fused_tiling``).
@@ -374,12 +392,12 @@ def make_fused_level(*, window: int, block: int = 128, schedule: str = "bsearch"
     if block < 1 or (block & (block - 1)) != 0:
         raise ValueError(f"fused block must be a power of two, got {block}")
 
-    def level_step(p, state, frozen, frozen_truss, single_level, *, events=None):
+    def level_step(p, state, frozen, frozen_truss, single_level, *, events=None, incremental=None):
         dev = state.alive.device
         if dev.type == "cuda":
             return fused_level_cuda(
                 p, state, frozen, frozen_truss, single_level, block=block, schedule=schedule,
-                events=events,
+                incremental=incremental, events=events,
             )
         if dev.type != "cpu":
             raise ValueError(f"the fused level runs on CUDA or the CPU, got {dev}")

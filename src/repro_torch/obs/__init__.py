@@ -23,14 +23,16 @@ each trip-graph replay).  A dispatch's device time — ``device_time_s``,
 ``peel_device_time_s`` histogram — is the sum of its launches' intervals
 on CUDA and its host wall on the CPU, where the peel runs on the host.
 The fused peel also counts ``peel_level_trips`` (inner trips, every
-device) and ``peel_level_device_seconds`` (CUDA).  The event timing is
-always on; it adds no synchronization.
+device), ``peel_level_trips_incremental`` (the inner trips whose supports
+came from the last trip's deaths: 0 off CUDA, where every trip counts) and
+``peel_level_device_seconds`` (CUDA).  The event timing is always on; it
+adds no synchronization.
 
 While tracing, the fused peel writes one ``peel-level.done`` instant event
-per level (level, inner trips, alive lanes at launch, device ms on CUDA),
-and while a ``torch.profiler`` records, every span also opens a
-``torch.profiler.record_function`` range of its name, so the spans sit
-on the device trace's own timeline.
+per level (level, inner trips, update trips, alive lanes at launch,
+device ms on CUDA), and while a ``torch.profiler`` records, every span
+also opens a ``torch.profiler.record_function`` range of its name, so the
+spans sit on the device trace's own timeline.
 
 Turn tracing on per session (``Session(trace="trace.json")``), per call
 (``solve(qs, trace="trace.json")``), or process-wide via the

@@ -21,6 +21,7 @@ __all__ = [
     "ALL_METRIC_NAMES",
     "PEEL_LEVEL_DEVICE_SECONDS",
     "PEEL_LEVEL_TRIPS",
+    "PEEL_LEVEL_TRIPS_INCREMENTAL",
 ]
 
 # Counters of the fused peel's level launches that the JAX package does
@@ -29,6 +30,8 @@ __all__ = [
 # against its registry, which does not hold them.
 PEEL_LEVEL_DEVICE_SECONDS = "peel_level_device_seconds"  # CUDA events around each launch
 PEEL_LEVEL_TRIPS = "peel_level_trips"  # inner trips, every device
+# the inner trips that took their supports from the last trip's deaths
+PEEL_LEVEL_TRIPS_INCREMENTAL = "peel_level_trips_incremental"
 
 COUNTERS: frozenset[str] = frozenset(
     {
@@ -45,6 +48,7 @@ COUNTERS: frozenset[str] = frozenset(
         "peel_fused_levels",
         PEEL_LEVEL_DEVICE_SECONDS,
         PEEL_LEVEL_TRIPS,
+        PEEL_LEVEL_TRIPS_INCREMENTAL,
         "peel_slots",
         # compile cache
         "cache_bucket_compiles",

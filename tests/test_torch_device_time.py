@@ -4,9 +4,11 @@ On the CPU: a traced ``fine/fused/aligned`` decompose counts every inner
 trip in ``peel_level_trips`` and writes one ``peel-level.done`` record per
 level, whose alive lanes are recounted here from the states the level step
 was given; an untraced session records no level events and makes the same
-readbacks; off CUDA no device counter is recorded and ``device_time_s`` is
-the dispatch's host wall; a traced session's spans open profiler ranges
-while a ``torch.profiler`` records.  On the card (``-m gpu``): the level
+readbacks; the update trips the level steps add on the device ride in the
+same readbacks into ``peel_level_trips_incremental`` and the records (0 on
+the plain version); off CUDA no device counter is recorded and
+``device_time_s`` is the dispatch's host wall; a traced session's spans
+open profiler ranges while a ``torch.profiler`` records.  On the card (``-m gpu``): the level
 launches' event seconds against the profiler's kernel time on rmat-15, and
 ``device_time_s`` against the dispatch's wall on the fused and trip-graph
 paths.
@@ -21,7 +23,11 @@ import torch
 from repro_torch import obs
 from repro_torch.api import Session, TrussQuery
 from repro_torch.graphs import rmat
-from repro_torch.obs.names import PEEL_LEVEL_DEVICE_SECONDS, PEEL_LEVEL_TRIPS
+from repro_torch.obs.names import (
+    PEEL_LEVEL_DEVICE_SECONDS,
+    PEEL_LEVEL_TRIPS,
+    PEEL_LEVEL_TRIPS_INCREMENTAL,
+)
 
 FUSED = dict(backend="fine/fused/aligned", chunk=64, max_batch=2)
 
@@ -90,9 +96,37 @@ def test_untraced_fused_decompose_records_no_level_event_and_same_readbacks():
         syncs[trace] = s.executor_for(g).host_syncs
         assert syncs[trace] == levels + 3  # a readback a level, the last test, tiling, belt
         assert s.obs.metrics.value(PEEL_LEVEL_TRIPS) > levels
+        assert s.metrics_snapshot()["counters"][PEEL_LEVEL_TRIPS_INCREMENTAL] == 0  # plain version
         names = {e["name"] for e in s.obs.tracer.events()}
         assert ("peel-level.done" in names) is trace
     assert syncs[False] == syncs[True]
+
+
+def test_update_trips_ride_in_the_level_readbacks():
+    """Level steps that add update trips to the count they are handed (as
+    the kernel does on the card; here all but each launch's first trip):
+    the dispatch's ``peel_level_trips_incremental`` and each level's record
+    hold them, with no readback more than an untraced plain session's."""
+    g = rmat(6, 4, seed=2)
+    s = Session(trace=True, device="cpu", **FUSED)
+    seen = _spied(s, g)
+    peel = s.executor_for(g)._peel
+    inner = peel.level_step
+
+    def step(p, st, *args, incremental=None, **kw):
+        out = inner(p, st, *args, incremental=incremental, **kw)
+        incremental += int(out.total_iters - st.total_iters) - 1  # in place, as on the card
+        return out
+
+    peel.level_step = step
+    _decompose(s, g)
+    levels = int(s.obs.metrics.value("peel_fused_levels"))
+    added = [int(after.total_iters - before.total_iters) - 1 for before, after in seen]
+    assert len(added) == levels and sum(added) > 0
+    assert s.metrics_snapshot()["counters"][PEEL_LEVEL_TRIPS_INCREMENTAL] == sum(added)
+    done = [e for e in s.obs.tracer.events() if e["name"] == "peel-level.done"]
+    assert [e["args"]["update_trips"] for e in done] == added
+    assert s.executor_for(g).host_syncs == levels + 3
 
 
 def test_device_time_off_cuda_is_the_dispatch_host_wall():

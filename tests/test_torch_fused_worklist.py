@@ -1,13 +1,16 @@
 """The fused level kernel's host-side plan, on the CPU.
 
 ``fused_level_cuda`` computes only the alive lanes of live slots from a
-worklist, splits lanes with long rows into several work items, and copies
+worklist, splits lanes with long rows into several work items, copies
 a done slot's ``alive``, ``support`` and ``trussness`` from the state in
-instead of recomputing them.  The kernel itself runs only on the card
-(``tests/test_torch_kernels_gpu.py``); here: its scratch sizes, its split
-rule, and the premise of the copy, checked on the plain version
-(``fused_level_torch``, the reference's ``_level_kernel`` replayed) that
-the kernel is held to bit for bit.
+instead of recomputing them, and after a launch's first trip may take a
+trip's supports from the last trip's deaths instead of counting again.
+The kernel itself runs only on the card (``tests/test_torch_kernels_gpu.py``);
+here: its scratch sizes, its split rule, the premise of the copy, checked
+on the plain version (``fused_level_torch``, the reference's
+``_level_kernel`` replayed) that the kernel is held to bit for bit, and the
+update rule, as a plain model of the kernel's walk (``_update_model``) held
+to a recount.
 """
 
 import jax.numpy as jnp
@@ -23,6 +26,7 @@ import repro_torch.graphs as tg
 from _torch_parity import assert_same, torch_problem
 from repro.core import trussness_numpy
 from repro.kernels.peel_fused import make_fused_level as ref_make_fused_level
+from repro_torch.api import bucket_for
 from repro_torch.core import prepare_fine, support_fine_owner
 from repro_torch.kernels.peel_fused import (
     SPLIT_ROW,
@@ -46,13 +50,13 @@ def _star_clique(n=400, clique=SPLIT_ROW + 4):
 
 def test_scratch_elements_cover_the_worklists():
     n = scratch_elements(nnzp=4096, unnzp=8192, nrows=513, num_slots=4)
-    # The undirected rows compacted at launch (an entry and a flag per
-    # undirected lane, a length per row), two worklists (one per trip
-    # parity) of up to every lane each, a sum per lane for split lanes, and
-    # the per-slot counters (changed x 2, left) plus a 64-bit item cursor
-    # and two list lengths per parity.
-    assert n == {"ccol": 8192, "calive": 8192, "cdeg": 513, "lists": 8192, "acc": 4096,
-                 "counts": 20}
+    # The undirected rows compacted at launch (an entry, a flag and a lane
+    # per undirected lane, a length per row), two worklists and two death
+    # lists (one each per trip parity) of up to every lane each, a sum per
+    # lane for split lanes, and the per-slot counters (changed x 2, left)
+    # plus a 64-bit item cursor and four list lengths per parity.
+    assert n == {"ccol": 8192, "calive": 8192, "clane": 8192, "cdeg": 513, "lists": 8192,
+                 "deaths": 8192, "acc": 4096, "counts": 24}
 
 
 def test_split_constants_leave_no_empty_chunk():
@@ -193,3 +197,105 @@ def test_all_done_level_prunes_with_zero_support_like_reference():
     for f in rpeel.PeelState._fields:
         assert_same(getattr(rst2, f), getattr(tst2, f), f)
     assert int(tst2.support.abs().sum()) == 0 and int(tst2.total_iters) == int(tst.total_iters)
+
+
+# --------------------------------------------------------------------- #
+# The update from a trip's deaths (csrc/peel_fused.cu, phase (a))
+# --------------------------------------------------------------------- #
+def _update_model(p, s, alive, frozen_live, dying):
+    """The kernel's update, entry by entry: ``s`` is a trip's support over
+    ``alive | frozen_live``, ``dying`` the alive lanes its prune killed.
+    Each undirected entry is absent (0), present (1: alive or frozen-live)
+    or dying (2).  For each dying lane d = (x, y) and each c in both rows,
+    f = (x, c) and g = (y, c) both not absent: the triangle is skipped when
+    f or g is dying with a smaller lane than d (that lane owns it), and
+    otherwise each of f and g that is an alive survivor loses 1.  Returns
+    the supports and how many triangles held two or three dying edges."""
+    nnzp = p.nnz_pad
+    lane = p.u2d.long()
+    real = lane < nnzp
+    at = lane.clamp(max=nnzp - 1)
+    flag = torch.where((alive | frozen_live)[at] & real, 1 + dying[at].long(), 0).tolist()
+    lane, col = lane.tolist(), p.ucolidx.tolist()
+    start = [0] + p.urowptr[:-1].tolist()  # row v starts at urowptr[v - 1]
+    udeg = p.udeg.tolist()
+    out, shared = s.clone(), 0
+    for d in torch.nonzero(dying).flatten().tolist():
+        x, y = int(p.edge_row[d]), int(p.colidx[d])
+        if y == 0:
+            continue
+        in_y = {col[w]: w for w in range(start[y], start[y] + udeg[y])}
+        for u in range(start[x], start[x] + udeg[x]):
+            w = in_y.get(col[u])
+            if w is None or flag[u] == 0 or flag[w] == 0:
+                continue
+            f, g = lane[u], lane[w]
+            if (flag[u] == 2 and f < d) or (flag[w] == 2 and g < d):
+                continue
+            shared += flag[u] == 2 or flag[w] == 2
+            for fl, e in ((flag[u], f), (flag[w], g)):
+                if fl == 1 and alive[e]:
+                    out[e] -= 1
+    return out, shared
+
+
+def _rule_graph(seed):
+    return [tg.erdos(60, 12.0, seed=seed), tg.rmat(6, 8, seed=seed),
+            tg.clustered(3, 16, 0.8, seed=seed)][seed % 3]
+
+
+@pytest.mark.parametrize("seed", range(6))
+def test_update_from_deaths_equals_a_recount(seed):
+    """On random small graphs, alive sets, frozen-live lanes and death
+    sets: the model's supports equal a recount over the survivors (alive
+    minus dying) and the frozen-live lanes, on every survivor; frozen-live,
+    dying and dead lanes keep the support they had."""
+    g = _rule_graph(seed)
+    p = prepare_fine(g, chunk=CHUNK, device="cpu")
+    window = bucket_for(g, chunk=CHUNK).window
+    gen = torch.Generator().manual_seed(seed)
+    real = p.colidx != 0
+    r = torch.rand(p.nnz_pad, generator=gen)
+    frozen_live = real & (r < 0.15)
+    alive = real & ~frozen_live & (r < 0.9)
+    dying = alive & (torch.rand(p.nnz_pad, generator=gen) < 0.3)
+    s = support_fine_owner(p, alive | frozen_live, window=window, chunk=CHUNK)
+    got, shared = _update_model(p, s, alive, frozen_live, dying)
+    survivors = alive & ~dying
+    want = support_fine_owner(p, survivors | frozen_live, window=window, chunk=CHUNK)
+    assert torch.equal(got[survivors], want[survivors])
+    assert torch.equal(got[~survivors], s[~survivors])
+    assert shared > 0 and int((got != s).sum()) > 0  # an owner was needed; supports moved
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_update_rule_over_a_level(seed):
+    """A level's trips as the kernel chooses them: after the first, a trip
+    updates from the last prune's deaths when they are at most the lanes it
+    kept, and counts otherwise.  Every trip's supports equal a count, and
+    some trips update."""
+    g = _rule_graph(seed)
+    p = prepare_fine(g, chunk=CHUNK, device="cpu")
+    window = bucket_for(g, chunk=CHUNK).window
+    real = p.colidx != 0
+    frozen_live = real & (torch.arange(p.nnz_pad) % 7 == 0)
+    alive = real & ~frozen_live
+    kinds = []
+    for k in (4, 6, 8):
+        a = alive.clone()
+        s = support_fine_owner(p, a | frozen_live, window=window, chunk=CHUNK)
+        while True:
+            dying = a & (s < k - 2)
+            if not bool(dying.any()):
+                break
+            kept = a & ~dying
+            want = support_fine_owner(p, kept | frozen_live, window=window, chunk=CHUNK)
+            if int(dying.sum()) <= int(kept.sum()):
+                s = _update_model(p, s, a, frozen_live, dying)[0]
+                kinds.append("update")
+            else:
+                s = want
+                kinds.append("count")
+            assert torch.equal(s[kept], want[kept]), (k, len(kinds))
+            a = kept
+    assert "update" in kinds

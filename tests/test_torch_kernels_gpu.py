@@ -320,6 +320,23 @@ def _star_clique():
     return tg.from_edges(n, np.array(star + kk, dtype=np.int64), name="star-clique")
 
 
+def _hub_with_ears():
+    """A clique on 300 vertices, a hub joined to 258 of them, and an ear on
+    each hub edge (a vertex joined to the hub and to that clique vertex).
+    At k = 260 the ears' edges (support 1) die on the first trip, both of an
+    ear's in one trip; then each hub edge (support 257 + its ear's 1; its
+    shorter row over SPLIT_ROW, so a split lane) loses its ear's triangle on
+    the update and dies mid-level, two hub edges in each of the hub's
+    triangles with the clique; the next update takes those off the clique's
+    edges."""
+    n, hub_deg = 300, 258
+    clique = [(i, j) for i in range(1, n + 1) for j in range(i + 1, n + 1)]
+    hub = [(0, v) for v in range(1, hub_deg + 1)]
+    ears = [(x, n + v) for v in range(1, hub_deg + 1) for x in (0, v)]
+    return tg.from_edges(n + hub_deg + 1, np.array(clique + hub + ears, dtype=np.int64),
+                         name="hub-ears")
+
+
 def _case(name, cuda):
     """(problem, window, k0, single, alive0, frozen, frozen_truss) of one
     whole-peel case of the fused kernel."""
@@ -332,7 +349,14 @@ def _case(name, cuda):
         frozen = torch.zeros(p.nnz_pad, dtype=torch.bool, device=cuda)
         ftruss = torch.zeros(p.nnz_pad, dtype=torch.int32, device=cuda)
     else:
-        g = tg.rmat(5, 6, seed=3) if name == "frozen" else _star_clique()
+        g = {
+            "frozen": lambda: tg.rmat(5, 6, seed=3),
+            "split_hub": _star_clique,
+            "hub_dies_mid_level": _hub_with_ears,
+            # Level 9 of its decompose: a count, an update, then a trip that
+            # kills more lanes than it keeps, so the next trip counts.
+            "recount_after_update": lambda: tg.clustered(3, 18, 0.7, seed=1),
+        }[name]()
         b = bucket_for(g, chunk=64)
         pp = tg.pack_problems(
             [g, g], slot_n=b.n_pad, slot_nnz=b.nnz_pad, slots=2, chunk=64,
@@ -348,8 +372,15 @@ def _case(name, cuda):
             fz[: g.nnz] = np.arange(g.nnz) % 2 == 0
             frozen = torch.from_numpy(fz).to(cuda)
             ftruss = torch.from_numpy(ft * fz).to(cuda)
-        else:  # start the decompose slot near the clique's top level
-            k0, single = [265, 3], [False, True]
+        else:
+            k0, single = {
+                # the decompose slot near the clique's top level
+                "split_hub": ([265, 3], [False, True]),
+                # one level at k = 260, retired beside a decompose from the
+                # clique's top levels (its hub edges die on the first trip)
+                "hub_dies_mid_level": ([260, 299], [True, False]),
+                "recount_after_update": ([3, 3], [False, True]),
+            }[name]
             frozen = torch.zeros(p.nnz_pad, dtype=torch.bool, device=cuda)
             ftruss = torch.zeros(p.nnz_pad, dtype=torch.int32, device=cuda)
     slots = len(k0)
@@ -361,12 +392,21 @@ def _case(name, cuda):
     return p, window, slot_ids, k0, single, alive0, frozen, ftruss
 
 
-@pytest.mark.parametrize("name", ["single_beside_decompose", "frozen", "split_hub"])
+CASES = ["single_beside_decompose", "frozen", "split_hub", "hub_dies_mid_level",
+         "recount_after_update"]
+
+
+@pytest.mark.parametrize("name", CASES)
 def test_fused_level_kernel_whole_peel_cases(cuda, name):
-    """Every autotune candidate, level by level over the whole peel: all ten
-    fields equal fused_level_torch's.  A slot done on entry comes out with
-    the state in's alive, support and trussness (the kernel copies them;
-    the plain version recomputes them)."""
+    """Every autotune candidate (both schedules), level by level over the
+    whole peel: all ten fields equal fused_level_torch's.  A slot done on
+    entry comes out with the state in's alive, support and trussness (the
+    kernel copies them; the plain version recomputes them).  Each launch's
+    update trips (supports from the last trip's deaths) are at most its
+    trips but the first; ``hub_dies_mid_level`` updates over split lanes
+    that died mid-level (triangles with two dying edges among them), and
+    ``recount_after_update`` has a launch that updates and later counts
+    again."""
     from repro_torch.exec.peel import init_peel_state
     from repro_torch.kernels.autotune import candidate_configs
     from repro_torch.kernels.peel_fused import (
@@ -381,11 +421,13 @@ def test_fused_level_kernel_whole_peel_cases(cuda, name):
     lanes_done = lambda st: st.done.repeat_interleave(slot_nnz)  # noqa: E731
     for cfg in candidate_configs(slot_nnz):
         st = init_peel_state(p, slot_ids, k0, single, alive0, frozen, ftruss)
-        levels, copied = 0, 0
+        levels, copied, mixed = 0, 0, False
         while not bool(st.done.all()):
             log = torch.full((64,), -1, dtype=torch.int32, device=cuda)
+            updates = torch.zeros((), dtype=torch.int32, device=cuda)
             got = fused_level_cuda(
-                p, st, frozen, ftruss, single, block=cfg.block, schedule=cfg.schedule, trip_log=log
+                p, st, frozen, ftruss, single, block=cfg.block, schedule=cfg.schedule, trip_log=log,
+                incremental=updates,
             )
             want = fused_level_torch(p, st, frozen, ftruss, single, window=window, block=cfg.block)
             for f in got._fields:
@@ -402,6 +444,14 @@ def test_fused_level_kernel_whole_peel_cases(cuda, name):
             assert log[:2].tolist() == [unsplit, split], (name, cfg, levels)
             if name == "split_hub" and levels == 0:
                 assert split * SPLIT_WAYS > 0
+            trips, n_upd = int(got.total_iters - st.total_iters), int(updates)
+            assert 0 <= n_upd <= max(trips - 1, 0), (name, cfg, levels)
+            mixed |= 0 < n_upd < trips - 1
+            if name == "hub_dies_mid_level" and levels == 0:
+                # Trips 0-2: a count, then updates; the split lanes that
+                # died on trip 1 (the hub's) leave trip 2's worklist.
+                assert trips == 3 and n_upd == 2, (cfg, trips, n_upd)
+                assert log[3] > log[5] > 0, log[:6].tolist()
             st, levels = got, levels + 1
         assert levels >= 2, (name, cfg)
         # On the all-done state no trip runs: the kernel prunes ahead with
@@ -409,7 +459,25 @@ def test_fused_level_kernel_whole_peel_cases(cuda, name):
         got = fused_level_cuda(p, st, frozen, ftruss, single, block=cfg.block, schedule=cfg.schedule)
         want = fused_level_torch(p, st, frozen, ftruss, single, window=window, block=cfg.block)
         assert all(torch.equal(getattr(got, f), getattr(want, f)) for f in got._fields), (name, cfg)
+        assert mixed or name != "recount_after_update", cfg
     assert copied > 0 or name == "frozen"
+
+
+def test_update_trips_on_rmat15(cuda):
+    """A decompose of rmat-15 on the fused backend: some inner trips take
+    their supports from the last trip's deaths, and never a launch's first
+    (at most the trips less the launches)."""
+    from repro_torch.api import Session, TrussQuery
+    from repro_torch.configs import LARGE_GRAPHS
+    from repro_torch.obs.names import PEEL_LEVEL_TRIPS, PEEL_LEVEL_TRIPS_INCREMENTAL
+
+    g = LARGE_GRAPHS[0].factory()  # rmat-15
+    s = Session(device=cuda, backend="fine/fused/aligned", max_batch=1)
+    s.solve([TrussQuery.decompose(g)])
+    counters = s.metrics_snapshot()["counters"]
+    levels = counters["peel_fused_levels"]
+    trips, updates = counters[PEEL_LEVEL_TRIPS], counters[PEEL_LEVEL_TRIPS_INCREMENTAL]
+    assert 0 < updates <= trips - levels, (updates, trips, levels)
 
 
 # --------------------------------------------------------------------- #
