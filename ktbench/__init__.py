@@ -9,6 +9,9 @@ one of them is a file here found by its name:
   parameters, what was cut and what assumed);
 - ``traffic/<mix>.json``: a traffic mix, read by the one generator in
   :mod:`ktbench.clients`;
+- ``graph_generators/<generator>.py`` and ``drivers/<kind>.py``: a
+  configuration's graph generator other than ``rmat``, and a mix's driver
+  of a kind other than ``decompose`` and ``stream`` (:mod:`ktbench.by_file`);
 - ``end_to_end/<metric>.py`` and ``layer_metrics/<metric>.py``: a
   metric's reader.
 

@@ -1,7 +1,8 @@
 """The one traffic generator: drives the program with the mix a traffic
 file describes, and records what came back.
 
-A mix (``ktbench/traffic/<name>.json``) is one of two kinds:
+A mix (``ktbench/traffic/<name>.json``) is one of two kinds here, or a
+kind whose driver is the file ``ktbench/drivers/<kind>.py``:
 
 - ``"decompose"``: one closed-loop client.  Request j submits one
   ``TrussQuery.decompose`` through one ``repro_torch.api.Session`` on
@@ -23,7 +24,7 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
-from . import generators, reference, updates
+from . import by_file, generators, reference, updates
 
 __all__ = ["Answer", "Records", "Driver", "MixExhausted", "make_driver"]
 
@@ -281,9 +282,12 @@ class StreamDriver(Driver):
 
 
 def make_driver(config: dict, traffic: dict, seed: int, device) -> Driver:
-    """The cell's driver, its inputs made from ``seed`` on ``device``."""
+    """The cell's driver, its inputs made from ``seed`` on ``device``.  A
+    kind other than ``decompose`` and ``stream`` is the file
+    ``drivers/<kind>.py``, whose ``make_driver(config, traffic, seed,
+    device)`` returns a :class:`Driver`."""
     if traffic["kind"] == "decompose":
         return DecomposeDriver(config, traffic, seed, device)
     if traffic["kind"] == "stream":
         return StreamDriver(config, traffic, seed, device)
-    raise ValueError(f"unknown traffic kind {traffic['kind']!r}")
+    return by_file.load("drivers", traffic["kind"], "traffic kind").make_driver(config, traffic, seed, device)

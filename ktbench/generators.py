@@ -15,6 +15,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from . import by_file
+
 __all__ = ["rmat_edges", "rmat", "canonical", "config_graph", "derived_seed"]
 
 
@@ -71,10 +73,15 @@ def derived_seed(seed: int, *path: int) -> int:
 def config_graph(config: dict, seed: int, index: int, device="cpu") -> tuple[int, np.ndarray]:
     """Graph ``index`` of a pool for the run's ``seed``, as canonical edges:
     the configuration's generator at a seed drawn from the run's ``seed``
-    and the index, so that every run decomposes graphs of its own."""
+    and the index, so that every run decomposes graphs of its own.  A
+    generator other than ``rmat`` is the file
+    ``graph_generators/<generator>.py``, whose ``graph(config, seed,
+    index, device) -> (n, canonical edges)`` draws from
+    ``derived_seed(seed, index)`` and, like this module, imports nothing
+    of the program."""
     c = config
     if c["generator"] != "rmat":
-        raise ValueError(f"unknown generator {c['generator']!r}")
+        return by_file.load("graph_generators", c["generator"], "generator").graph(c, seed, index, device)
     n, raw = rmat(c["scale"], c["edge_factor"], c["a"], c["b"], c["c"],
                   seed=derived_seed(seed, index), device=device)
     return n, canonical(n, raw)

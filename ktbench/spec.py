@@ -5,7 +5,11 @@ A cell (an entry of ``workloads``) names a configuration, found at the
 ``file`` its ``configs`` entry gives, and a traffic mix, found at
 ``ktbench/traffic/<traffic>.json``.  An end-to-end metric is read by
 ``ktbench/end_to_end/<name>.py``, a per-layer one by
-``ktbench/layer_metrics/<name>.py``.  Adding a configuration, a mix, a
+``ktbench/layer_metrics/<name>.py``.  A configuration's ``generator``
+other than ``rmat`` is found at ``ktbench/graph_generators/<generator>.py``
+(:func:`ktbench.generators.config_graph`), and a mix's ``kind`` other than
+``decompose`` and ``stream`` at ``ktbench/drivers/<kind>.py``
+(:func:`ktbench.clients.make_driver`).  Adding a configuration, a mix, a
 cell or a metric is adding files and entries: nothing here names one.
 """
 

@@ -36,9 +36,11 @@ def test_no_module_imports_jax_or_the_jax_package():
 
 
 def test_reference_imports_nothing_of_the_program():
-    for name in ("reference.py", "roofline.py", "generators.py", "updates.py"):
-        tops = {n.split(".")[0] for n in _imports(KTBENCH / name)}
-        assert not tops & {"repro_torch", "repro", "jax"}, name
+    yardstick = [KTBENCH / name for name in ("reference.py", "roofline.py", "generators.py",
+                                             "updates.py", "by_file.py")]
+    for path in yardstick + sorted((KTBENCH / "graph_generators").glob("*.py")):
+        tops = {n.split(".")[0] for n in _imports(path)}
+        assert not tops & {"repro_torch", "repro", "jax"}, path
     code = ("import sys; sys.path.insert(0, %r); import ktbench.reference, ktbench.roofline; "
             "print(sorted({m.split('.')[0] for m in sys.modules} & {'repro_torch', 'repro', 'jax'}))"
             % str(ROOT))

@@ -1,6 +1,6 @@
 """A copy of the benchmark with tiny cells added as files, for the CPU
 tests: ``tiny_copy`` copies ``BENCHMARK.json`` and ``ktbench/`` into a
-folder and adds a tiny configuration and two cells that reuse the real
+folder and adds a tiny configuration and three cells that reuse the real
 mixes; ``run_cell`` runs one cell there on the CPU in a new process."""
 
 from __future__ import annotations
@@ -17,6 +17,7 @@ ROOT = Path(__file__).resolve().parents[2]
 CELLS = {  # tiny cell -> (configuration, mix, the real cell whose metrics it reports)
     "t_dec": ("tiny-rmat", "decompose_alt2", "g500_decompose"),
     "t_st": ("tiny-rmat", "stream_w1", "g500_stream_w1"),
+    "t_c8": ("tiny-rmat", "decompose_alt2_c8", "g500_decompose"),
 }
 
 
