@@ -1,0 +1,8 @@
+"""``dispatch_device_ms``, read as its own reader reads it, in the random geometric
+graph's cell, where every row is short and a decompose has few levels."""
+
+from ktbench.spec import load_reader
+
+
+def read(ctx):
+    return load_reader("layer_metrics", "dispatch_device_ms").read(ctx)

@@ -1,0 +1,8 @@
+"""``fused_counted_lanes_per_level``, read as its own reader reads it, in the random geometric
+graph's cell, where every row is short and a decompose has few levels."""
+
+from ktbench.spec import load_reader
+
+
+def read(ctx):
+    return load_reader("layer_metrics", "fused_counted_lanes_per_level").read(ctx)

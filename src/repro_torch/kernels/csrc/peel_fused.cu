@@ -188,6 +188,7 @@ struct Args {
   int32_t* trip_log;
   int64_t* stamps;       // optional: six %globaltimer readings of CTA 0 (ns)
   int32_t* incremental;  // optional: the launch adds its update trips
+  int64_t* counted;      // optional: the launch adds the lanes its counts took
   int64_t nnzp;
   int64_t unnzp;
   int32_t nrows;
@@ -512,6 +513,7 @@ __global__ void __launch_bounds__(kThreads, kBsearch ? 8 : 4) peel_fused_kernel(
   stamp(a, 2);
 
   int32_t trips = 0, updates = 0;
+  int64_t counted = 0;  // this thread's lanes, pruned after a count
   // any_live first: its barrier also orders the last latch update before
   // the reads below.
   while (any_live(a, latch) && trips < a.inner_limit) {
@@ -575,6 +577,7 @@ __global__ void __launch_bounds__(kThreads, kBsearch ? 8 : 4) peel_fused_kernel(
         t = __ldcg(split ? list + a.nnzp - 1 - (q - n_reg) : list + q);
         const int32_t slot = t / a.slot_nnz;
         if (!latch[slot]) {
+          counted += !update;  // a lane whose support this trip counted
           int32_t s;
           if (split && !update) {
             s = __ldcg(a.acc + t);
@@ -651,6 +654,13 @@ __global__ void __launch_bounds__(kThreads, kBsearch ? 8 : 4) peel_fused_kernel(
     a.alive[t] = keep;
     a.supp[t] = keep ? s_t : 0;
   }
+  if (a.counted != nullptr) {  // one atomic a warp
+    for (int offset = kWarp / 2; offset > 0; offset /= 2)
+      counted += __shfl_down_sync(kFull, counted, offset);
+    if (lane == 0 && counted)
+      atomicAdd(reinterpret_cast<unsigned long long*>(a.counted),
+                static_cast<unsigned long long>(counted));
+  }
   if (blockIdx.x == 0) {
     for (int s = threadIdx.x; s < S; s += blockDim.x) {
       const bool conv = latch[s] && !a.done_in[s];
@@ -708,9 +718,9 @@ extern "C" {
 
 // Launches one level on `stream`; returns the cudaError_t of the launch
 // (0 = success).  Pointers in the order of struct Args; `counts` must come
-// zeroed; trip_log, stamps and incremental may be null.  `begin` and `end`
-// (cudaEvent_t, or null) are recorded on `stream` just before and just
-// after the launch.
+// zeroed; trip_log, stamps, incremental and counted may be null.  `begin`
+// and `end` (cudaEvent_t, or null) are recorded on `stream` just before
+// and just after the launch.
 int peel_fused_launch(const void* colidx, const void* edge_row, const void* urowptr,
                       const void* udeg, const void* ucolidx, const void* u2d,
                       const void* alive_in, const void* supp_in, const void* truss_in,
@@ -721,7 +731,7 @@ int peel_fused_launch(const void* colidx, const void* edge_row, const void* urow
                       void* kmax, void* levels, void* iters, void* done, void* titers,
                       void* edges, void* ccol, void* calive, void* clane, void* cdeg, void* lists,
                       void* deaths, void* acc, void* counts, void* trip_log, void* stamps,
-                      void* incremental, long long nnzp,
+                      void* incremental, void* counted, long long nnzp,
                       long long unnzp, int nrows,
                       int slot_nnz,
                       int num_slots, int block, int inner_limit, int split_row, int split_ways,
@@ -752,6 +762,7 @@ int peel_fused_launch(const void* colidx, const void* edge_row, const void* urow
       static_cast<int32_t*>(deaths),         static_cast<int32_t*>(acc),
       static_cast<int32_t*>(counts),         static_cast<int32_t*>(trip_log),
       static_cast<int64_t*>(stamps),         static_cast<int32_t*>(incremental),
+      static_cast<int64_t*>(counted),
       static_cast<int64_t>(nnzp),
       static_cast<int64_t>(unnzp),           nrows,
       slot_nnz, num_slots, block, inner_limit, split_row, split_ways, trip_log_len};

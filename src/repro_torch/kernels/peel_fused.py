@@ -149,6 +149,7 @@ def fused_level_torch(
     *,
     window: int,
     block: int,
+    counted: torch.Tensor | None = None,
 ) -> PeelState:
     """One truss level of every live slot, in torch ops (the plain version).
 
@@ -156,6 +157,8 @@ def fused_level_torch(
     of the kernel's intersection schedules count exactly, so the plain
     version has one: :func:`support_fine_owner` over the effective alive
     set.  Reads the loop condition back to the host once per inner trip.
+    Every trip counts every lane: ``counted`` (a tensor on the state's
+    device), when given, has each trip's alive lanes added to it in place.
     """
     num_slots, slot_nnz = _geometry(p, state, block)
     cur_k, done = state.cur_k, state.done
@@ -172,6 +175,8 @@ def fused_level_torch(
     trips = 0
     while trips < inner_limit and bool((~latch & ~done).any()):
         s = support_fine_owner(p, alive | frozen_live, window=window, chunk=block)
+        if counted is not None:
+            counted += alive.sum()
         tile_live = alive.view(-1, block).any(dim=1).repeat_interleave(block)
         s = s * tile_live
         new_alive = alive & (s >= cur_k_lane - 2)
@@ -210,7 +215,7 @@ def load_peel_fused() -> BuiltLibrary:
     built = load_library("peel_fused")
     fn = built.lib.peel_fused_launch
     fn.argtypes = (
-        [ctypes.c_void_p] * 40
+        [ctypes.c_void_p] * 41
         + [ctypes.c_longlong, ctypes.c_longlong]
         + [ctypes.c_int] * 10
         + [ctypes.c_void_p] * 3  # the stream, the timing events (or null)
@@ -269,19 +274,23 @@ def fused_level_cuda(
     trip_log: torch.Tensor | None = None,
     stamps: torch.Tensor | None = None,
     incremental: torch.Tensor | None = None,
+    counted: torch.Tensor | None = None,
     events=None,
 ) -> PeelState:
     """One truss level of every live slot, by the CUDA kernel (one
     cooperative launch).  A refused or failed launch raises
     :class:`repro_torch.errors.DeviceError`.
 
-    Three optional diagnostics, CUDA tensors the kernel writes into:
+    Optional diagnostics, CUDA tensors the kernel writes into:
     ``trip_log`` ((2 * T,) int32) receives for each of the first T inner
     trips the worklist's unsplit and split lanes; ``stamps`` ((6,) int64)
     CTA 0's clock (``%globaltimer``, ns) at entry, rows compacted, first
     worklist built, inner loop done, bookkeeping done and exit;
     ``incremental`` (one int32) has the launch's update trips (those that
-    took their supports from the last trip's deaths) added to it.
+    took their supports from the last trip's deaths) added to it;
+    ``counted`` (one int64) the lanes whose supports the launch's trips
+    counted in full (a launch's first trip and any later one that did not
+    update; a split lane once, a latched slot's lanes not at all).
     ``events`` (a ``repro_torch.obs.device_time.EventPair`` on the state's
     device): the library records its two events on the launch's stream
     just before and just after the launch call, so their interval holds
@@ -305,6 +314,11 @@ def fused_level_cuda(
         or not incremental.is_contiguous()
     ):
         raise ValueError("incremental must be one contiguous int32 on the state's device")
+    if counted is not None and (
+        counted.device != dev or counted.dtype != torch.int64 or counted.numel() != 1
+        or not counted.is_contiguous()
+    ):
+        raise ValueError("counted must be one contiguous int64 on the state's device")
     built = load_peel_fused()
     nnzp, unnzp = p.nnz_pad, int(p.ucolidx.shape[0])
 
@@ -341,7 +355,8 @@ def fused_level_cuda(
             ccol, calive, clane, cdeg, lists, deaths, acc, counts,
         )
     ]
-    ptrs += [x.data_ptr() if x is not None else None for x in (trip_log, stamps, incremental)]
+    ptrs += [x.data_ptr() if x is not None else None
+             for x in (trip_log, stamps, incremental, counted)]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = built.lib.peel_fused_launch(
@@ -377,12 +392,13 @@ def make_fused_level(*, window: int, block: int = 128, schedule: str = "bsearch"
     """Build the one-launch-per-level step for one configuration.
 
     Returns ``level_step(p, state, frozen, frozen_truss, single_level, *,
-    events=None, incremental=None) -> PeelState`` advancing every live slot
-    by exactly one truss level.  CUDA tensors go to :func:`fused_level_cuda`
-    (with ``events``, the launch's timing pair, and ``incremental``, the
-    count its update trips are added to), CPU tensors to
-    :func:`fused_level_torch`, which counts every trip and adds nothing to
-    ``incremental``.  ``window`` must cover the bucket's max
+    events=None, incremental=None, counted=None) -> PeelState`` advancing
+    every live slot by exactly one truss level.  CUDA tensors go to
+    :func:`fused_level_cuda` (with ``events``, the launch's timing pair,
+    ``incremental``, the count its update trips are added to, and
+    ``counted``, the count of the lanes its trips counted), CPU tensors to
+    :func:`fused_level_torch`, which counts every lane on every trip (added
+    to ``counted``) and adds nothing to ``incremental``.  ``window`` must cover the bucket's max
     undirected degree; ``block`` must divide the packed ``slot_nnz``
     (checked here and, with slot attribution, by
     ``repro_torch.graphs.pack.validate_fused_tiling``).
@@ -392,17 +408,19 @@ def make_fused_level(*, window: int, block: int = 128, schedule: str = "bsearch"
     if block < 1 or (block & (block - 1)) != 0:
         raise ValueError(f"fused block must be a power of two, got {block}")
 
-    def level_step(p, state, frozen, frozen_truss, single_level, *, events=None, incremental=None):
+    def level_step(p, state, frozen, frozen_truss, single_level, *, events=None, incremental=None,
+                   counted=None):
         dev = state.alive.device
         if dev.type == "cuda":
             return fused_level_cuda(
                 p, state, frozen, frozen_truss, single_level, block=block, schedule=schedule,
-                incremental=incremental, events=events,
+                incremental=incremental, counted=counted, events=events,
             )
         if dev.type != "cpu":
             raise ValueError(f"the fused level runs on CUDA or the CPU, got {dev}")
         return fused_level_torch(
-            p, state, frozen, frozen_truss, single_level, window=window, block=block
+            p, state, frozen, frozen_truss, single_level, window=window, block=block,
+            counted=counted,
         )
 
     return level_step

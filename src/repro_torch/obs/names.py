@@ -20,6 +20,7 @@ __all__ = [
     "HISTOGRAMS",
     "ALL_METRIC_NAMES",
     "PEEL_LEVEL_DEVICE_SECONDS",
+    "PEEL_LEVEL_LANES_COUNTED",
     "PEEL_LEVEL_TRIPS",
     "PEEL_LEVEL_TRIPS_INCREMENTAL",
 ]
@@ -32,6 +33,8 @@ PEEL_LEVEL_DEVICE_SECONDS = "peel_level_device_seconds"  # CUDA events around ea
 PEEL_LEVEL_TRIPS = "peel_level_trips"  # inner trips, every device
 # the inner trips that took their supports from the last trip's deaths
 PEEL_LEVEL_TRIPS_INCREMENTAL = "peel_level_trips_incremental"
+# the lanes whose supports the inner trips counted by a full intersection
+PEEL_LEVEL_LANES_COUNTED = "peel_level_lanes_counted"
 
 COUNTERS: frozenset[str] = frozenset(
     {
@@ -47,6 +50,7 @@ COUNTERS: frozenset[str] = frozenset(
         "peel_dispatches",
         "peel_fused_levels",
         PEEL_LEVEL_DEVICE_SECONDS,
+        PEEL_LEVEL_LANES_COUNTED,
         PEEL_LEVEL_TRIPS,
         PEEL_LEVEL_TRIPS_INCREMENTAL,
         "peel_slots",

@@ -425,9 +425,10 @@ def test_fused_level_kernel_whole_peel_cases(cuda, name):
         while not bool(st.done.all()):
             log = torch.full((64,), -1, dtype=torch.int32, device=cuda)
             updates = torch.zeros((), dtype=torch.int32, device=cuda)
+            counted = torch.zeros((), dtype=torch.int64, device=cuda)
             got = fused_level_cuda(
                 p, st, frozen, ftruss, single, block=cfg.block, schedule=cfg.schedule, trip_log=log,
-                incremental=updates,
+                incremental=updates, counted=counted,
             )
             want = fused_level_torch(p, st, frozen, ftruss, single, window=window, block=cfg.block)
             for f in got._fields:
@@ -446,6 +447,12 @@ def test_fused_level_kernel_whole_peel_cases(cuda, name):
                 assert split * SPLIT_WAYS > 0
             trips, n_upd = int(got.total_iters - st.total_iters), int(updates)
             assert 0 <= n_upd <= max(trips - 1, 0), (name, cfg, levels)
+            # The lanes counted: the first trip's worklist, and at most every
+            # trip's (a latched slot's lanes and the update trips' excluded).
+            worklists = (log[0: 2 * trips: 2] + log[1: 2 * trips: 2]).tolist()
+            if 0 < trips <= log.numel() // 2:
+                assert worklists[0] <= int(counted) <= sum(worklists), (name, cfg, levels)
+            assert trips > 0 or int(counted) == 0
             mixed |= 0 < n_upd < trips - 1
             if name == "hub_dies_mid_level" and levels == 0:
                 # Trips 0-2: a count, then updates; the split lanes that
@@ -478,6 +485,94 @@ def test_update_trips_on_rmat15(cuda):
     levels = counters["peel_fused_levels"]
     trips, updates = counters[PEEL_LEVEL_TRIPS], counters[PEEL_LEVEL_TRIPS_INCREMENTAL]
     assert 0 < updates <= trips - levels, (updates, trips, levels)
+
+
+def _ktbench_root():
+    """The repository's root, put on the path for the benchmark's package
+    (``ktbench``, beside ``tests``)."""
+    import sys
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parents[1]
+    if str(root) not in sys.path:
+        sys.path.insert(0, str(root))
+    return root
+
+
+def _rgg(log2_n: int):
+    """The benchmark's random geometric graph at ``2**log2_n`` points."""
+    import json
+
+    root = _ktbench_root()
+    from ktbench import generators
+
+    config = json.loads((root / "ktbench" / "configs" / "rgg_n_2_20_s0.json").read_text())
+    n, edges = generators.config_graph(dict(config, log2_n=log2_n), 2_147_483_659, 0)
+    return tg.from_edges(n, edges, name=f"rgg{log2_n}")
+
+
+def _reference_trussness(g, device):
+    """The benchmark's plain reference on ``g``'s edges, in lane order."""
+    _ktbench_root()
+    from ktbench import reference
+
+    rows = np.repeat(np.arange(g.n), np.diff(g.rowptr))  # row v + 1 (1-based)
+    edges = np.stack([rows, g.colidx.astype(np.int64) - 1], 1)
+    return reference.trussness(g.n, edges, device)
+
+
+@pytest.mark.parametrize("which", ["rgg12", "rmat15"])
+def test_counted_lanes_of_the_fused_kernel(cuda, which):
+    """A traced one-slot decompose on the fused backend, each launch also
+    writing its trip log: the kernel's ``counted`` grows, each level, by
+    the worklists of the trips that counted (the first, and every later
+    trip whose last prune killed more lanes than it kept); the dispatch's
+    ``peel_level_lanes_counted`` and the levels' ``counted_lanes`` hold the
+    same; a level whose later trips all updated counted exactly the alive
+    lanes it started on (``peel-level.done``'s ``alive_lanes``).  The
+    state of every launch equals a launch without the counts (and, on the
+    small graph, the plain version's)."""
+    from repro_torch.api import Session, TrussQuery
+    from repro_torch.configs import LARGE_GRAPHS
+    from repro_torch.kernels.peel_fused import fused_level_cuda, fused_level_torch
+    from repro_torch.obs.names import PEEL_LEVEL_LANES_COUNTED
+
+    g = _rgg(12) if which == "rgg12" else LARGE_GRAPHS[0].factory()  # rmat-15
+    s = Session(device=cuda, backend="fine/fused/aligned", max_batch=1, trace=True)
+    exe = s.executor_for(g)
+    cfg, window = exe.fused_config, bucket_for(g, chunk=s.planner.chunk).window
+    levels = []
+
+    def step(p, st, frozen, ftruss, single, *, events=None, incremental=None, counted=None):
+        log = torch.full((4096,), -1, dtype=torch.int32, device=cuda)
+        before = int(counted)
+        out = fused_level_cuda(p, st, frozen, ftruss, single, block=cfg.block, schedule=cfg.schedule,
+                               trip_log=log, incremental=incremental, counted=counted, events=events)
+        bare = fused_level_cuda(p, st, frozen, ftruss, single, block=cfg.block, schedule=cfg.schedule)
+        wants = [bare]
+        if which == "rgg12":
+            wants.append(fused_level_torch(p, st, frozen, ftruss, single, window=window,
+                                           block=cfg.block))
+        for want in wants:
+            assert all(torch.equal(getattr(out, f), getattr(want, f)) for f in out._fields)
+        trips = int(out.total_iters - st.total_iters)
+        assert trips <= log.numel() // 2
+        lanes = (log[0: 2 * trips: 2] + log[1: 2 * trips: 2]).tolist()
+        counts = [i == 0 or lanes[i - 1] - lanes[i] > lanes[i] for i in range(trips)]
+        levels.append(sum(n for n, c in zip(lanes, counts) if c))
+        assert int(counted) - before == levels[-1], (len(levels), lanes)
+        return out
+
+    exe._peel.level_step = step
+    res = s.solve([TrussQuery.decompose(g)])[0]
+    want = _reference_trussness(g, cuda)
+    assert np.array_equal(res.trussness, want)
+    assert s.metrics_snapshot()["counters"][PEEL_LEVEL_LANES_COUNTED] == sum(levels) > 0
+    done = [e["args"] for e in s.obs.tracer.events() if e["name"] == "peel-level.done"]
+    assert [a["counted_lanes"] for a in done] == levels
+    whole = [a for a in done if a["update_trips"] == a["trips"] - 1]
+    assert whole and all(a["counted_lanes"] == a["alive_lanes"] for a in whole)
+    assert all(a["counted_lanes"] >= a["alive_lanes"] for a in done)
 
 
 # --------------------------------------------------------------------- #
