@@ -70,6 +70,7 @@ from ..obs.names import (
     PEEL_LEVEL_DEVICE_SECONDS,
     PEEL_LEVEL_LANES_COUNTED,
     PEEL_LEVEL_TRIPS,
+    PEEL_LEVEL_TRIPS_CARRIED,
     PEEL_LEVEL_TRIPS_INCREMENTAL,
 )
 
@@ -627,23 +628,28 @@ class _FusedPeel:
         registry = current_registry()
         events = EventPair(alive0.device) if alive0.is_cuda else None  # reused each level
         # The launches add their update trips here (the plain version none),
-        # and the lanes their trips counted in full.
+        # the lanes their trips counted in full, and their first trips that
+        # updated from the carry.
         incremental = torch.zeros((), dtype=torch.int32, device=alive0.device)
         counted = torch.zeros((), dtype=torch.int64, device=alive0.device)
+        carried = torch.zeros((), dtype=torch.int32, device=alive0.device)
+        # What the last launch of this call hands the next: none to the first.
+        carry = None
         level, device_s = 0, 0.0
-        # The last launch's: total_iters, update trips and counted lanes
-        # before it, alive lanes.
-        trips_before = updates_before = counted_before = lanes = None
+        # The last launch's: total_iters, update trips, counted lanes and
+        # carried trips before it, alive lanes.
+        trips_before = updates_before = counted_before = carried_before = lanes = None
         while True:
             self.host_syncs += 1
-            parts = [st.done.all().to(torch.int32), st.total_iters, incremental, counted]
+            parts = [st.done.all().to(torch.int32), st.total_iters, incremental, counted, carried]
             if tracer.enabled:
                 parts.append(_live_lanes(st, num_slots))
             # One readback per level (stacked as int64): the loop condition,
-            # the cap check, the update trips and counted lanes so far (while
-            # tracing, with the alive lanes the next launch starts on).
+            # the cap check, the update trips, counted lanes and carried
+            # trips so far (while tracing, with the alive lanes the next
+            # launch starts on).
             read = torch.stack(parts).tolist()  # trusslint: disable=R1
-            all_done, trips, updates, lanes_counted, *lanes_next = read
+            all_done, trips, updates, lanes_counted, n_carried, *lanes_next = read
             if level:  # the last launch has ended: read its events
                 seconds = None
                 if events is not None:
@@ -656,6 +662,7 @@ class _FusedPeel:
                         "update_trips": updates - updates_before,
                         "alive_lanes": lanes,
                         "counted_lanes": lanes_counted - counted_before,
+                        "carried": n_carried - carried_before,
                     }
                     if seconds is not None:
                         attrs["device_ms"] = 1e3 * seconds
@@ -663,18 +670,20 @@ class _FusedPeel:
             if all_done or trips >= limit:
                 break  # a fired cap: the executor's all-done belt raises
             with tracer.span("peel-level", level=level, slots=num_slots):
-                st = self.level_step(
-                    p, st, frozen, frozen_truss, single_level, events=events,
-                    incremental=incremental, counted=counted,
+                st, carry = self.level_step(
+                    p, st, frozen, frozen_truss, single_level, carry=carry, events=events,
+                    incremental=incremental, counted=counted, carried=carried,
                 )
             registry.inc("peel_fused_levels")
             trips_before, updates_before, counted_before = trips, updates, lanes_counted
+            carried_before = n_carried
             lanes = lanes_next[0] if lanes_next else None
             level += 1
         if level:  # once a dispatch: the loop's trips (total_iters starts at 0) and device time
             registry.inc(PEEL_LEVEL_TRIPS, trips)
             registry.inc(PEEL_LEVEL_TRIPS_INCREMENTAL, updates)
             registry.inc(PEEL_LEVEL_LANES_COUNTED, lanes_counted)
+            registry.inc(PEEL_LEVEL_TRIPS_CARRIED, n_carried)
             if events is not None:
                 registry.inc(PEEL_LEVEL_DEVICE_SECONDS, device_s)
                 add_device_seconds(device_s)
@@ -702,11 +711,16 @@ def build_fused_peel(
     how many of them took their supports from the last trip's deaths (a
     count the launches add to on the device, in the same readback; 0 on
     the CPU), the lanes whose supports its trips counted in full (a second
-    count the launches add to), the alive lanes of the live slots it started
-    on (one more integer in the same readback) and, on CUDA, its device ms.
+    count the launches add to), ``carried`` (1 when its first trip took its
+    supports from the deaths the launch before carried over, a third count;
+    0 on the CPU), the alive lanes of the live slots it started on (one
+    more integer in the same readback) and, on CUDA, its device ms.  Each
+    level step is handed the carry the last step of the same call returned
+    (none to the call's first), and returns its own.
     Once a dispatch, ``peel_level_trips`` adds the loop's trips,
     ``peel_level_trips_incremental`` its update trips,
-    ``peel_level_lanes_counted`` its counted lanes and, on CUDA,
+    ``peel_level_lanes_counted`` its counted lanes,
+    ``peel_level_trips_carried`` its carried first trips and, on CUDA,
     ``peel_level_device_seconds`` its launches' event time, which is also
     the dispatch's device time.  A fired iteration cap returns the un-done
     state;

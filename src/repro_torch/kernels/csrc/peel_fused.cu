@@ -19,7 +19,8 @@
 //   iteration, and latches when nothing changed;
 //   then the level bookkeeping of build_peel's converged branch (trussness,
 //   `left` per slot, retire, cur_k advance, kmax, levels, edges) and the
-//   prune-ahead against the advanced threshold.
+//   prune-ahead against the advanced threshold, which also records the
+//   carried deaths for the next launch (optional; see below).
 // Slot s owns lanes [s * slot_nnz, (s+1) * slot_nnz).
 //
 // The plain version (fused_level_torch, the reference's _level_kernel)
@@ -49,8 +50,9 @@
 // mostly sit in L2, and by the fixed cost of two grid barriers a trip.
 // What the design does about it:
 // - phase (a) of a trip is one of two things.  A count: every lane of the
-//   worklist intersects its two rows (always on a launch's first trip).
-//   Or an update from the deaths of the trip before, D: trip i+1's support
+//   worklist intersects its two rows (always on the first trip of a launch
+//   handed no carry).  Or an update from the deaths of the trip before, D:
+//   trip i+1's support
 //   of a surviving lane e is trip i's minus the triangles of e that lost an
 //   edge in D, since both count triangles whose other two edges are alive
 //   or frozen-live and A(i+1) is A(i) minus D.  Each dying lane d = (x, y)
@@ -69,6 +71,26 @@
 //   the prune appends its deaths to a death list per trip parity, split as
 //   the worklists are.  Either way the supports, and so the state, are bit
 //   for bit those of a count;
+// - the same update carries across launches.  Every live slot of a launch
+//   latches (inner_limit never cuts it short), so its supports out are
+//   exact on its converged effective set E (alive or frozen-live at
+//   cur_k).  The next launch's E' is E less the carried deaths: in each
+//   slot that advanced, the lanes the prune-ahead killed and the frozen
+//   lanes with ftruss == cur_k, which leave the frozen-live set at cur_k +
+//   1.  The prune-ahead, which visits every lane anyway, appends them to a
+//   list and writes every lane's entry flag for the next launch into a lane
+//   map (present: alive or frozen-live at cur_k + 1; dying: carried;
+//   absent) (carry_*, out).  A launch handed that carry (carry_*_in: the
+//   launch before in the same level loop, on the state it returned)
+//   compacts its rows by the map alone, one byte an entry, so the carried
+//   entries come out dying; it seeds its worklist's supports from supp_in,
+//   and takes the list as the first trip's death list under the same rule
+//   (update when the deaths are at most the worklist, count otherwise);
+//   the first trip's prune clears them.  A
+//   frozen leaver is exact like any death: it was in E and is not in E',
+//   it is never an alive survivor, and its triangles come off their alive
+//   survivors once, by the lowest dying lane.  A launch with no carry (a
+//   level loop's first, or a state from anywhere else) counts;
 // - a worklist: at launch, the alive lanes of live slots are compacted
 //   (warp ballots, one atomic per warp) into a list in scratch; each trip's
 //   prune phase writes the survivors into the other of two lists, so a trip
@@ -189,6 +211,19 @@ struct Args {
   int64_t* stamps;       // optional: six %globaltimer readings of CTA 0 (ns)
   int32_t* incremental;  // optional: the launch adds its update trips
   int64_t* counted;      // optional: the launch adds the lanes its counts took
+  int32_t* carried;      // optional: adds 1 when the first trip updated from carry_in
+  // Optional: the carried deaths of the launch before, on this state (in:
+  // the list of carry_len_in[0] lanes, and carry_flags_in, each lane's
+  // compacted-entry flag at this launch: absent, present or dying), and
+  // those this launch hands the next (out).  In and out may be the same
+  // buffers: the ins are read before the first trip and the outs written by
+  // the prune-ahead, with grid barriers between.
+  const int32_t* carry_lanes_in;
+  const uint8_t* carry_flags_in;
+  const int32_t* carry_len_in;
+  int32_t* carry_lanes;
+  uint8_t* carry_flags;
+  int32_t* carry_len;
   int64_t nnzp;
   int64_t unnzp;
   int32_t nrows;
@@ -435,9 +470,10 @@ __global__ void __launch_bounds__(kThreads, kBsearch ? 8 : 4) peel_fused_kernel(
   stamp(a, 0);
 
   // Phase 0: the working alive copy; every undirected row of a slot that is
-  // not done compacted to its entries alive or frozen-live at launch
-  // (entries keep their order, so rows stay sorted), with their lanes; then
-  // the first worklist.
+  // not done compacted to its entries alive or frozen-live at launch, and
+  // the carried deaths' entries, dying (entries keep their order, so rows
+  // stay sorted), with their lanes; then the first worklist, and the
+  // carried deaths as the first trip's death list.
   for (int s = threadIdx.x; s < S; s += blockDim.x) {
     latch[s] = 0;
     iters[s] = a.iters_in[s];
@@ -469,26 +505,28 @@ __global__ void __launch_bounds__(kThreads, kBsearch ? 8 : 4) peel_fused_kernel(
       // kUnroll groups of 32 entries a step, their loads independent of each
       // other, so that a hub row is not one long chain of dependent loads.
       for (int32_t i0 = 0; i0 < n; i0 += kUnroll * kWarp) {
-        bool on[kUnroll];
+        uint8_t on[kUnroll];
         int32_t c[kUnroll], e[kUnroll];
 #pragma unroll
         for (int j = 0; j < kUnroll; ++j) {
           const int32_t i = i0 + j * kWarp + lane;
           e[j] = i < n ? a.u2d[rs + i] : static_cast<int32_t>(a.nnzp);
           c[j] = i < n ? a.ucolidx[rs + i] : 0;
-          on[j] = false;
-          if (e[j] < a.nnzp) {
+          on[j] = kAbsent;
+          if (e[j] < a.nnzp && a.carry_flags_in != nullptr) {
+            on[j] = a.carry_flags_in[e[j]];
+          } else if (e[j] < a.nnzp) {
             const bool al = a.alive_in[e[j]], fz = a.frozen[e[j]];
-            on[j] = al || (fz && a.ftruss[e[j]] >= a.cur_k_in[e[j] / a.slot_nnz]);
+            if (al || (fz && a.ftruss[e[j]] >= a.cur_k_in[e[j] / a.slot_nnz])) on[j] = kPresent;
           }
         }
 #pragma unroll
         for (int j = 0; j < kUnroll; ++j) {
-          const unsigned m = __ballot_sync(kFull, on[j]);
-          if (on[j]) {
+          const unsigned m = __ballot_sync(kFull, on[j] != kAbsent);
+          if (on[j] != kAbsent) {
             const int32_t at = rs + kept + __popc(m & lt);
             a.ccol[at] = c[j];
-            a.calive[at] = kPresent;
+            a.calive[at] = on[j];
             a.clane[at] = e[j];
           }
           kept += __popc(m);
@@ -499,6 +537,9 @@ __global__ void __launch_bounds__(kThreads, kBsearch ? 8 : 4) peel_fused_kernel(
   }
   grid.sync();
   stamp(a, 1);
+  // With a carry, the first trip may update: its lanes start from the
+  // supports in, which are exact on the alive set the carry was taken from.
+  const bool has_carry = a.carry_lanes_in != nullptr;
   for (int64_t t0 = wbase; t0 < a.nnzp; t0 += wstride) {  // warp-uniform
     const int64_t t = t0 + lane;
     bool keep = false, split = false;
@@ -506,14 +547,26 @@ __global__ void __launch_bounds__(kThreads, kBsearch ? 8 : 4) peel_fused_kernel(
       keep = a.alive_in[t] && !a.done_in[t / a.slot_nnz];
       split = keep && is_split(a, static_cast<int32_t>(t));
       if (split) a.acc[t] = 0;
+      if (keep && has_carry) a.supp[t] = a.supp_in[t];
     }
     append(a, a.lists, ctr, 0, keep, split, static_cast<int32_t>(t), lane);
   }
+  // The carried deaths go to the death list that the first trip reads
+  // (parity 1), split by the rows compacted above.
+  const int64_t n_carry = has_carry ? *a.carry_len_in : 0;
+  for (int64_t q0 = wbase; q0 < n_carry; q0 += wstride) {  // warp-uniform
+    const int64_t q = q0 + lane;
+    const int32_t t = q < n_carry ? a.carry_lanes_in[q] : 0;
+    append(a, a.deaths, dctr, 1, q < n_carry, q < n_carry && is_split(a, t), t, lane);
+  }
   grid.sync();
+  // Every CTA has read the carry's length; the prune-ahead refills it.
+  if (a.carry_len != nullptr && blockIdx.x == 0 && threadIdx.x == 0) *a.carry_len = 0;
   stamp(a, 2);
 
   int32_t trips = 0, updates = 0;
-  int64_t counted = 0;  // this thread's lanes, pruned after a count
+  bool first_updated = false;  // the first trip updated from the carry
+  int64_t counted = 0;         // this thread's lanes, pruned after a count
   // any_live first: its barrier also orders the last latch update before
   // the reads below.
   while (any_live(a, latch) && trips < a.inner_limit) {
@@ -525,10 +578,12 @@ __global__ void __launch_bounds__(kThreads, kBsearch ? 8 : 4) peel_fused_kernel(
     const int32_t* dead = a.deaths + (p ^ 1) * a.nnzp;
     const int32_t d_reg = __ldcg(dctr + kRegCount + (p ^ 1));
     const int32_t d_split = __ldcg(dctr + kSplitCount + (p ^ 1));
-    // Every CTA reads the same counters: the choice is the grid's.
-    const bool update =
-        trips > 0 && static_cast<int64_t>(d_reg) + d_split <= static_cast<int64_t>(n_reg) + n_split;
+    // Every CTA reads the same counters: the choice is the grid's.  The
+    // first trip has deaths to update from only when a carry came in.
+    const bool update = (trips > 0 || has_carry) &&
+                        static_cast<int64_t>(d_reg) + d_split <= static_cast<int64_t>(n_reg) + n_split;
     updates += update;
+    if (trips == 0) first_updated = update;
     if (a.trip_log != nullptr && blockIdx.x == 0 && threadIdx.x == 0 && trips < a.trip_log_len) {
       a.trip_log[2 * trips] = n_reg;
       a.trip_log[2 * trips + 1] = n_split;
@@ -641,18 +696,37 @@ __global__ void __launch_bounds__(kThreads, kBsearch ? 8 : 4) peel_fused_kernel(
   grid.sync();
   stamp(a, 4);
 
-  // Retire / advance, then prune ahead against the new threshold.
-  for (int64_t t = tid; t < a.nnzp; t += nthreads) {
-    const int32_t slot = static_cast<int32_t>(t / a.slot_nnz);
-    const bool was_done = a.done_in[slot] != 0;
-    const bool conv = latch[slot] && !was_done;
-    const bool nonempty = __ldcg(left + slot) > 0;
-    const bool retired = conv && (!nonempty || a.single[slot]);
-    const int32_t k_next = a.cur_k_in[slot] + ((conv && !retired) ? 1 : 0);
-    const int32_t s_t = was_done ? (trips > 0 ? a.supp_in[t] : 0) : __ldcg(a.supp + t);
-    const bool keep = __ldcg(a.alive + t) && s_t >= k_next - 2;
-    a.alive[t] = keep;
-    a.supp[t] = keep ? s_t : 0;
+  // Retire / advance, then prune ahead against the new threshold.  In a
+  // slot that advanced, the lanes that leave the effective set (alive or
+  // frozen-live) here are the carried deaths: the pruned lanes, and the
+  // frozen lanes whose trussness is the level just peeled.
+  for (int64_t t0 = wbase; t0 < a.nnzp; t0 += wstride) {  // warp-uniform
+    const int64_t t = t0 + lane;
+    bool carried = false;
+    if (t < a.nnzp) {
+      const int32_t slot = static_cast<int32_t>(t / a.slot_nnz);
+      const bool was_done = a.done_in[slot] != 0;
+      const bool conv = latch[slot] && !was_done;
+      const bool nonempty = __ldcg(left + slot) > 0;
+      const bool retired = conv && (!nonempty || a.single[slot]);
+      const bool advanced = conv && !retired;
+      const int32_t k_next = a.cur_k_in[slot] + (advanced ? 1 : 0);
+      const int32_t s_t = was_done ? (trips > 0 ? a.supp_in[t] : 0) : __ldcg(a.supp + t);
+      const bool al = __ldcg(a.alive + t) != 0;
+      const bool keep = al && s_t >= k_next - 2;
+      a.alive[t] = keep;
+      a.supp[t] = keep ? s_t : 0;
+      if (a.carry_lanes != nullptr && advanced) {
+        const int32_t ft = a.frozen[t] ? a.ftruss[t] : INT_MIN;
+        const bool present = keep || ft >= k_next;
+        carried = (al || ft >= a.cur_k_in[slot]) && !present;
+        a.carry_flags[t] = present ? kPresent : (carried ? kDying : kAbsent);
+      }
+    }
+    // The carry is one flat list: unsplit (front) only.  Most warps (those
+    // of done, retired or padded slots) carry nothing and skip the append.
+    if (a.carry_lanes != nullptr && __any_sync(kFull, carried))
+      append(a, a.carry_lanes, a.carry_len, 0, carried, false, static_cast<int32_t>(t), lane);
   }
   if (a.counted != nullptr) {  // one atomic a warp
     for (int offset = kWarp / 2; offset > 0; offset /= 2)
@@ -676,6 +750,7 @@ __global__ void __launch_bounds__(kThreads, kBsearch ? 8 : 4) peel_fused_kernel(
     if (threadIdx.x == 0) {
       a.titers[0] = a.titers_in[0] + trips;
       if (a.incremental != nullptr) *a.incremental += updates;
+      if (a.carried != nullptr) *a.carried += first_updated;
     }
   }
   stamp(a, 5);
@@ -718,7 +793,9 @@ extern "C" {
 
 // Launches one level on `stream`; returns the cudaError_t of the launch
 // (0 = success).  Pointers in the order of struct Args; `counts` must come
-// zeroed; trip_log, stamps, incremental and counted may be null.  `begin`
+// zeroed; trip_log, stamps, incremental, counted and carried may be null,
+// and so may the three carry pointers in (no carry: the first trip counts)
+// and the three out (none recorded).  `begin`
 // and `end` (cudaEvent_t, or null) are recorded on `stream` just before
 // and just after the launch.
 int peel_fused_launch(const void* colidx, const void* edge_row, const void* urowptr,
@@ -731,7 +808,10 @@ int peel_fused_launch(const void* colidx, const void* edge_row, const void* urow
                       void* kmax, void* levels, void* iters, void* done, void* titers,
                       void* edges, void* ccol, void* calive, void* clane, void* cdeg, void* lists,
                       void* deaths, void* acc, void* counts, void* trip_log, void* stamps,
-                      void* incremental, void* counted, long long nnzp,
+                      void* incremental, void* counted, void* carried,
+                      const void* carry_lanes_in, const void* carry_flags_in,
+                      const void* carry_len_in, void* carry_lanes, void* carry_flags,
+                      void* carry_len, long long nnzp,
                       long long unnzp, int nrows,
                       int slot_nnz,
                       int num_slots, int block, int inner_limit, int split_row, int split_ways,
@@ -739,7 +819,11 @@ int peel_fused_launch(const void* colidx, const void* edge_row, const void* urow
                       void* end) {
   // Lanes are int32 in the worklists.
   if (nnzp <= 0 || nnzp > INT_MAX || nrows < 1 || num_slots < 1 || block < 1 || nnzp % block ||
-      slot_nnz % block || split_ways < 1 || split_row < 0)
+      slot_nnz % block || split_ways < 1 || split_row < 0 ||
+      (carry_lanes_in == nullptr) != (carry_flags_in == nullptr) ||
+      (carry_lanes_in == nullptr) != (carry_len_in == nullptr) ||
+      (carry_lanes == nullptr) != (carry_flags == nullptr) ||
+      (carry_lanes == nullptr) != (carry_len == nullptr))
     return cudaErrorInvalidValue;
   Args args{
       static_cast<const int32_t*>(colidx),   static_cast<const int32_t*>(edge_row),
@@ -762,7 +846,12 @@ int peel_fused_launch(const void* colidx, const void* edge_row, const void* urow
       static_cast<int32_t*>(deaths),         static_cast<int32_t*>(acc),
       static_cast<int32_t*>(counts),         static_cast<int32_t*>(trip_log),
       static_cast<int64_t*>(stamps),         static_cast<int32_t*>(incremental),
-      static_cast<int64_t*>(counted),
+      static_cast<int64_t*>(counted),         static_cast<int32_t*>(carried),
+      static_cast<const int32_t*>(carry_lanes_in),
+      static_cast<const uint8_t*>(carry_flags_in),
+      static_cast<const int32_t*>(carry_len_in),
+      static_cast<int32_t*>(carry_lanes),     static_cast<uint8_t*>(carry_flags),
+      static_cast<int32_t*>(carry_len),
       static_cast<int64_t>(nnzp),
       static_cast<int64_t>(unnzp),           nrows,
       slot_nnz, num_slots, block, inner_limit, split_row, split_ways, trip_log_len};

@@ -27,7 +27,21 @@ from the state in (its fixed point; see the source for why the copy is
 exact).  After a launch's first trip, a trip whose last prune killed at
 most as many lanes as it kept takes its supports from those deaths (each
 lost triangle taken off its surviving edges) instead of counting every
-alive lane again; the supports are the count's either way.  Lanes whose
+alive lane again; the supports are the count's either way.
+
+The first trip of a launch updates the same way when the launch before,
+in the same level loop, handed it a :class:`LevelCarry`: the lanes that
+left the effective set (alive or frozen-live) between the two launches.
+Every live slot of a launch converges, so its supports out are exact on
+that set; the prune-ahead then kills some lanes, and in a slot that
+advanced the frozen lanes of trussness ``cur_k`` stop counting as alive.
+Those are the carried deaths.  A frozen leaver is exact like a pruned
+lane: it was in the set the supports count over, is not in the next one,
+and is never an alive lane itself, so its triangles come off their alive
+survivors as any death's do.  The rule is the trips': update when the
+carried deaths are at most the lanes alive at launch, count otherwise.  A
+launch with no carry (a loop's first, or a state handed in from anywhere
+else) counts, and :func:`fused_level_torch` ignores the carry.  Lanes whose
 shorter (compacted) row exceeds :data:`SPLIT_ROW` entries are split into
 :data:`SPLIT_WAYS` work items.  ``block`` is the most worklist items a warp
 claims at a time.
@@ -43,6 +57,7 @@ tensors.  ``fused_level_cuda.launches`` counts kernel launches.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -52,6 +67,7 @@ from ..exec.peel import PeelState
 from .build import BuiltLibrary, load_library
 
 __all__ = [
+    "LevelCarry",
     "make_fused_level",
     "fused_level_torch",
     "fused_level_cuda",
@@ -79,6 +95,29 @@ NUM_STAMPS = 6
 # of the two worklists and of the two death lists (unsplit, split) per
 # parity (eight words).
 _COUNTER_WORDS = 12
+
+
+class LevelCarry(NamedTuple):
+    """The carried deaths one :func:`fused_level_cuda` launch hands the
+    next launch of the same level loop, on the state it returned: ``lanes``
+    ((nnzp,) int32) lists ``length[0]`` lanes ((1,) int32); ``flags``
+    ((nnzp,) uint8) holds each lane's flag in the next launch's compacted
+    rows on the slots that advanced: 1 alive or frozen-live, 2 carried
+    (dying), 0 neither (elsewhere unset: the next launch reads it only on
+    rows of slots not done, which are those)."""
+
+    lanes: torch.Tensor
+    flags: torch.Tensor
+    length: torch.Tensor
+
+    @classmethod
+    def empty(cls, nnzp: int, device) -> "LevelCarry":
+        """Buffers for a launch to record its carry into (it sets ``length``)."""
+        return cls(
+            lanes=torch.empty(nnzp, dtype=torch.int32, device=device),
+            flags=torch.empty(nnzp, dtype=torch.uint8, device=device),
+            length=torch.empty(1, dtype=torch.int32, device=device),
+        )
 
 
 def scratch_elements(nnzp: int, unnzp: int, nrows: int, num_slots: int) -> dict[str, int]:
@@ -150,6 +189,7 @@ def fused_level_torch(
     window: int,
     block: int,
     counted: torch.Tensor | None = None,
+    carry: LevelCarry | None = None,
 ) -> PeelState:
     """One truss level of every live slot, in torch ops (the plain version).
 
@@ -158,8 +198,10 @@ def fused_level_torch(
     version has one: :func:`support_fine_owner` over the effective alive
     set.  Reads the loop condition back to the host once per inner trip.
     Every trip counts every lane: ``counted`` (a tensor on the state's
-    device), when given, has each trip's alive lanes added to it in place.
+    device), when given, has each trip's alive lanes added to it in place,
+    and ``carry`` is not read.
     """
+    del carry  # every trip counts
     num_slots, slot_nnz = _geometry(p, state, block)
     cur_k, done = state.cur_k, state.done
     cur_k_lane = cur_k.repeat_interleave(slot_nnz)
@@ -215,7 +257,7 @@ def load_peel_fused() -> BuiltLibrary:
     built = load_library("peel_fused")
     fn = built.lib.peel_fused_launch
     fn.argtypes = (
-        [ctypes.c_void_p] * 41
+        [ctypes.c_void_p] * 48
         + [ctypes.c_longlong, ctypes.c_longlong]
         + [ctypes.c_int] * 10
         + [ctypes.c_void_p] * 3  # the stream, the timing events (or null)
@@ -275,6 +317,9 @@ def fused_level_cuda(
     stamps: torch.Tensor | None = None,
     incremental: torch.Tensor | None = None,
     counted: torch.Tensor | None = None,
+    carried: torch.Tensor | None = None,
+    carry: LevelCarry | None = None,
+    carry_out: LevelCarry | None = None,
     events=None,
 ) -> PeelState:
     """One truss level of every live slot, by the CUDA kernel (one
@@ -289,8 +334,17 @@ def fused_level_cuda(
     ``incremental`` (one int32) has the launch's update trips (those that
     took their supports from the last trip's deaths) added to it;
     ``counted`` (one int64) the lanes whose supports the launch's trips
-    counted in full (a launch's first trip and any later one that did not
-    update; a split lane once, a latched slot's lanes not at all).
+    counted in full (those of every trip that did not update; a split lane
+    once, a latched slot's lanes not at all);
+    ``carried`` (one int32) 1 when the first trip took its supports from
+    ``carry``.
+
+    ``carry``: the :class:`LevelCarry` that the launch which returned
+    ``state`` recorded (and only that one): the first trip may then update
+    from it.  ``carry_out``: buffers the launch records its own carry into
+    for the next launch; they may be ``carry``'s (the launch reads a carry
+    before it writes one).
+
     ``events`` (a ``repro_torch.obs.device_time.EventPair`` on the state's
     device): the library records its two events on the launch's stream
     just before and just after the launch call, so their interval holds
@@ -319,8 +373,23 @@ def fused_level_cuda(
         or not counted.is_contiguous()
     ):
         raise ValueError("counted must be one contiguous int64 on the state's device")
-    built = load_peel_fused()
+    if carried is not None and (
+        carried.device != dev or carried.dtype != torch.int32 or carried.numel() != 1
+        or not carried.is_contiguous()
+    ):
+        raise ValueError("carried must be one contiguous int32 on the state's device")
     nnzp, unnzp = p.nnz_pad, int(p.ucolidx.shape[0])
+    for name, c in (("carry", carry), ("carry_out", carry_out)):
+        if c is not None and any(
+            x.device != dev or x.dtype != dtype or x.shape != shape or not x.is_contiguous()
+            for x, dtype, shape in (
+                (c.lanes, torch.int32, (nnzp,)), (c.flags, torch.uint8, (nnzp,)),
+                (c.length, torch.int32, (1,)),
+            )
+        ):
+            raise ValueError(f"{name} must be a LevelCarry of ({nnzp},) int32 lanes, ({nnzp},) "
+                             "uint8 flags and (1,) int32 length on the state's device")
+    built = load_peel_fused()
 
     def i32(n):
         return torch.empty(n, dtype=torch.int32, device=dev)
@@ -356,7 +425,9 @@ def fused_level_cuda(
         )
     ]
     ptrs += [x.data_ptr() if x is not None else None
-             for x in (trip_log, stamps, incremental, counted)]
+             for x in (trip_log, stamps, incremental, counted, carried)]
+    for c in (carry, carry_out):
+        ptrs += [x.data_ptr() for x in c] if c is not None else [None] * 3
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = built.lib.peel_fused_launch(
@@ -392,13 +463,18 @@ def make_fused_level(*, window: int, block: int = 128, schedule: str = "bsearch"
     """Build the one-launch-per-level step for one configuration.
 
     Returns ``level_step(p, state, frozen, frozen_truss, single_level, *,
-    events=None, incremental=None, counted=None) -> PeelState`` advancing
-    every live slot by exactly one truss level.  CUDA tensors go to
-    :func:`fused_level_cuda` (with ``events``, the launch's timing pair,
-    ``incremental``, the count its update trips are added to, and
-    ``counted``, the count of the lanes its trips counted), CPU tensors to
-    :func:`fused_level_torch`, which counts every lane on every trip (added
-    to ``counted``) and adds nothing to ``incremental``.  ``window`` must cover the bucket's max
+    carry=None, events=None, incremental=None, counted=None, carried=None)
+    -> (PeelState, LevelCarry | None)`` advancing every live slot by
+    exactly one truss level.  CUDA tensors go to :func:`fused_level_cuda`
+    (with ``carry``, the one the last step of the same level loop returned,
+    or None; ``events``, the launch's timing pair; ``incremental``, the
+    count its update trips are added to; ``counted``, the count of the
+    lanes its trips counted; ``carried``, the count its carried first trips
+    are added to), which returns the launch's own carry, recorded into
+    ``carry``'s buffers when given; CPU tensors to :func:`fused_level_torch`,
+    which counts every lane on every trip (added to ``counted``), adds
+    nothing to ``incremental`` or ``carried``, and returns no carry.
+    ``window`` must cover the bucket's max
     undirected degree; ``block`` must divide the packed ``slot_nnz``
     (checked here and, with slot attribution, by
     ``repro_torch.graphs.pack.validate_fused_tiling``).
@@ -408,19 +484,23 @@ def make_fused_level(*, window: int, block: int = 128, schedule: str = "bsearch"
     if block < 1 or (block & (block - 1)) != 0:
         raise ValueError(f"fused block must be a power of two, got {block}")
 
-    def level_step(p, state, frozen, frozen_truss, single_level, *, events=None, incremental=None,
-                   counted=None):
+    def level_step(p, state, frozen, frozen_truss, single_level, *, carry=None, events=None,
+                   incremental=None, counted=None, carried=None):
         dev = state.alive.device
         if dev.type == "cuda":
-            return fused_level_cuda(
+            out = carry if carry is not None else LevelCarry.empty(p.nnz_pad, dev)
+            st = fused_level_cuda(
                 p, state, frozen, frozen_truss, single_level, block=block, schedule=schedule,
-                incremental=incremental, counted=counted, events=events,
+                incremental=incremental, counted=counted, carried=carried, carry=carry,
+                carry_out=out, events=events,
             )
+            return st, out
         if dev.type != "cpu":
             raise ValueError(f"the fused level runs on CUDA or the CPU, got {dev}")
-        return fused_level_torch(
+        st = fused_level_torch(
             p, state, frozen, frozen_truss, single_level, window=window, block=block,
-            counted=counted,
+            counted=counted, carry=carry,
         )
+        return st, None
 
     return level_step

@@ -22,6 +22,7 @@ __all__ = [
     "PEEL_LEVEL_DEVICE_SECONDS",
     "PEEL_LEVEL_LANES_COUNTED",
     "PEEL_LEVEL_TRIPS",
+    "PEEL_LEVEL_TRIPS_CARRIED",
     "PEEL_LEVEL_TRIPS_INCREMENTAL",
 ]
 
@@ -33,6 +34,9 @@ PEEL_LEVEL_DEVICE_SECONDS = "peel_level_device_seconds"  # CUDA events around ea
 PEEL_LEVEL_TRIPS = "peel_level_trips"  # inner trips, every device
 # the inner trips that took their supports from the last trip's deaths
 PEEL_LEVEL_TRIPS_INCREMENTAL = "peel_level_trips_incremental"
+# the launches whose first trip took its supports from the deaths carried
+# over from the launch before
+PEEL_LEVEL_TRIPS_CARRIED = "peel_level_trips_carried"
 # the lanes whose supports the inner trips counted by a full intersection
 PEEL_LEVEL_LANES_COUNTED = "peel_level_lanes_counted"
 
@@ -52,6 +56,7 @@ COUNTERS: frozenset[str] = frozenset(
         PEEL_LEVEL_DEVICE_SECONDS,
         PEEL_LEVEL_LANES_COUNTED,
         PEEL_LEVEL_TRIPS,
+        PEEL_LEVEL_TRIPS_CARRIED,
         PEEL_LEVEL_TRIPS_INCREMENTAL,
         "peel_slots",
         # compile cache

@@ -364,6 +364,24 @@ def test_port_tree_is_clean_against_its_baseline():
     assert not stale, sorted(stale)
 
 
+@pytest.mark.parametrize(
+    "const",
+    ["PEEL_LEVEL_DEVICE_SECONDS", "PEEL_LEVEL_LANES_COUNTED", "PEEL_LEVEL_TRIPS",
+     "PEEL_LEVEL_TRIPS_CARRIED", "PEEL_LEVEL_TRIPS_INCREMENTAL"],
+)
+def test_fused_level_counters_are_declared_and_r5_finds_no_drift(const):
+    """Each counter of the fused level loop is a constant of
+    ``repro_torch.obs.names`` (exported, its value a declared counter), the
+    peel's call sites use it, and R5 over the port's files finds nothing."""
+    from repro_torch.obs import names
+
+    assert const in names.__all__
+    assert getattr(names, const) in names.COUNTERS
+    peel = (REPO_ROOT / "src" / "repro_torch" / "exec" / "peel.py").read_text()
+    assert f"registry.inc({const}," in peel
+    assert run(AnalysisConfig.default(REPO_ROOT), rules=[rules_metrics]) == []
+
+
 def test_counted_readbacks_are_the_only_suppressed_syncs():
     """R1 sees every readback of the hot path; the suppressed ones are the
     counted readbacks of the peel loops, the belt, the shard check."""

@@ -6,7 +6,9 @@ level, whose alive lanes are recounted here from the states the level step
 was given; an untraced session records no level events and makes the same
 readbacks; the update trips the level steps add on the device ride in the
 same readbacks into ``peel_level_trips_incremental`` and the records (0 on
-the plain version); off CUDA no device counter is recorded and
+the plain version); each level step is handed the carry of the step before
+in its dispatch, and the carried first trips ride into
+``peel_level_trips_carried`` and the records; off CUDA no device counter is recorded and
 ``device_time_s`` is the dispatch's host wall; a traced session's spans
 open profiler ranges while a ``torch.profiler`` records.  On the card (``-m gpu``): the level
 launches' event seconds against the profiler's kernel time on rmat-15, and
@@ -26,6 +28,7 @@ from repro_torch.graphs import rmat
 from repro_torch.obs.names import (
     PEEL_LEVEL_DEVICE_SECONDS,
     PEEL_LEVEL_TRIPS,
+    PEEL_LEVEL_TRIPS_CARRIED,
     PEEL_LEVEL_TRIPS_INCREMENTAL,
 )
 
@@ -40,7 +43,7 @@ def _spied(s: Session, g) -> list:
 
     def step(p, st, *args, **kw):
         out = inner(p, st, *args, **kw)
-        seen.append((st, out))
+        seen.append((st, out[0]))
         return out
 
     peel.level_step = step
@@ -97,6 +100,7 @@ def test_untraced_fused_decompose_records_no_level_event_and_same_readbacks():
         assert syncs[trace] == levels + 3  # a readback a level, the last test, tiling, belt
         assert s.obs.metrics.value(PEEL_LEVEL_TRIPS) > levels
         assert s.metrics_snapshot()["counters"][PEEL_LEVEL_TRIPS_INCREMENTAL] == 0  # plain version
+        assert s.metrics_snapshot()["counters"][PEEL_LEVEL_TRIPS_CARRIED] == 0
         names = {e["name"] for e in s.obs.tracer.events()}
         assert ("peel-level.done" in names) is trace
     assert syncs[False] == syncs[True]
@@ -115,7 +119,7 @@ def test_update_trips_ride_in_the_level_readbacks():
 
     def step(p, st, *args, incremental=None, **kw):
         out = inner(p, st, *args, incremental=incremental, **kw)
-        incremental += int(out.total_iters - st.total_iters) - 1  # in place, as on the card
+        incremental += int(out[0].total_iters - st.total_iters) - 1  # in place, as on the card
         return out
 
     peel.level_step = step
@@ -127,6 +131,42 @@ def test_update_trips_ride_in_the_level_readbacks():
     done = [e for e in s.obs.tracer.events() if e["name"] == "peel-level.done"]
     assert [e["args"]["update_trips"] for e in done] == added
     assert s.executor_for(g).host_syncs == levels + 3
+
+
+def test_each_launch_gets_the_carry_of_the_launch_before_in_its_dispatch():
+    """A level step that returns a fresh carry each launch and, as the
+    kernel does when its first trip updates from a carry, adds 1 to
+    ``carried`` when it was handed one: the first launch of each dispatch
+    is handed none, every later one the carry its predecessor returned;
+    ``peel_level_trips_carried`` and the records' ``carried`` hold the
+    count, with no readback more."""
+    g = rmat(6, 4, seed=2)
+    s = Session(trace=True, device="cpu", **FUSED)
+    peel = s.executor_for(g)._peel
+    inner, given, returned = peel.level_step, [], []
+
+    def step(p, st, *args, carry=None, carried=None, **kw):
+        out, none = inner(p, st, *args, carry=carry, carried=carried, **kw)
+        assert none is None  # the plain version hands nothing over
+        given.append(carry)
+        returned.append(object())
+        if carry is not None:
+            carried += 1  # in place, as on the card
+        return out, returned[-1]
+
+    peel.level_step = step
+    _decompose(s, g)
+    levels = len(given)
+    _decompose(s, g)  # a second dispatch starts without a carry
+    assert int(s.obs.metrics.value("peel_fused_levels")) == len(given) == 2 * levels >= 4
+    for first in (0, levels):
+        assert given[first] is None
+        assert all(given[i] is returned[i - 1] for i in range(first + 1, first + levels))
+    counters = s.metrics_snapshot()["counters"]
+    assert counters[PEEL_LEVEL_TRIPS_CARRIED] == 2 * (levels - 1)
+    done = [e["args"]["carried"] for e in s.obs.tracer.events() if e["name"] == "peel-level.done"]
+    assert done == 2 * ([0] + [1] * (levels - 1))
+    assert s.executor_for(g).host_syncs == 2 * (levels + 3)
 
 
 def test_device_time_off_cuda_is_the_dispatch_host_wall():

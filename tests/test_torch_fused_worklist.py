@@ -10,7 +10,8 @@ here: its scratch sizes, its split rule, the premise of the copy, checked
 on the plain version (``fused_level_torch``, the reference's
 ``_level_kernel`` replayed) that the kernel is held to bit for bit, and the
 update rule, as a plain model of the kernel's walk (``_update_model``) held
-to a recount.
+to a recount, also across launches (the carried deaths, frozen leavers
+included); the plain version ignores a carry.
 """
 
 import jax.numpy as jnp
@@ -31,6 +32,7 @@ from repro_torch.core import prepare_fine, support_fine_owner
 from repro_torch.kernels.peel_fused import (
     SPLIT_ROW,
     SPLIT_WAYS,
+    LevelCarry,
     fused_level_cuda,
     fused_level_torch,
     scratch_elements,
@@ -299,3 +301,101 @@ def test_update_rule_over_a_level(seed):
             assert torch.equal(s[kept], want[kept]), (k, len(kinds))
             a = kept
     assert "update" in kinds
+
+
+# --------------------------------------------------------------------- #
+# The carry from one launch to the next (csrc/peel_fused.cu, prune-ahead)
+# --------------------------------------------------------------------- #
+def _one_slot(frozen_case):
+    """rmat(5, 6, seed=3) in one slot: (problem, window, state, frozen,
+    frozen_truss, single), its even lanes frozen at the oracle's trussness
+    when ``frozen_case``."""
+    g = rg.rmat(5, 6, seed=3)
+    b = ra.bucket_for(g, chunk=CHUNK)
+    pp = rg.pack_problems([g], slot_n=b.n_pad, slot_nnz=b.nnz_pad, slots=1, chunk=CHUNK,
+                          layout="aligned")
+    p = torch_problem(pp.problem)
+    real = p.colidx != 0
+    ftruss = torch.zeros(p.nnz_pad, dtype=torch.int32)
+    frozen = torch.zeros(p.nnz_pad, dtype=torch.bool)
+    if frozen_case:
+        oracle = torch.from_numpy(trussness_numpy(g).astype(np.int32))
+        frozen = real & (torch.arange(p.nnz_pad) % 2 == 0) & (torch.arange(p.nnz_pad) < oracle.numel())
+        ftruss[: oracle.numel()] = oracle
+        ftruss = ftruss * frozen
+    single = torch.zeros(1, dtype=torch.bool)
+    st = tpeel.init_peel_state(p, torch.zeros(p.nnz_pad, dtype=torch.int32),
+                               torch.tensor([3], dtype=torch.int32), single, real & ~frozen,
+                               frozen, ftruss)
+    return p, b.window, st, frozen, ftruss, single
+
+
+@pytest.mark.parametrize("frozen_case", [False, True], ids=["free", "frozen"])
+def test_carried_deaths_update_to_the_next_levels_count(frozen_case):
+    """Level by level on one slot: the supports a level converges on, less
+    the carried deaths' triangles (the plain model of the update), equal
+    the next level's first count on every lane alive at its launch.  The
+    carried deaths are the lanes alive or frozen-live at the level and
+    neither after its prune-ahead at the next: the pruned lanes and, with
+    frozen lanes, those whose trussness is the level (frozen leavers, of
+    which some level has a few).  The supports the state hands over are the
+    converged ones on the lanes it keeps alive."""
+    p, window, st, frozen, ftruss, single = _one_slot(frozen_case)
+    leavers = carried = 0
+    while not bool(st.done.all()):
+        k = int(st.cur_k)
+        out = fused_level_torch(p, st, frozen, ftruss, single, window=window, block=32)
+        fl_old, fl_new = frozen & (ftruss >= k), frozen & (ftruss >= int(out.cur_k))
+        a = st.alive  # the level's fixed point
+        while True:
+            s = support_fine_owner(p, a | fl_old, window=window, chunk=32)
+            if bool(((a & (s < k - 2))).sum() == 0):
+                break
+            a = a & (s >= k - 2)
+        assert torch.equal(s[out.alive], out.support[out.alive])
+        if bool(out.done.all()):
+            break
+        dying = (a | fl_old) & ~(out.alive | fl_new)
+        carried += int(dying.sum())
+        leavers += int((dying & frozen).sum())
+        got = _update_model(p, s, a, fl_old, dying)[0]
+        want = support_fine_owner(p, out.alive | fl_new, window=window, chunk=32)
+        assert torch.equal(got[out.alive], want[out.alive]), k
+        st = out
+    assert carried > 0 and (leavers > 0) is frozen_case
+
+
+@pytest.mark.parametrize("frozen_case", [False, True], ids=["free", "frozen"])
+def test_the_plain_level_ignores_a_carry(frozen_case):
+    """``fused_level_torch`` handed any carry (here every lane flagged dying)
+    returns the state it returns without one, level by level; and a fused
+    peel whose level steps hand such a carry on ends on the plain peel's
+    state."""
+    p, window, st0, frozen, ftruss, single = _one_slot(frozen_case)
+    n = p.nnz_pad
+    junk = LevelCarry(lanes=torch.arange(n, dtype=torch.int32),
+                      flags=torch.full((n,), 2, dtype=torch.uint8),
+                      length=torch.tensor([n], dtype=torch.int32))
+    st, levels = st0, 0
+    while not bool(st.done.all()):
+        want = fused_level_torch(p, st, frozen, ftruss, single, window=window, block=32)
+        got = fused_level_torch(p, st, frozen, ftruss, single, window=window, block=32, carry=junk)
+        for f in tpeel.PeelState._fields:
+            assert torch.equal(getattr(got, f), getattr(want, f)), (levels, f)
+        st, levels = want, levels + 1
+    assert levels >= 2
+    kw = dict(slot_ids=torch.zeros(n, dtype=torch.int32), k0=np.array([3], np.int32),
+              single_level=np.array([False]), alive0=st0.alive, frozen=frozen,
+              frozen_truss=ftruss)
+    exe = tpeel.PeelExecutor(backend="fused", window=window, chunk=CHUNK)
+    plain = exe.peel(p, **kw)
+    inner = exe._peel.level_step
+
+    def step(*args, carry=None, **kw):
+        return inner(*args, carry=carry, **kw)[0], junk
+
+    exe._peel.level_step = step
+    handed = exe.peel(p, **kw)
+    for f in tpeel.PeelState._fields:
+        assert torch.equal(getattr(handed, f), getattr(plain, f)), f
+    assert torch.equal(handed.trussness, st.trussness)

@@ -399,18 +399,23 @@ CASES = ["single_beside_decompose", "frozen", "split_hub", "hub_dies_mid_level",
 @pytest.mark.parametrize("name", CASES)
 def test_fused_level_kernel_whole_peel_cases(cuda, name):
     """Every autotune candidate (both schedules), level by level over the
-    whole peel: all ten fields equal fused_level_torch's.  A slot done on
-    entry comes out with the state in's alive, support and trussness (the
-    kernel copies them; the plain version recomputes them).  Each launch's
-    update trips (supports from the last trip's deaths) are at most its
-    trips but the first; ``hub_dies_mid_level`` updates over split lanes
-    that died mid-level (triangles with two dying edges among them), and
+    whole peel, each launch after the first handed the carry of the launch
+    before: all ten fields equal fused_level_torch's and those of the same
+    launch without a carry.  A slot done on entry comes out with the state
+    in's alive, support and trussness (the kernel copies them; the plain
+    version recomputes them).  A launch's first trip updates exactly when
+    it has a carry of at most the lanes of its first worklist (``frozen``:
+    frozen leavers among the carried deaths); its update trips are at most
+    its trips, and its later trips' updates at most its trips but the
+    first; ``hub_dies_mid_level`` updates over split lanes that died
+    mid-level (triangles with two dying edges among them), and
     ``recount_after_update`` has a launch that updates and later counts
     again."""
     from repro_torch.exec.peel import init_peel_state
     from repro_torch.kernels.autotune import candidate_configs
     from repro_torch.kernels.peel_fused import (
         SPLIT_WAYS,
+        LevelCarry,
         fused_level_cuda,
         fused_level_torch,
         split_items,
@@ -419,21 +424,43 @@ def test_fused_level_kernel_whole_peel_cases(cuda, name):
     p, window, slot_ids, k0, single, alive0, frozen, ftruss = _case(name, cuda)
     slot_nnz = p.nnz_pad // k0.numel()
     lanes_done = lambda st: st.done.repeat_interleave(slot_nnz)  # noqa: E731
+    leavers = 0
     for cfg in candidate_configs(slot_nnz):
         st = init_peel_state(p, slot_ids, k0, single, alive0, frozen, ftruss)
-        levels, copied, mixed = 0, 0, False
+        levels, copied, mixed, carry = 0, 0, False, None
         while not bool(st.done.all()):
             log = torch.full((64,), -1, dtype=torch.int32, device=cuda)
             updates = torch.zeros((), dtype=torch.int32, device=cuda)
             counted = torch.zeros((), dtype=torch.int64, device=cuda)
+            carried = torch.zeros((), dtype=torch.int32, device=cuda)
+            n_carry = int(carry.length) if carry is not None else None
+            bare = fused_level_cuda(p, st, frozen, ftruss, single, block=cfg.block,
+                                    schedule=cfg.schedule)
+            out = LevelCarry.empty(p.nnz_pad, cuda)
             got = fused_level_cuda(
                 p, st, frozen, ftruss, single, block=cfg.block, schedule=cfg.schedule, trip_log=log,
-                incremental=updates, counted=counted,
+                incremental=updates, counted=counted, carried=carried, carry=carry, carry_out=out,
             )
             want = fused_level_torch(p, st, frozen, ftruss, single, window=window, block=cfg.block)
             for f in got._fields:
-                a, b = getattr(got, f), getattr(want, f)
+                a, b, c = getattr(got, f), getattr(want, f), getattr(bare, f)
                 assert a.dtype == b.dtype and torch.equal(a, b), (name, cfg, levels, f)
+                assert torch.equal(a, c), (name, cfg, levels, f)
+            # The carry it recorded: in each slot that advanced, the lanes
+            # alive at the level's fixed point (trussness set to cur_k) or
+            # frozen-live at cur_k, and neither after the prune-ahead at the
+            # next threshold.
+            k_in = st.cur_k.repeat_interleave(slot_nnz)
+            k_out = got.cur_k.repeat_interleave(slot_nnz)
+            fixed = st.alive & (got.trussness == k_in)
+            adv = k_out > k_in
+            dying = adv & (fixed | (frozen & (ftruss >= k_in))) & ~(got.alive | (frozen & (ftruss >= k_out)))
+            listed = out.lanes[: int(out.length)].sort().values
+            assert torch.equal(listed, torch.nonzero(dying).flatten().to(torch.int32)), (name, levels)
+            present = got.alive | (frozen & (ftruss >= k_out))
+            flags = present.to(torch.uint8) + 2 * dying.to(torch.uint8)
+            assert torch.equal(out.flags[adv], flags[adv]), (name, levels)
+            leavers += int((dying & frozen).sum())
             done = lanes_done(st)
             for f in ("alive", "support", "trussness"):
                 assert torch.equal(getattr(got, f)[done], getattr(st, f)[done]), (name, f)
@@ -446,12 +473,17 @@ def test_fused_level_kernel_whole_peel_cases(cuda, name):
             if name == "split_hub" and levels == 0:
                 assert split * SPLIT_WAYS > 0
             trips, n_upd = int(got.total_iters - st.total_iters), int(updates)
-            assert 0 <= n_upd <= max(trips - 1, 0), (name, cfg, levels)
-            # The lanes counted: the first trip's worklist, and at most every
-            # trip's (a latched slot's lanes and the update trips' excluded).
+            first = int(carried)
+            assert first == int(n_carry is not None and n_carry <= unsplit + split), (
+                name, cfg, levels, n_carry, unsplit + split)
+            assert first <= n_upd <= max(trips - 1, 0) + first, (name, cfg, levels)
+            # The lanes counted: the first trip's worklist when it counted,
+            # and at most every trip's (a latched slot's lanes and the
+            # update trips' excluded).
             worklists = (log[0: 2 * trips: 2] + log[1: 2 * trips: 2]).tolist()
             if 0 < trips <= log.numel() // 2:
-                assert worklists[0] <= int(counted) <= sum(worklists), (name, cfg, levels)
+                least = 0 if first else worklists[0]
+                assert least <= int(counted) <= sum(worklists[first:]), (name, cfg, levels)
             assert trips > 0 or int(counted) == 0
             mixed |= 0 < n_upd < trips - 1
             if name == "hub_dies_mid_level" and levels == 0:
@@ -459,7 +491,7 @@ def test_fused_level_kernel_whole_peel_cases(cuda, name):
                 # died on trip 1 (the hub's) leave trip 2's worklist.
                 assert trips == 3 and n_upd == 2, (cfg, trips, n_upd)
                 assert log[3] > log[5] > 0, log[:6].tolist()
-            st, levels = got, levels + 1
+            st, levels, carry = got, levels + 1, out
         assert levels >= 2, (name, cfg)
         # On the all-done state no trip runs: the kernel prunes ahead with
         # s = 0 as the plain version does, instead of copying.
@@ -468,23 +500,53 @@ def test_fused_level_kernel_whole_peel_cases(cuda, name):
         assert all(torch.equal(getattr(got, f), getattr(want, f)) for f in got._fields), (name, cfg)
         assert mixed or name != "recount_after_update", cfg
     assert copied > 0 or name == "frozen"
+    assert (leavers > 0) is (name == "frozen")
 
 
 def test_update_trips_on_rmat15(cuda):
     """A decompose of rmat-15 on the fused backend: some inner trips take
-    their supports from the last trip's deaths, and never a launch's first
-    (at most the trips less the launches)."""
+    their supports from the last trip's deaths.  The first launch's first
+    trip counts; a later launch's first trip updates from the deaths the
+    launch before carried over exactly when they are at most the lanes of
+    its first worklist (the alive lanes at launch), and
+    ``peel_level_trips_carried`` counts those launches: above 0, at most
+    the launches less one."""
     from repro_torch.api import Session, TrussQuery
     from repro_torch.configs import LARGE_GRAPHS
-    from repro_torch.obs.names import PEEL_LEVEL_TRIPS, PEEL_LEVEL_TRIPS_INCREMENTAL
+    from repro_torch.kernels.peel_fused import LevelCarry, fused_level_cuda
+    from repro_torch.obs.names import (
+        PEEL_LEVEL_TRIPS,
+        PEEL_LEVEL_TRIPS_CARRIED,
+        PEEL_LEVEL_TRIPS_INCREMENTAL,
+    )
 
     g = LARGE_GRAPHS[0].factory()  # rmat-15
     s = Session(device=cuda, backend="fine/fused/aligned", max_batch=1)
+    exe = s.executor_for(g)
+    cfg, firsts = exe.fused_config, []
+
+    def step(p, st, frozen, ftruss, single, *, carry=None, carried=None, **kw):
+        log = torch.full((2,), -1, dtype=torch.int32, device=cuda)  # the first trip's worklist
+        n_carry = int(carry.length) if carry is not None else None
+        before = int(carried)
+        out = carry if carry is not None else LevelCarry.empty(p.nnz_pad, cuda)
+        got = fused_level_cuda(p, st, frozen, ftruss, single, block=cfg.block, schedule=cfg.schedule,
+                               trip_log=log, carried=carried, carry=carry, carry_out=out, **kw)
+        firsts.append((n_carry, int(log.sum()), int(carried) - before))
+        return got, out
+
+    exe._peel.level_step = step
     s.solve([TrussQuery.decompose(g)])
     counters = s.metrics_snapshot()["counters"]
     levels = counters["peel_fused_levels"]
     trips, updates = counters[PEEL_LEVEL_TRIPS], counters[PEEL_LEVEL_TRIPS_INCREMENTAL]
-    assert 0 < updates <= trips - levels, (updates, trips, levels)
+    assert len(firsts) == levels and firsts[0][0] is None
+    for i, (n_carry, lanes, first) in enumerate(firsts):
+        assert first == int(n_carry is not None and n_carry <= lanes), (i, n_carry, lanes, first)
+    carried = counters[PEEL_LEVEL_TRIPS_CARRIED]
+    assert carried == sum(f for *_, f in firsts)
+    assert 0 < carried <= levels - 1, (carried, levels)
+    assert carried < updates <= trips - levels + carried, (updates, trips, levels, carried)
 
 
 def _ktbench_root():
@@ -523,18 +585,21 @@ def _reference_trussness(g, device):
 
 @pytest.mark.parametrize("which", ["rgg12", "rmat15"])
 def test_counted_lanes_of_the_fused_kernel(cuda, which):
-    """A traced one-slot decompose on the fused backend, each launch also
-    writing its trip log: the kernel's ``counted`` grows, each level, by
-    the worklists of the trips that counted (the first, and every later
-    trip whose last prune killed more lanes than it kept); the dispatch's
-    ``peel_level_lanes_counted`` and the levels' ``counted_lanes`` hold the
-    same; a level whose later trips all updated counted exactly the alive
-    lanes it started on (``peel-level.done``'s ``alive_lanes``).  The
-    state of every launch equals a launch without the counts (and, on the
-    small graph, the plain version's)."""
+    """A traced one-slot decompose on the fused backend, through the carry,
+    each launch also writing its trip log: the kernel's ``counted`` grows,
+    each level, by the worklists of the trips that counted (the first when
+    the launch had no carry or one of more lanes than the worklist, and
+    every later trip whose last prune killed more lanes than it kept); the
+    dispatch's ``peel_level_lanes_counted`` and the levels'
+    ``counted_lanes`` hold the same; a level whose first trip counted and
+    whose later trips all updated counted exactly the alive lanes it
+    started on (``peel-level.done``'s ``alive_lanes``), and one whose trips
+    all updated counted none.  The state of every launch equals the same
+    launch without the counts and the carry (and, on the small graph, the
+    plain version's)."""
     from repro_torch.api import Session, TrussQuery
     from repro_torch.configs import LARGE_GRAPHS
-    from repro_torch.kernels.peel_fused import fused_level_cuda, fused_level_torch
+    from repro_torch.kernels.peel_fused import LevelCarry, fused_level_cuda, fused_level_torch
     from repro_torch.obs.names import PEEL_LEVEL_LANES_COUNTED
 
     g = _rgg(12) if which == "rgg12" else LARGE_GRAPHS[0].factory()  # rmat-15
@@ -543,12 +608,16 @@ def test_counted_lanes_of_the_fused_kernel(cuda, which):
     cfg, window = exe.fused_config, bucket_for(g, chunk=s.planner.chunk).window
     levels = []
 
-    def step(p, st, frozen, ftruss, single, *, events=None, incremental=None, counted=None):
+    def step(p, st, frozen, ftruss, single, *, carry=None, events=None, incremental=None,
+             counted=None, carried=None):
         log = torch.full((4096,), -1, dtype=torch.int32, device=cuda)
         before = int(counted)
-        out = fused_level_cuda(p, st, frozen, ftruss, single, block=cfg.block, schedule=cfg.schedule,
-                               trip_log=log, incremental=incremental, counted=counted, events=events)
+        n_carry = int(carry.length) if carry is not None else None
         bare = fused_level_cuda(p, st, frozen, ftruss, single, block=cfg.block, schedule=cfg.schedule)
+        kept = carry if carry is not None else LevelCarry.empty(p.nnz_pad, cuda)
+        out = fused_level_cuda(p, st, frozen, ftruss, single, block=cfg.block, schedule=cfg.schedule,
+                               trip_log=log, incremental=incremental, counted=counted,
+                               carried=carried, carry=carry, carry_out=kept, events=events)
         wants = [bare]
         if which == "rgg12":
             wants.append(fused_level_torch(p, st, frozen, ftruss, single, window=window,
@@ -558,10 +627,12 @@ def test_counted_lanes_of_the_fused_kernel(cuda, which):
         trips = int(out.total_iters - st.total_iters)
         assert trips <= log.numel() // 2
         lanes = (log[0: 2 * trips: 2] + log[1: 2 * trips: 2]).tolist()
-        counts = [i == 0 or lanes[i - 1] - lanes[i] > lanes[i] for i in range(trips)]
+        first_counts = n_carry is None or n_carry > lanes[0]
+        counts = [first_counts if i == 0 else lanes[i - 1] - lanes[i] > lanes[i]
+                  for i in range(trips)]
         levels.append(sum(n for n, c in zip(lanes, counts) if c))
-        assert int(counted) - before == levels[-1], (len(levels), lanes)
-        return out
+        assert int(counted) - before == levels[-1], (len(levels), n_carry, lanes)
+        return out, kept
 
     exe._peel.level_step = step
     res = s.solve([TrussQuery.decompose(g)])[0]
@@ -570,9 +641,11 @@ def test_counted_lanes_of_the_fused_kernel(cuda, which):
     assert s.metrics_snapshot()["counters"][PEEL_LEVEL_LANES_COUNTED] == sum(levels) > 0
     done = [e["args"] for e in s.obs.tracer.events() if e["name"] == "peel-level.done"]
     assert [a["counted_lanes"] for a in done] == levels
-    whole = [a for a in done if a["update_trips"] == a["trips"] - 1]
+    whole = [a for a in done if not a["carried"] and a["update_trips"] == a["trips"] - 1]
     assert whole and all(a["counted_lanes"] == a["alive_lanes"] for a in whole)
-    assert all(a["counted_lanes"] >= a["alive_lanes"] for a in done)
+    none = [a for a in done if a["carried"] and a["update_trips"] == a["trips"]]
+    assert none and all(a["counted_lanes"] == 0 for a in none)
+    assert sum(a["counted_lanes"] for a in done) < sum(a["alive_lanes"] for a in done)
 
 
 # --------------------------------------------------------------------- #
