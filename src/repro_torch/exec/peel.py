@@ -596,11 +596,14 @@ def build_peel(support: SupportFn, *, max_iters: int | None = None) -> _Peel:
     return _Peel(support, max_iters)
 
 
-def _live_lanes(st: PeelState, num_slots: int) -> torch.Tensor:
-    """() int32 on the state's device: the alive lanes of the slots not done
-    (the fused layout: lane block ``s`` is slot ``s``)."""
-    per_slot = st.alive.reshape(num_slots, -1).sum(1, dtype=torch.int32)
-    return torch.where(st.done, 0, per_slot).sum(dtype=torch.int32)
+# The slots of the level-counts vector (``kernels.peel_fused.LevelCounts``)
+# a dispatch files, with their counters; ``alive_lanes`` goes to the trace
+# alone.
+_FILED_LEVEL_COUNTS = (
+    ("update_trips", PEEL_LEVEL_TRIPS_INCREMENTAL),
+    ("counted_lanes", PEEL_LEVEL_LANES_COUNTED),
+    ("carried", PEEL_LEVEL_TRIPS_CARRIED),
+)
 
 
 class _FusedPeel:
@@ -621,49 +624,36 @@ class _FusedPeel:
         frozen: torch.Tensor,
         frozen_truss: torch.Tensor,
     ) -> PeelState:
+        from ..kernels.peel_fused import LevelCounts  # lazy: exec stays dep-light
+
         num_slots = int(k0.shape[0])
         limit = trip_cap(self.max_iters, p, alive0)
         st = init_peel_state(p, slot_ids, k0, single_level, alive0, frozen, frozen_truss)
         tracer = current_tracer()
         registry = current_registry()
         events = EventPair(alive0.device) if alive0.is_cuda else None  # reused each level
-        # The launches add their update trips here (the plain version none),
-        # the lanes their trips counted in full, and their first trips that
-        # updated from the carry.
-        incremental = torch.zeros((), dtype=torch.int32, device=alive0.device)
-        counted = torch.zeros((), dtype=torch.int64, device=alive0.device)
-        carried = torch.zeros((), dtype=torch.int32, device=alive0.device)
+        counts = LevelCounts.zeros(alive0.device)  # every launch adds its counts here
         # What the last launch of this call hands the next: none to the first.
         carry = None
         level, device_s = 0, 0.0
-        # The last launch's: total_iters, update trips, counted lanes and
-        # carried trips before it, alive lanes.
-        trips_before = updates_before = counted_before = carried_before = lanes = None
+        before = None  # total_iters and the counts before the last launch
         while True:
             self.host_syncs += 1
-            parts = [st.done.all().to(torch.int32), st.total_iters, incremental, counted, carried]
-            if tracer.enabled:
-                parts.append(_live_lanes(st, num_slots))
-            # One readback per level (stacked as int64): the loop condition,
-            # the cap check, the update trips, counted lanes and carried
-            # trips so far (while tracing, with the alive lanes the next
-            # launch starts on).
-            read = torch.stack(parts).tolist()  # trusslint: disable=R1
-            all_done, trips, updates, lanes_counted, n_carried, *lanes_next = read
+            # One readback per level (as int64): the loop condition, the cap
+            # check and the level counts so far.
+            all_done, *now = torch.cat(  # trusslint: disable=R1
+                [st.done.all().reshape(1), st.total_iters.reshape(1), counts]
+            ).tolist()
+            trips = now[0]
             if level:  # the last launch has ended: read its events
                 seconds = None
                 if events is not None:
                     seconds = events.seconds()
                     device_s += seconds
                 if tracer.enabled:
-                    attrs = {
-                        "level": level - 1,
-                        "trips": trips - trips_before,
-                        "update_trips": updates - updates_before,
-                        "alive_lanes": lanes,
-                        "counted_lanes": lanes_counted - counted_before,
-                        "carried": n_carried - carried_before,
-                    }
+                    step_trips, *step = (a - b for a, b in zip(now, before))
+                    attrs = {"level": level - 1, "trips": step_trips}
+                    attrs.update(LevelCounts(*step)._asdict())
                     if seconds is not None:
                         attrs["device_ms"] = 1e3 * seconds
                     tracer.instant("peel-level.done", **attrs)
@@ -672,18 +662,16 @@ class _FusedPeel:
             with tracer.span("peel-level", level=level, slots=num_slots):
                 st, carry = self.level_step(
                     p, st, frozen, frozen_truss, single_level, carry=carry, events=events,
-                    incremental=incremental, counted=counted, carried=carried,
+                    level_counts=counts,
                 )
             registry.inc("peel_fused_levels")
-            trips_before, updates_before, counted_before = trips, updates, lanes_counted
-            carried_before = n_carried
-            lanes = lanes_next[0] if lanes_next else None
+            before = now
             level += 1
-        if level:  # once a dispatch: the loop's trips (total_iters starts at 0) and device time
+        if level:  # once a dispatch: trips (total_iters starts at 0), counts, device time
             registry.inc(PEEL_LEVEL_TRIPS, trips)
-            registry.inc(PEEL_LEVEL_TRIPS_INCREMENTAL, updates)
-            registry.inc(PEEL_LEVEL_LANES_COUNTED, lanes_counted)
-            registry.inc(PEEL_LEVEL_TRIPS_CARRIED, n_carried)
+            totals = LevelCounts(*now[1:])
+            for slot, name in _FILED_LEVEL_COUNTS:
+                registry.inc(name, getattr(totals, slot))
             if events is not None:
                 registry.inc(PEEL_LEVEL_DEVICE_SECONDS, device_s)
                 add_device_seconds(device_s)
@@ -706,21 +694,19 @@ def build_fused_peel(
     the host loop steps levels — one ``"peel-level"`` span and one
     ``peel_fused_levels`` tick per launch, and one readback per level
     (``host_syncs``).  After that readback the last launch's two timing
-    events are read on CUDA; while tracing, a ``"peel-level.done"`` instant
-    event carries the level, its inner trips (the step in ``total_iters``),
-    how many of them took their supports from the last trip's deaths (a
-    count the launches add to on the device, in the same readback; 0 on
-    the CPU), the lanes whose supports its trips counted in full (a second
-    count the launches add to), ``carried`` (1 when its first trip took its
-    supports from the deaths the launch before carried over, a third count;
-    0 on the CPU), the alive lanes of the live slots it started on (one
-    more integer in the same readback) and, on CUDA, its device ms.  Each
-    level step is handed the carry the last step of the same call returned
-    (none to the call's first), and returns its own.
-    Once a dispatch, ``peel_level_trips`` adds the loop's trips,
-    ``peel_level_trips_incremental`` its update trips,
-    ``peel_level_lanes_counted`` its counted lanes,
-    ``peel_level_trips_carried`` its carried first trips and, on CUDA,
+    events are read on CUDA.  Every level step is handed the call's one
+    level-counts vector (``repro_torch.kernels.peel_fused.LevelCounts``),
+    adds its counts to it, and the same readback brings it back.  While
+    tracing, a ``"peel-level.done"`` instant event carries the level, its
+    inner trips (the step in ``total_iters``), the step in each of the
+    vector's counts under the count's name (``update_trips``,
+    ``counted_lanes``, ``carried``, ``alive_lanes``) and, on CUDA, its
+    device ms.  Each level step is handed the carry the last step of the
+    same call returned (none to the call's first), and returns its own.
+    Once a dispatch, ``peel_level_trips`` adds the loop's trips, the
+    counters of ``_FILED_LEVEL_COUNTS`` the counts' totals
+    (``peel_level_trips_incremental``, ``peel_level_lanes_counted``,
+    ``peel_level_trips_carried``) and, on CUDA,
     ``peel_level_device_seconds`` its launches' event time, which is also
     the dispatch's device time.  A fired iteration cap returns the un-done
     state;

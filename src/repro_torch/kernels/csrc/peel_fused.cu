@@ -22,6 +22,8 @@
 //   prune-ahead against the advanced threshold, which also records the
 //   carried deaths for the next launch (optional; see below).
 // Slot s owns lanes [s * slot_nnz, (s+1) * slot_nnz).
+// Every launch also adds its counts to the level-counts vector (int64; its
+// slots are kUpdateTrips and on, below).
 //
 // The plain version (fused_level_torch, the reference's _level_kernel)
 // recomputes every lane's support on every trip.  Only alive lanes of live
@@ -154,6 +156,9 @@ constexpr int kUnroll = 4;  // groups of 32 row entries per step of the compacti
 // lists.
 constexpr int kCursorWords = 4;
 enum : int { kRegCount = 0, kSplitCount = 2, kDeathCounts = 4 };
+// The slots of the level-counts vector, in the order of the Python table
+// repro_torch.kernels.peel_fused.LevelCounts.
+enum : int { kUpdateTrips = 0, kCountedLanes = 1, kCarried = 2, kAliveLanes = 3 };
 // calive: a compacted entry that is absent (dead), present (alive or
 // frozen-live), or dying (killed by the last prune; present to the update
 // that reads its death, absent to a count).
@@ -208,10 +213,8 @@ struct Args {
   int32_t* acc;
   int32_t* counts;
   int32_t* trip_log;
-  int64_t* stamps;       // optional: six %globaltimer readings of CTA 0 (ns)
-  int32_t* incremental;  // optional: the launch adds its update trips
-  int64_t* counted;      // optional: the launch adds the lanes its counts took
-  int32_t* carried;      // optional: adds 1 when the first trip updated from carry_in
+  int64_t* stamps;        // optional: six %globaltimer readings of CTA 0 (ns)
+  int64_t* level_counts;  // the counts the launch adds to (kUpdateTrips and on)
   // Optional: the carried deaths of the launch before, on this state (in:
   // the list of carry_len_in[0] lanes, and carry_flags_in, each lane's
   // compacted-entry flag at this launch: absent, present or dying), and
@@ -560,8 +563,12 @@ __global__ void __launch_bounds__(kThreads, kBsearch ? 8 : 4) peel_fused_kernel(
     append(a, a.deaths, dctr, 1, q < n_carry, q < n_carry && is_split(a, t), t, lane);
   }
   grid.sync();
-  // Every CTA has read the carry's length; the prune-ahead refills it.
-  if (a.carry_len != nullptr && blockIdx.x == 0 && threadIdx.x == 0) *a.carry_len = 0;
+  // Every CTA has read the carry's length; the prune-ahead refills it.  The
+  // first worklist holds each alive lane of a live slot once.
+  if (blockIdx.x == 0 && threadIdx.x == 0) {
+    if (a.carry_len != nullptr) *a.carry_len = 0;
+    a.level_counts[kAliveLanes] += __ldcg(ctr + kRegCount) + __ldcg(ctr + kSplitCount);
+  }
   stamp(a, 2);
 
   int32_t trips = 0, updates = 0;
@@ -728,13 +735,12 @@ __global__ void __launch_bounds__(kThreads, kBsearch ? 8 : 4) peel_fused_kernel(
     if (a.carry_lanes != nullptr && __any_sync(kFull, carried))
       append(a, a.carry_lanes, a.carry_len, 0, carried, false, static_cast<int32_t>(t), lane);
   }
-  if (a.counted != nullptr) {  // one atomic a warp
-    for (int offset = kWarp / 2; offset > 0; offset /= 2)
-      counted += __shfl_down_sync(kFull, counted, offset);
-    if (lane == 0 && counted)
-      atomicAdd(reinterpret_cast<unsigned long long*>(a.counted),
-                static_cast<unsigned long long>(counted));
-  }
+  // One atomic a warp.
+  for (int offset = kWarp / 2; offset > 0; offset /= 2)
+    counted += __shfl_down_sync(kFull, counted, offset);
+  if (lane == 0 && counted)
+    atomicAdd(reinterpret_cast<unsigned long long*>(a.level_counts + kCountedLanes),
+              static_cast<unsigned long long>(counted));
   if (blockIdx.x == 0) {
     for (int s = threadIdx.x; s < S; s += blockDim.x) {
       const bool conv = latch[s] && !a.done_in[s];
@@ -749,8 +755,8 @@ __global__ void __launch_bounds__(kThreads, kBsearch ? 8 : 4) peel_fused_kernel(
     }
     if (threadIdx.x == 0) {
       a.titers[0] = a.titers_in[0] + trips;
-      if (a.incremental != nullptr) *a.incremental += updates;
-      if (a.carried != nullptr) *a.carried += first_updated;
+      a.level_counts[kUpdateTrips] += updates;
+      a.level_counts[kCarried] += first_updated;
     }
   }
   stamp(a, 5);
@@ -793,9 +799,9 @@ extern "C" {
 
 // Launches one level on `stream`; returns the cudaError_t of the launch
 // (0 = success).  Pointers in the order of struct Args; `counts` must come
-// zeroed; trip_log, stamps, incremental, counted and carried may be null,
-// and so may the three carry pointers in (no carry: the first trip counts)
-// and the three out (none recorded).  `begin`
+// zeroed and `level_counts` must not be null; trip_log and stamps may be
+// null, and so may the three carry pointers in (no carry: the first trip
+// counts) and the three out (none recorded).  `begin`
 // and `end` (cudaEvent_t, or null) are recorded on `stream` just before
 // and just after the launch.
 int peel_fused_launch(const void* colidx, const void* edge_row, const void* urowptr,
@@ -808,8 +814,7 @@ int peel_fused_launch(const void* colidx, const void* edge_row, const void* urow
                       void* kmax, void* levels, void* iters, void* done, void* titers,
                       void* edges, void* ccol, void* calive, void* clane, void* cdeg, void* lists,
                       void* deaths, void* acc, void* counts, void* trip_log, void* stamps,
-                      void* incremental, void* counted, void* carried,
-                      const void* carry_lanes_in, const void* carry_flags_in,
+                      void* level_counts, const void* carry_lanes_in, const void* carry_flags_in,
                       const void* carry_len_in, void* carry_lanes, void* carry_flags,
                       void* carry_len, long long nnzp,
                       long long unnzp, int nrows,
@@ -819,7 +824,7 @@ int peel_fused_launch(const void* colidx, const void* edge_row, const void* urow
                       void* end) {
   // Lanes are int32 in the worklists.
   if (nnzp <= 0 || nnzp > INT_MAX || nrows < 1 || num_slots < 1 || block < 1 || nnzp % block ||
-      slot_nnz % block || split_ways < 1 || split_row < 0 ||
+      slot_nnz % block || split_ways < 1 || split_row < 0 || level_counts == nullptr ||
       (carry_lanes_in == nullptr) != (carry_flags_in == nullptr) ||
       (carry_lanes_in == nullptr) != (carry_len_in == nullptr) ||
       (carry_lanes == nullptr) != (carry_flags == nullptr) ||
@@ -845,8 +850,7 @@ int peel_fused_launch(const void* colidx, const void* edge_row, const void* urow
       static_cast<int32_t*>(cdeg),           static_cast<int32_t*>(lists),
       static_cast<int32_t*>(deaths),         static_cast<int32_t*>(acc),
       static_cast<int32_t*>(counts),         static_cast<int32_t*>(trip_log),
-      static_cast<int64_t*>(stamps),         static_cast<int32_t*>(incremental),
-      static_cast<int64_t*>(counted),         static_cast<int32_t*>(carried),
+      static_cast<int64_t*>(stamps),         static_cast<int64_t*>(level_counts),
       static_cast<const int32_t*>(carry_lanes_in),
       static_cast<const uint8_t*>(carry_flags_in),
       static_cast<const int32_t*>(carry_len_in),

@@ -68,6 +68,7 @@ from .build import BuiltLibrary, load_library
 
 __all__ = [
     "LevelCarry",
+    "LevelCounts",
     "make_fused_level",
     "fused_level_torch",
     "fused_level_cuda",
@@ -95,6 +96,27 @@ NUM_STAMPS = 6
 # of the two worklists and of the two death lists (unsplit, split) per
 # parity (eight words).
 _COUNTER_WORDS = 12
+
+
+class LevelCounts(NamedTuple):
+    """The slots, in order, of the int64 level-counts vector that every
+    launch adds its counts to in place (``csrc/peel_fused.cu`` declares
+    them as ``kUpdateTrips`` and on): its inner trips that took their
+    supports from the last trip's deaths; the lanes its trips counted in
+    full (a split lane once, a latched slot's not at all; the plain version
+    counts every alive lane of every trip); 1 when its first trip updated
+    from the carry; and the alive lanes of the slots not done at launch.
+    The vector read back makes one of these."""
+
+    update_trips: int
+    counted_lanes: int
+    carried: int
+    alive_lanes: int
+
+    @classmethod
+    def zeros(cls, device) -> torch.Tensor:
+        """A zeroed level-counts vector on ``device``."""
+        return torch.zeros(len(cls._fields), dtype=torch.int64, device=device)
 
 
 class LevelCarry(NamedTuple):
@@ -188,7 +210,7 @@ def fused_level_torch(
     *,
     window: int,
     block: int,
-    counted: torch.Tensor | None = None,
+    level_counts: torch.Tensor | None = None,
     carry: LevelCarry | None = None,
 ) -> PeelState:
     """One truss level of every live slot, in torch ops (the plain version).
@@ -197,13 +219,17 @@ def fused_level_torch(
     of the kernel's intersection schedules count exactly, so the plain
     version has one: :func:`support_fine_owner` over the effective alive
     set.  Reads the loop condition back to the host once per inner trip.
-    Every trip counts every lane: ``counted`` (a tensor on the state's
-    device), when given, has each trip's alive lanes added to it in place,
-    and ``carry`` is not read.
+    Every trip counts every lane, and ``carry`` is not read: of
+    ``level_counts`` (see :class:`LevelCounts`; None for a vector of its
+    own) it adds to ``counted_lanes`` and ``alive_lanes`` alone.
     """
     del carry  # every trip counts
     num_slots, slot_nnz = _geometry(p, state, block)
     cur_k, done = state.cur_k, state.done
+    if level_counts is None:
+        level_counts = LevelCounts.zeros(done.device)
+    slot = LevelCounts._fields.index
+    level_counts[slot("alive_lanes")] += (state.alive & ~done.repeat_interleave(slot_nnz)).sum()
     cur_k_lane = cur_k.repeat_interleave(slot_nnz)
     frozen_live = frozen & (frozen_truss >= cur_k_lane)
     # Per level a live slot prunes >= 1 of its <= slot_nnz free lanes per
@@ -217,8 +243,7 @@ def fused_level_torch(
     trips = 0
     while trips < inner_limit and bool((~latch & ~done).any()):
         s = support_fine_owner(p, alive | frozen_live, window=window, chunk=block)
-        if counted is not None:
-            counted += alive.sum()
+        level_counts[slot("counted_lanes")] += alive.sum()
         tile_live = alive.view(-1, block).any(dim=1).repeat_interleave(block)
         s = s * tile_live
         new_alive = alive & (s >= cur_k_lane - 2)
@@ -257,7 +282,7 @@ def load_peel_fused() -> BuiltLibrary:
     built = load_library("peel_fused")
     fn = built.lib.peel_fused_launch
     fn.argtypes = (
-        [ctypes.c_void_p] * 48
+        [ctypes.c_void_p] * 46
         + [ctypes.c_longlong, ctypes.c_longlong]
         + [ctypes.c_int] * 10
         + [ctypes.c_void_p] * 3  # the stream, the timing events (or null)
@@ -315,9 +340,7 @@ def fused_level_cuda(
     schedule: str,
     trip_log: torch.Tensor | None = None,
     stamps: torch.Tensor | None = None,
-    incremental: torch.Tensor | None = None,
-    counted: torch.Tensor | None = None,
-    carried: torch.Tensor | None = None,
+    level_counts: torch.Tensor | None = None,
     carry: LevelCarry | None = None,
     carry_out: LevelCarry | None = None,
     events=None,
@@ -330,14 +353,10 @@ def fused_level_cuda(
     ``trip_log`` ((2 * T,) int32) receives for each of the first T inner
     trips the worklist's unsplit and split lanes; ``stamps`` ((6,) int64)
     CTA 0's clock (``%globaltimer``, ns) at entry, rows compacted, first
-    worklist built, inner loop done, bookkeeping done and exit;
-    ``incremental`` (one int32) has the launch's update trips (those that
-    took their supports from the last trip's deaths) added to it;
-    ``counted`` (one int64) the lanes whose supports the launch's trips
-    counted in full (those of every trip that did not update; a split lane
-    once, a latched slot's lanes not at all);
-    ``carried`` (one int32) 1 when the first trip took its supports from
-    ``carry``.
+    worklist built, inner loop done, bookkeeping done and exit.
+
+    ``level_counts``: the level-counts vector the launch adds its counts
+    to (see :class:`LevelCounts`); None for a vector of its own.
 
     ``carry``: the :class:`LevelCarry` that the launch which returned
     ``state`` recorded (and only that one): the first trip may then update
@@ -363,21 +382,12 @@ def fused_level_cuda(
     ):
         raise ValueError(f"stamps must be a contiguous ({NUM_STAMPS},) int64 tensor on the "
                          "state's device")
-    if incremental is not None and (
-        incremental.device != dev or incremental.dtype != torch.int32 or incremental.numel() != 1
-        or not incremental.is_contiguous()
-    ):
-        raise ValueError("incremental must be one contiguous int32 on the state's device")
-    if counted is not None and (
-        counted.device != dev or counted.dtype != torch.int64 or counted.numel() != 1
-        or not counted.is_contiguous()
-    ):
-        raise ValueError("counted must be one contiguous int64 on the state's device")
-    if carried is not None and (
-        carried.device != dev or carried.dtype != torch.int32 or carried.numel() != 1
-        or not carried.is_contiguous()
-    ):
-        raise ValueError("carried must be one contiguous int32 on the state's device")
+    if level_counts is None:
+        level_counts = LevelCounts.zeros(dev)
+    if level_counts.device != dev or not level_counts.is_contiguous() or (
+        level_counts.dtype, level_counts.shape) != (torch.int64, (len(LevelCounts._fields),)):
+        raise ValueError("level_counts must be a contiguous LevelCounts.zeros vector on the "
+                         "state's device")
     nnzp, unnzp = p.nnz_pad, int(p.ucolidx.shape[0])
     for name, c in (("carry", carry), ("carry_out", carry_out)):
         if c is not None and any(
@@ -424,8 +434,7 @@ def fused_level_cuda(
             ccol, calive, clane, cdeg, lists, deaths, acc, counts,
         )
     ]
-    ptrs += [x.data_ptr() if x is not None else None
-             for x in (trip_log, stamps, incremental, counted, carried)]
+    ptrs += [x.data_ptr() if x is not None else None for x in (trip_log, stamps, level_counts)]
     for c in (carry, carry_out):
         ptrs += [x.data_ptr() for x in c] if c is not None else [None] * 3
     with torch.cuda.device(dev):
@@ -463,17 +472,14 @@ def make_fused_level(*, window: int, block: int = 128, schedule: str = "bsearch"
     """Build the one-launch-per-level step for one configuration.
 
     Returns ``level_step(p, state, frozen, frozen_truss, single_level, *,
-    carry=None, events=None, incremental=None, counted=None, carried=None)
-    -> (PeelState, LevelCarry | None)`` advancing every live slot by
-    exactly one truss level.  CUDA tensors go to :func:`fused_level_cuda`
-    (with ``carry``, the one the last step of the same level loop returned,
-    or None; ``events``, the launch's timing pair; ``incremental``, the
-    count its update trips are added to; ``counted``, the count of the
-    lanes its trips counted; ``carried``, the count its carried first trips
-    are added to), which returns the launch's own carry, recorded into
-    ``carry``'s buffers when given; CPU tensors to :func:`fused_level_torch`,
-    which counts every lane on every trip (added to ``counted``), adds
-    nothing to ``incremental`` or ``carried``, and returns no carry.
+    carry=None, events=None, level_counts=None) -> (PeelState, LevelCarry |
+    None)`` advancing every live slot by exactly one truss level and adding
+    its counts to ``level_counts`` (see :class:`LevelCounts`).  CUDA tensors
+    go to :func:`fused_level_cuda` (with ``carry``, the one the last step of
+    the same level loop returned, or None; ``events``, the launch's timing
+    pair), which returns the launch's own carry, recorded into ``carry``'s
+    buffers when given; CPU tensors to :func:`fused_level_torch`, which
+    counts every lane on every trip and returns no carry.
     ``window`` must cover the bucket's max
     undirected degree; ``block`` must divide the packed ``slot_nnz``
     (checked here and, with slot attribution, by
@@ -485,21 +491,20 @@ def make_fused_level(*, window: int, block: int = 128, schedule: str = "bsearch"
         raise ValueError(f"fused block must be a power of two, got {block}")
 
     def level_step(p, state, frozen, frozen_truss, single_level, *, carry=None, events=None,
-                   incremental=None, counted=None, carried=None):
+                   level_counts=None):
         dev = state.alive.device
         if dev.type == "cuda":
             out = carry if carry is not None else LevelCarry.empty(p.nnz_pad, dev)
             st = fused_level_cuda(
                 p, state, frozen, frozen_truss, single_level, block=block, schedule=schedule,
-                incremental=incremental, counted=counted, carried=carried, carry=carry,
-                carry_out=out, events=events,
+                level_counts=level_counts, carry=carry, carry_out=out, events=events,
             )
             return st, out
         if dev.type != "cpu":
             raise ValueError(f"the fused level runs on CUDA or the CPU, got {dev}")
         st = fused_level_torch(
             p, state, frozen, frozen_truss, single_level, window=window, block=block,
-            counted=counted, carry=carry,
+            level_counts=level_counts, carry=carry,
         )
         return st, None
 

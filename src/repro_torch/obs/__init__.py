@@ -23,18 +23,14 @@ each trip-graph replay).  A dispatch's device time — ``device_time_s``,
 ``peel_device_time_s`` histogram — is the sum of its launches' intervals
 on CUDA and its host wall on the CPU, where the peel runs on the host.
 The fused peel also counts ``peel_level_trips`` (inner trips, every
-device), ``peel_level_trips_incremental`` (the inner trips whose supports
-came from the last trip's deaths: 0 off CUDA, where every trip counts),
-``peel_level_lanes_counted`` (the lanes whose supports the trips counted in
-full: on CUDA those of every trip that did not update, off CUDA every alive
-lane of every trip), ``peel_level_trips_carried`` (the launches whose first
-trip updated from the deaths the launch before carried over: 0 off CUDA)
-and ``peel_level_device_seconds`` (CUDA).  The event timing is always on;
-it adds no synchronization.
+device), ``peel_level_device_seconds`` (CUDA) and, from the level counts
+its launches add to (``repro_torch.kernels.peel_fused.LevelCounts``),
+``peel_level_trips_incremental``, ``peel_level_lanes_counted`` and
+``peel_level_trips_carried``.  The event timing is always on; it adds no
+synchronization.
 
 While tracing, the fused peel writes one ``peel-level.done`` instant event
-per level (level, inner trips, update trips, alive lanes at launch, lanes
-counted, whether the first trip was carried, device ms on CUDA), and
+per level (level, inner trips, each level count, device ms on CUDA), and
 while a ``torch.profiler`` records, every span also opens a
 ``torch.profiler.record_function`` range of its name, so the spans sit on
 the device trace's own timeline.

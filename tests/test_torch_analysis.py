@@ -371,14 +371,24 @@ def test_port_tree_is_clean_against_its_baseline():
 )
 def test_fused_level_counters_are_declared_and_r5_finds_no_drift(const):
     """Each counter of the fused level loop is a constant of
-    ``repro_torch.obs.names`` (exported, its value a declared counter), the
-    peel's call sites use it, and R5 over the port's files finds nothing."""
+    ``repro_torch.obs.names`` (exported, its value a declared counter); the
+    peel files it by that constant, either in the loop's table of level
+    counts (beside a slot of ``LevelCounts``) or by a ``registry.inc`` of
+    its own; and R5 over the port's files finds nothing."""
+    from repro_torch.exec.peel import _FILED_LEVEL_COUNTS
+    from repro_torch.kernels.peel_fused import LevelCounts
     from repro_torch.obs import names
 
     assert const in names.__all__
     assert getattr(names, const) in names.COUNTERS
     peel = (REPO_ROOT / "src" / "repro_torch" / "exec" / "peel.py").read_text()
-    assert f"registry.inc({const}," in peel
+    tabled = {name: slot for slot, name in _FILED_LEVEL_COUNTS}
+    slot = tabled.get(getattr(names, const))
+    if slot is not None:
+        assert slot in LevelCounts._fields
+        assert f'("{slot}", {const})' in peel
+    else:
+        assert f"registry.inc({const}," in peel
     assert run(AnalysisConfig.default(REPO_ROOT), rules=[rules_metrics]) == []
 
 

@@ -25,6 +25,7 @@ import torch
 from repro_torch import obs
 from repro_torch.api import Session, TrussQuery
 from repro_torch.graphs import rmat
+from repro_torch.kernels.peel_fused import LevelCounts
 from repro_torch.obs.names import (
     PEEL_LEVEL_DEVICE_SECONDS,
     PEEL_LEVEL_TRIPS,
@@ -107,8 +108,9 @@ def test_untraced_fused_decompose_records_no_level_event_and_same_readbacks():
 
 
 def test_update_trips_ride_in_the_level_readbacks():
-    """Level steps that add update trips to the count they are handed (as
-    the kernel does on the card; here all but each launch's first trip):
+    """Level steps that add update trips to the level counts they are
+    handed (as the kernel does on the card; here all but each launch's
+    first trip):
     the dispatch's ``peel_level_trips_incremental`` and each level's record
     hold them, with no readback more than an untraced plain session's."""
     g = rmat(6, 4, seed=2)
@@ -117,9 +119,10 @@ def test_update_trips_ride_in_the_level_readbacks():
     peel = s.executor_for(g)._peel
     inner = peel.level_step
 
-    def step(p, st, *args, incremental=None, **kw):
-        out = inner(p, st, *args, incremental=incremental, **kw)
-        incremental += int(out[0].total_iters - st.total_iters) - 1  # in place, as on the card
+    def step(p, st, *args, level_counts=None, **kw):
+        out = inner(p, st, *args, level_counts=level_counts, **kw)
+        added = int(out[0].total_iters - st.total_iters) - 1
+        level_counts[LevelCounts._fields.index("update_trips")] += added  # in place, as on the card
         return out
 
     peel.level_step = step
@@ -135,8 +138,8 @@ def test_update_trips_ride_in_the_level_readbacks():
 
 def test_each_launch_gets_the_carry_of_the_launch_before_in_its_dispatch():
     """A level step that returns a fresh carry each launch and, as the
-    kernel does when its first trip updates from a carry, adds 1 to
-    ``carried`` when it was handed one: the first launch of each dispatch
+    kernel does when its first trip updates from a carry, adds 1 to the
+    level counts' ``carried`` when it was handed one: the first launch of each dispatch
     is handed none, every later one the carry its predecessor returned;
     ``peel_level_trips_carried`` and the records' ``carried`` hold the
     count, with no readback more."""
@@ -145,13 +148,13 @@ def test_each_launch_gets_the_carry_of_the_launch_before_in_its_dispatch():
     peel = s.executor_for(g)._peel
     inner, given, returned = peel.level_step, [], []
 
-    def step(p, st, *args, carry=None, carried=None, **kw):
-        out, none = inner(p, st, *args, carry=carry, carried=carried, **kw)
+    def step(p, st, *args, carry=None, level_counts=None, **kw):
+        out, none = inner(p, st, *args, carry=carry, level_counts=level_counts, **kw)
         assert none is None  # the plain version hands nothing over
         given.append(carry)
         returned.append(object())
         if carry is not None:
-            carried += 1  # in place, as on the card
+            level_counts[LevelCounts._fields.index("carried")] += 1  # in place, as on the card
         return out, returned[-1]
 
     peel.level_step = step

@@ -11,8 +11,13 @@ on the plain version (``fused_level_torch``, the reference's
 ``_level_kernel`` replayed) that the kernel is held to bit for bit, and the
 update rule, as a plain model of the kernel's walk (``_update_model``) held
 to a recount, also across launches (the carried deaths, frozen leavers
-included); the plain version ignores a carry.
+included); the plain version ignores a carry.  And the level-counts
+vector: the kernel's slots in the Python table's order, and the plain
+version's adds to each against the slot's definition.
 """
+
+import re
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -24,6 +29,7 @@ import repro.exec.peel as rpeel
 import repro.graphs as rg
 import repro_torch.exec.peel as tpeel
 import repro_torch.graphs as tg
+import repro_torch.kernels.peel_fused as kpf
 from _torch_parity import assert_same, torch_problem
 from repro.core import trussness_numpy
 from repro.kernels.peel_fused import make_fused_level as ref_make_fused_level
@@ -33,6 +39,7 @@ from repro_torch.kernels.peel_fused import (
     SPLIT_ROW,
     SPLIT_WAYS,
     LevelCarry,
+    LevelCounts,
     fused_level_cuda,
     fused_level_torch,
     scratch_elements,
@@ -399,3 +406,51 @@ def test_the_plain_level_ignores_a_carry(frozen_case):
     for f in tpeel.PeelState._fields:
         assert torch.equal(getattr(handed, f), getattr(plain, f)), f
     assert torch.equal(handed.trussness, st.trussness)
+
+
+# --------------------------------------------------------------------- #
+# The level-counts vector
+# --------------------------------------------------------------------- #
+def test_level_counts_slots_match_the_kernel_and_their_definitions(monkeypatch):
+    """``csrc/peel_fused.cu`` declares the slots of the level-counts vector
+    (``kUpdateTrips`` and on) in the order of ``LevelCounts``.  Level by
+    level over a batch whose single-level slot retires with its lanes
+    alive, the plain version adds to the vector it is handed: the alive
+    lanes of the slots not done at entry (``alive_lanes``), each trip's
+    alive lanes (``counted_lanes``), and 0 and 0."""
+    src = Path(__file__).resolve().parents[1] / "src/repro_torch/kernels/csrc/peel_fused.cu"
+    enum = re.search(r"enum\s*:\s*int\s*\{([^}]*kUpdateTrips[^}]*)\}", src.read_text())
+    declared = {k: int(v) for k, v in re.findall(r"(k\w+)\s*=\s*(\d+)", enum.group(1))}
+    want = ["k" + "".join(w.title() for w in f.split("_")) for f in LevelCounts._fields]
+    assert sorted(declared, key=declared.get) == want
+    assert sorted(declared.values()) == list(range(len(want)))
+
+    p, slot_nnz, window, k0, single, alive0, frozen, ftruss = _case("single_beside_decompose")
+    slot_ids = torch.arange(len(k0), dtype=torch.int32).repeat_interleave(slot_nnz)
+    single = torch.tensor(single)
+    st = tpeel.init_peel_state(p, slot_ids, torch.tensor(k0, dtype=torch.int32), single, alive0,
+                               frozen, ftruss)
+    trips_alive = []
+    inner = kpf.support_fine_owner
+
+    def spy(p, eff, **kw):
+        trips_alive.append(int((eff & ~frozen).sum()))  # alive and frozen are disjoint
+        return inner(p, eff, **kw)
+
+    monkeypatch.setattr(kpf, "support_fine_owner", spy)
+    counts = LevelCounts.zeros("cpu")
+    assert counts.dtype == torch.int64
+    retired_alive = False
+    while not bool(st.done.all()):
+        before, trips_alive[:] = counts.clone(), []
+        out = fused_level_torch(p, st, frozen, ftruss, single, window=window, block=32,
+                                level_counts=counts)
+        done = st.done.repeat_interleave(slot_nnz)
+        assert len(trips_alive) == int(out.total_iters - st.total_iters) >= 1
+        assert LevelCounts(*(counts - before).tolist()) == LevelCounts(
+            update_trips=0, counted_lanes=sum(trips_alive), carried=0,
+            alive_lanes=int((st.alive & ~done).sum()),
+        )
+        retired_alive |= bool((st.alive & done).any())
+        st = out
+    assert retired_alive

@@ -416,6 +416,7 @@ def test_fused_level_kernel_whole_peel_cases(cuda, name):
     from repro_torch.kernels.peel_fused import (
         SPLIT_WAYS,
         LevelCarry,
+        LevelCounts,
         fused_level_cuda,
         fused_level_torch,
         split_items,
@@ -430,16 +431,14 @@ def test_fused_level_kernel_whole_peel_cases(cuda, name):
         levels, copied, mixed, carry = 0, 0, False, None
         while not bool(st.done.all()):
             log = torch.full((64,), -1, dtype=torch.int32, device=cuda)
-            updates = torch.zeros((), dtype=torch.int32, device=cuda)
-            counted = torch.zeros((), dtype=torch.int64, device=cuda)
-            carried = torch.zeros((), dtype=torch.int32, device=cuda)
+            counts = LevelCounts.zeros(cuda)
             n_carry = int(carry.length) if carry is not None else None
             bare = fused_level_cuda(p, st, frozen, ftruss, single, block=cfg.block,
                                     schedule=cfg.schedule)
             out = LevelCarry.empty(p.nnz_pad, cuda)
             got = fused_level_cuda(
                 p, st, frozen, ftruss, single, block=cfg.block, schedule=cfg.schedule, trip_log=log,
-                incremental=updates, counted=counted, carried=carried, carry=carry, carry_out=out,
+                level_counts=counts, carry=carry, carry_out=out,
             )
             want = fused_level_torch(p, st, frozen, ftruss, single, window=window, block=cfg.block)
             for f in got._fields:
@@ -465,15 +464,19 @@ def test_fused_level_kernel_whole_peel_cases(cuda, name):
             for f in ("alive", "support", "trussness"):
                 assert torch.equal(getattr(got, f)[done], getattr(st, f)[done]), (name, f)
             copied += int(done.sum())
-            # The worklist of the first trip: the alive lanes of live slots.
+            # The worklist of the first trip: the alive lanes of live slots,
+            # a split lane once; their count is the level's alive lanes.
             live = st.alive & ~done
             flive = frozen & (ftruss >= st.cur_k.repeat_interleave(slot_nnz))
             unsplit, split = split_items(p, live, flive)
             assert log[:2].tolist() == [unsplit, split], (name, cfg, levels)
             if name == "split_hub" and levels == 0:
                 assert split * SPLIT_WAYS > 0
-            trips, n_upd = int(got.total_iters - st.total_iters), int(updates)
-            first = int(carried)
+            n = LevelCounts(*counts.tolist())
+            assert n.alive_lanes == unsplit + split == int(live.sum()), (name, cfg, levels)
+            trips = int(got.total_iters - st.total_iters)
+            n_upd, counted = n.update_trips, n.counted_lanes
+            first = n.carried
             assert first == int(n_carry is not None and n_carry <= unsplit + split), (
                 name, cfg, levels, n_carry, unsplit + split)
             assert first <= n_upd <= max(trips - 1, 0) + first, (name, cfg, levels)
@@ -483,8 +486,8 @@ def test_fused_level_kernel_whole_peel_cases(cuda, name):
             worklists = (log[0: 2 * trips: 2] + log[1: 2 * trips: 2]).tolist()
             if 0 < trips <= log.numel() // 2:
                 least = 0 if first else worklists[0]
-                assert least <= int(counted) <= sum(worklists[first:]), (name, cfg, levels)
-            assert trips > 0 or int(counted) == 0
+                assert least <= counted <= sum(worklists[first:]), (name, cfg, levels)
+            assert trips > 0 or counted == 0
             mixed |= 0 < n_upd < trips - 1
             if name == "hub_dies_mid_level" and levels == 0:
                 # Trips 0-2: a count, then updates; the split lanes that
@@ -513,7 +516,7 @@ def test_update_trips_on_rmat15(cuda):
     the launches less one."""
     from repro_torch.api import Session, TrussQuery
     from repro_torch.configs import LARGE_GRAPHS
-    from repro_torch.kernels.peel_fused import LevelCarry, fused_level_cuda
+    from repro_torch.kernels.peel_fused import LevelCarry, LevelCounts, fused_level_cuda
     from repro_torch.obs.names import (
         PEEL_LEVEL_TRIPS,
         PEEL_LEVEL_TRIPS_CARRIED,
@@ -524,15 +527,17 @@ def test_update_trips_on_rmat15(cuda):
     s = Session(device=cuda, backend="fine/fused/aligned", max_batch=1)
     exe = s.executor_for(g)
     cfg, firsts = exe.fused_config, []
+    carried = LevelCounts._fields.index("carried")
 
-    def step(p, st, frozen, ftruss, single, *, carry=None, carried=None, **kw):
+    def step(p, st, frozen, ftruss, single, *, carry=None, level_counts=None, **kw):
         log = torch.full((2,), -1, dtype=torch.int32, device=cuda)  # the first trip's worklist
         n_carry = int(carry.length) if carry is not None else None
-        before = int(carried)
+        before = int(level_counts[carried])
         out = carry if carry is not None else LevelCarry.empty(p.nnz_pad, cuda)
         got = fused_level_cuda(p, st, frozen, ftruss, single, block=cfg.block, schedule=cfg.schedule,
-                               trip_log=log, carried=carried, carry=carry, carry_out=out, **kw)
-        firsts.append((n_carry, int(log.sum()), int(carried) - before))
+                               trip_log=log, level_counts=level_counts, carry=carry, carry_out=out,
+                               **kw)
+        firsts.append((n_carry, int(log.sum()), int(level_counts[carried]) - before))
         return got, out
 
     exe._peel.level_step = step
@@ -543,10 +548,10 @@ def test_update_trips_on_rmat15(cuda):
     assert len(firsts) == levels and firsts[0][0] is None
     for i, (n_carry, lanes, first) in enumerate(firsts):
         assert first == int(n_carry is not None and n_carry <= lanes), (i, n_carry, lanes, first)
-    carried = counters[PEEL_LEVEL_TRIPS_CARRIED]
-    assert carried == sum(f for *_, f in firsts)
-    assert 0 < carried <= levels - 1, (carried, levels)
-    assert carried < updates <= trips - levels + carried, (updates, trips, levels, carried)
+    n_carried = counters[PEEL_LEVEL_TRIPS_CARRIED]
+    assert n_carried == sum(f for *_, f in firsts)
+    assert 0 < n_carried <= levels - 1, (n_carried, levels)
+    assert n_carried < updates <= trips - levels + n_carried, (updates, trips, levels, n_carried)
 
 
 def _ktbench_root():
@@ -589,7 +594,8 @@ def test_counted_lanes_of_the_fused_kernel(cuda, which):
     each launch also writing its trip log: the kernel's ``counted`` grows,
     each level, by the worklists of the trips that counted (the first when
     the launch had no carry or one of more lanes than the worklist, and
-    every later trip whose last prune killed more lanes than it kept); the
+    every later trip whose last prune killed more lanes than it kept), and
+    its ``alive_lanes`` by the alive lanes of the live slots at launch; the
     dispatch's ``peel_level_lanes_counted`` and the levels'
     ``counted_lanes`` hold the same; a level whose first trip counted and
     whose later trips all updated counted exactly the alive lanes it
@@ -599,7 +605,12 @@ def test_counted_lanes_of_the_fused_kernel(cuda, which):
     plain version's)."""
     from repro_torch.api import Session, TrussQuery
     from repro_torch.configs import LARGE_GRAPHS
-    from repro_torch.kernels.peel_fused import LevelCarry, fused_level_cuda, fused_level_torch
+    from repro_torch.kernels.peel_fused import (
+        LevelCarry,
+        LevelCounts,
+        fused_level_cuda,
+        fused_level_torch,
+    )
     from repro_torch.obs.names import PEEL_LEVEL_LANES_COUNTED
 
     g = _rgg(12) if which == "rgg12" else LARGE_GRAPHS[0].factory()  # rmat-15
@@ -608,16 +619,15 @@ def test_counted_lanes_of_the_fused_kernel(cuda, which):
     cfg, window = exe.fused_config, bucket_for(g, chunk=s.planner.chunk).window
     levels = []
 
-    def step(p, st, frozen, ftruss, single, *, carry=None, events=None, incremental=None,
-             counted=None, carried=None):
+    def step(p, st, frozen, ftruss, single, *, carry=None, events=None, level_counts=None):
         log = torch.full((4096,), -1, dtype=torch.int32, device=cuda)
-        before = int(counted)
+        before = LevelCounts(*level_counts.tolist())
         n_carry = int(carry.length) if carry is not None else None
         bare = fused_level_cuda(p, st, frozen, ftruss, single, block=cfg.block, schedule=cfg.schedule)
         kept = carry if carry is not None else LevelCarry.empty(p.nnz_pad, cuda)
         out = fused_level_cuda(p, st, frozen, ftruss, single, block=cfg.block, schedule=cfg.schedule,
-                               trip_log=log, incremental=incremental, counted=counted,
-                               carried=carried, carry=carry, carry_out=kept, events=events)
+                               trip_log=log, level_counts=level_counts, carry=carry, carry_out=kept,
+                               events=events)
         wants = [bare]
         if which == "rgg12":
             wants.append(fused_level_torch(p, st, frozen, ftruss, single, window=window,
@@ -631,7 +641,10 @@ def test_counted_lanes_of_the_fused_kernel(cuda, which):
         counts = [first_counts if i == 0 else lanes[i - 1] - lanes[i] > lanes[i]
                   for i in range(trips)]
         levels.append(sum(n for n, c in zip(lanes, counts) if c))
-        assert int(counted) - before == levels[-1], (len(levels), n_carry, lanes)
+        after = LevelCounts(*level_counts.tolist())
+        assert after.counted_lanes - before.counted_lanes == levels[-1], (n_carry, lanes)
+        live = st.alive & ~st.done.repeat_interleave(p.nnz_pad // st.done.numel())
+        assert after.alive_lanes - before.alive_lanes == int(live.sum()) == lanes[0]
         return out, kept
 
     exe._peel.level_step = step
