@@ -69,6 +69,7 @@ from ..obs.events import PEEL_CAPTURE, record_event
 from ..obs.names import (
     PEEL_LEVEL_DEVICE_SECONDS,
     PEEL_LEVEL_LANES_COUNTED,
+    PEEL_LEVEL_LANES_WALKED,
     PEEL_LEVEL_TRIPS,
     PEEL_LEVEL_TRIPS_CARRIED,
     PEEL_LEVEL_TRIPS_INCREMENTAL,
@@ -603,6 +604,7 @@ _FILED_LEVEL_COUNTS = (
     ("update_trips", PEEL_LEVEL_TRIPS_INCREMENTAL),
     ("counted_lanes", PEEL_LEVEL_LANES_COUNTED),
     ("carried", PEEL_LEVEL_TRIPS_CARRIED),
+    ("walked_lanes", PEEL_LEVEL_LANES_WALKED),
 )
 
 
@@ -635,6 +637,10 @@ class _FusedPeel:
         counts = LevelCounts.zeros(alive0.device)  # every launch adds its counts here
         # What the last launch of this call hands the next: none to the first.
         carry = None
+        # The state the launch before last returned, which the next launch
+        # writes into: none to the first two (the first state's alive is the
+        # caller's alive0), then the call's two states in turns.
+        spare = None
         level, device_s = 0, 0.0
         before = None  # total_iters and the counts before the last launch
         while True:
@@ -660,10 +666,11 @@ class _FusedPeel:
             if all_done or trips >= limit:
                 break  # a fired cap: the executor's all-done belt raises
             with tracer.span("peel-level", level=level, slots=num_slots):
-                st, carry = self.level_step(
-                    p, st, frozen, frozen_truss, single_level, carry=carry, events=events,
-                    level_counts=counts,
+                nxt, carry = self.level_step(
+                    p, st, frozen, frozen_truss, single_level, carry=carry, state_out=spare,
+                    events=events, level_counts=counts,
                 )
+            spare, st = (st if level else None), nxt
             registry.inc("peel_fused_levels")
             before = now
             level += 1
@@ -700,13 +707,16 @@ def build_fused_peel(
     tracing, a ``"peel-level.done"`` instant event carries the level, its
     inner trips (the step in ``total_iters``), the step in each of the
     vector's counts under the count's name (``update_trips``,
-    ``counted_lanes``, ``carried``, ``alive_lanes``) and, on CUDA, its
-    device ms.  Each level step is handed the carry the last step of the
-    same call returned (none to the call's first), and returns its own.
-    Once a dispatch, ``peel_level_trips`` adds the loop's trips, the
-    counters of ``_FILED_LEVEL_COUNTS`` the counts' totals
+    ``counted_lanes``, ``carried``, ``alive_lanes``, ``walked_lanes``) and,
+    on CUDA, its device ms.  Each level step is handed the carry the last
+    step of the same call returned (none to the call's first), and returns
+    its own; and, as ``state_out``, the state the step before last returned
+    (none to the call's first two), so the call's launches write into two
+    states in turns and never into the first, whose ``alive`` is
+    ``alive0``.  Once a dispatch, ``peel_level_trips`` adds the loop's
+    trips, the counters of ``_FILED_LEVEL_COUNTS`` the counts' totals
     (``peel_level_trips_incremental``, ``peel_level_lanes_counted``,
-    ``peel_level_trips_carried``) and, on CUDA,
+    ``peel_level_trips_carried``, ``peel_level_lanes_walked``) and, on CUDA,
     ``peel_level_device_seconds`` its launches' event time, which is also
     the dispatch's device time.  A fired iteration cap returns the un-done
     state;

@@ -44,9 +44,23 @@
 //   with s = 0; so does this kernel.  A slot that is done from
 //   init_peel_state has no alive lane and support 0: the copy holds too.
 //
+// A launch walks only the slots that can change (walk, in shared memory):
+// the slots not done at launch, whose rows it compacts and whose lanes it
+// peels, then the done slots whose final lanes the state out does not hold
+// yet, which it copies; every slot when all are done.  Rows and lanes of
+// other slots are neither read nor written.  The state out holds a done
+// slot's final lanes when `held` and its done vector (read by every CTA
+// before CTA 0 overwrites it) marks the slot: the wrapper sets `held` when
+// the state out is the one the launch before last of the same level loop
+// returned.  Done only grows within a loop, and the launch that retires a
+// slot writes its final lanes, so by induction the state a loop ends on
+// holds every slot's final lanes; a loop copies its done slots into each of
+// its two states once.  With a fresh state out, every done slot is copied.
+//
 // Bound: the level reads each input once (the problem, the state, frozen,
 // ftruss) and writes each output once, about 4 * (2 nnzp + 2 unnzp + 2 n)
-// + 23 nnzp bytes, over device memory; the intersection steps of each inner
+// + 23 nnzp bytes, over device memory (nnzp and unnzp counting the lanes of
+// walked slots alone); the intersection steps of each inner
 // trip's alive set over the integer peak are below that.  The kernel is
 // limited instead by the latency of data-dependent probes into rows that
 // mostly sit in L2, and by the fixed cost of two grid barriers a trip.
@@ -158,7 +172,10 @@ constexpr int kCursorWords = 4;
 enum : int { kRegCount = 0, kSplitCount = 2, kDeathCounts = 4 };
 // The slots of the level-counts vector, in the order of the Python table
 // repro_torch.kernels.peel_fused.LevelCounts.
-enum : int { kUpdateTrips = 0, kCountedLanes = 1, kCarried = 2, kAliveLanes = 3 };
+enum : int { kUpdateTrips = 0, kCountedLanes = 1, kCarried = 2, kAliveLanes = 3, kWalkedLanes = 4 };
+// Per-slot int32 words of dynamic shared memory: latch, iters, left_cta and
+// walk (see the kernel).
+constexpr int kSlotWords = 4;
 // calive: a compacted entry that is absent (dead), present (alive or
 // frozen-live), or dying (killed by the last prune; present to the update
 // that reads its death, absent to a count).
@@ -237,6 +254,7 @@ struct Args {
   int32_t split_row;
   int32_t split_ways;
   int32_t trip_log_len;
+  int32_t held;  // 1: the state out holds the final lanes of the slots its done marks
 };
 
 // CTA 0's clock at: entry (0), rows compacted (1), first worklist built
@@ -437,6 +455,20 @@ __device__ void mark_undirected(const Args& a, int32_t t, uint8_t flag) {
   if (j < db && a.ccol[b0 + j] == ra) a.calive[b0 + j] = flag;
 }
 
+// Appends the slots s < S with take(s) to list[n, ...), in order, and
+// returns the new length.  Warp-uniform call.
+template <class Take>
+__device__ int32_t collect_slots(int32_t S, int32_t* list, int32_t n, int lane, Take take) {
+  for (int32_t s0 = 0; s0 < S; s0 += kWarp) {
+    const int32_t s = s0 + lane;
+    const bool in = s < S && take(s);
+    const unsigned m = __ballot_sync(kFull, in);
+    if (in) list[n + __popc(m & ((1u << lane) - 1))] = s;
+    n += __popc(m);
+  }
+  return n;
+}
+
 // Whether any slot is still live; also a CTA barrier over latch.
 __device__ __forceinline__ bool any_live(const Args& a, const int32_t* latch) {
   int live = 0;
@@ -453,10 +485,12 @@ __global__ void __launch_bounds__(kThreads, kBsearch ? 8 : 4) peel_fused_kernel(
   cg::grid_group grid = cg::this_grid();
   extern __shared__ int32_t smem[];
   __shared__ int32_t warp_counts_all[kWarps][kWarp];
+  __shared__ int32_t walk_len[2];    // the slots walked: not done at launch, all
   const int32_t S = a.num_slots;
   int32_t* latch = smem;             // per slot: converged this launch
   int32_t* iters = smem + S;         // per slot: iterations so far
   int32_t* left_cta = smem + 2 * S;  // per slot: this CTA's alive lanes
+  int32_t* walk = smem + 3 * S;      // the slots this launch walks (see the top)
   const int lane = threadIdx.x % kWarp;
   const int warp = threadIdx.x / kWarp;
   const int64_t tid = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
@@ -472,28 +506,54 @@ __global__ void __launch_bounds__(kThreads, kBsearch ? 8 : 4) peel_fused_kernel(
   int32_t* warp_counts = warp_counts_all[warp];
   stamp(a, 0);
 
-  // Phase 0: the working alive copy; every undirected row of a slot that is
-  // not done compacted to its entries alive or frozen-live at launch, and
-  // the carried deaths' entries, dying (entries keep their order, so rows
-  // stay sorted), with their lanes; then the first worklist, and the
-  // carried deaths as the first trip's death list.
+  // Phase 0: the slots to walk; the working alive copy; every undirected
+  // row of a slot that is not done compacted to its entries alive or
+  // frozen-live at launch, and the carried deaths' entries, dying (entries
+  // keep their order, so rows stay sorted), with their lanes; then the
+  // first worklist, and the carried deaths as the first trip's death list.
   for (int s = threadIdx.x; s < S; s += blockDim.x) {
     latch[s] = 0;
     iters[s] = a.iters_in[s];
     left_cta[s] = 0;
   }
-  for (int64_t t = tid; t < a.nnzp; t += nthreads) a.alive[t] = a.alive_in[t];
+  if (warp == 0) {
+    const int32_t n_live = collect_slots(S, walk, 0, lane, [&](int32_t s) { return !a.done_in[s]; });
+    int32_t n = S;
+    if (n_live > 0) {
+      n = collect_slots(S, walk, n_live, lane,
+                        [&](int32_t s) { return a.done_in[s] && !(a.held && a.done[s]); });
+    } else {
+      for (int32_t s = lane; s < S; s += kWarp) walk[s] = s;
+    }
+    if (lane == 0) {
+      walk_len[0] = n_live;
+      walk_len[1] = n;
+    }
+  }
+  __syncthreads();
+  const int32_t n_live = walk_len[0], n_walk = walk_len[1];
+  for (int32_t w = 0; w < n_walk; ++w) {
+    const int64_t base = static_cast<int64_t>(walk[w]) * a.slot_nnz;
+    for (int64_t i = tid; i < a.slot_nnz; i += nthreads) a.alive[base + i] = a.alive_in[base + i];
+  }
   const unsigned lt = (1u << lane) - 1;
-  // A warp takes 32 rows at a time, strided over the grid's warps so that
-  // every warp gets a share of each slot's rows: lane i reads its row's
-  // extent and whether its slot is done (the rows of a done slot are never
-  // read); the warp then compacts the rows with work one after another.
+  // The rows of the slots not done.  Where the rows split evenly into
+  // slots (an aligned pack), slot s holds rows 1 + s * slot_rows on (row 0
+  // holds no entry); otherwise every row is visited.  A warp takes 32 rows
+  // at a time, strided over the grid's warps so that every warp gets a
+  // share of each slot's rows: lane i reads its row's extent and whether
+  // its slot is done (the rows of a done slot are never read); the warp
+  // then compacts the rows with work one after another.
+  const int32_t slot_rows = (a.nrows - 1) % S == 0 ? (a.nrows - 1) / S : 0;
+  const int64_t n_rows = slot_rows > 0 ? static_cast<int64_t>(n_live) * slot_rows : a.nrows;
   const int64_t gwarp = wbase / kWarp, nwarps = wstride / kWarp;
-  for (int64_t v0 = gwarp; v0 < a.nrows; v0 += kWarp * nwarps) {  // warp-uniform
-    const int64_t mine = v0 + lane * nwarps;
-    int32_t r0 = 0, d = 0;
-    if (mine < a.nrows) {
-      r0 = row_start(a, static_cast<int32_t>(mine));
+  for (int64_t v0 = gwarp; v0 < n_rows; v0 += kWarp * nwarps) {  // warp-uniform
+    const int64_t r = v0 + lane * nwarps;
+    int32_t mine = 0, r0 = 0, d = 0;
+    if (r < n_rows) {
+      const int32_t ri = static_cast<int32_t>(r);
+      mine = slot_rows > 0 ? 1 + walk[ri / slot_rows] * slot_rows + ri % slot_rows : ri;
+      r0 = row_start(a, mine);
       d = a.udeg[mine];
       if (d > 0) {  // a row lies in one slot: its first entry's
         const int32_t e0 = a.u2d[r0];
@@ -543,16 +603,19 @@ __global__ void __launch_bounds__(kThreads, kBsearch ? 8 : 4) peel_fused_kernel(
   // With a carry, the first trip may update: its lanes start from the
   // supports in, which are exact on the alive set the carry was taken from.
   const bool has_carry = a.carry_lanes_in != nullptr;
-  for (int64_t t0 = wbase; t0 < a.nnzp; t0 += wstride) {  // warp-uniform
-    const int64_t t = t0 + lane;
-    bool keep = false, split = false;
-    if (t < a.nnzp) {
-      keep = a.alive_in[t] && !a.done_in[t / a.slot_nnz];
-      split = keep && is_split(a, static_cast<int32_t>(t));
-      if (split) a.acc[t] = 0;
-      if (keep && has_carry) a.supp[t] = a.supp_in[t];
+  for (int32_t w = 0; w < n_live; ++w) {
+    const int64_t base = static_cast<int64_t>(walk[w]) * a.slot_nnz;
+    for (int64_t i0 = wbase; i0 < a.slot_nnz; i0 += wstride) {  // warp-uniform
+      const int64_t t = base + i0 + lane;
+      bool keep = false, split = false;
+      if (i0 + lane < a.slot_nnz) {
+        keep = a.alive_in[t];
+        split = keep && is_split(a, static_cast<int32_t>(t));
+        if (split) a.acc[t] = 0;
+        if (keep && has_carry) a.supp[t] = a.supp_in[t];
+      }
+      append(a, a.lists, ctr, 0, keep, split, static_cast<int32_t>(t), lane);
     }
-    append(a, a.lists, ctr, 0, keep, split, static_cast<int32_t>(t), lane);
   }
   // The carried deaths go to the death list that the first trip reads
   // (parity 1), split by the rows compacted above.
@@ -690,12 +753,19 @@ __global__ void __launch_bounds__(kThreads, kBsearch ? 8 : 4) peel_fused_kernel(
   stamp(a, 3);
 
   // Level bookkeeping: trussness of converged slots, and `left` per slot.
-  for (int64_t t = tid; t < a.nnzp; t += nthreads) {
-    const int32_t slot = static_cast<int32_t>(t / a.slot_nnz);
+  for (int32_t w = 0; w < n_walk; ++w) {
+    const int32_t slot = walk[w];
+    const int64_t base = static_cast<int64_t>(slot) * a.slot_nnz;
     const bool conv = latch[slot] && !a.done_in[slot];
-    const bool al = __ldcg(a.alive + t) != 0;
-    a.truss[t] = (conv && al) ? a.cur_k_in[slot] : a.truss_in[t];
-    if (al) atomicAdd(left_cta + slot, 1);
+    const int32_t k = a.cur_k_in[slot];
+    int32_t n_alive = 0;
+    for (int64_t i = tid; i < a.slot_nnz; i += nthreads) {
+      const int64_t t = base + i;
+      const bool al = __ldcg(a.alive + t) != 0;
+      a.truss[t] = (conv && al) ? k : a.truss_in[t];
+      n_alive += al;
+    }
+    if (n_alive) atomicAdd(left_cta + slot, n_alive);
   }
   __syncthreads();
   for (int s = threadIdx.x; s < S; s += blockDim.x)
@@ -707,33 +777,38 @@ __global__ void __launch_bounds__(kThreads, kBsearch ? 8 : 4) peel_fused_kernel(
   // slot that advanced, the lanes that leave the effective set (alive or
   // frozen-live) here are the carried deaths: the pruned lanes, and the
   // frozen lanes whose trussness is the level just peeled.
-  for (int64_t t0 = wbase; t0 < a.nnzp; t0 += wstride) {  // warp-uniform
-    const int64_t t = t0 + lane;
-    bool carried = false;
-    if (t < a.nnzp) {
-      const int32_t slot = static_cast<int32_t>(t / a.slot_nnz);
-      const bool was_done = a.done_in[slot] != 0;
-      const bool conv = latch[slot] && !was_done;
-      const bool nonempty = __ldcg(left + slot) > 0;
-      const bool retired = conv && (!nonempty || a.single[slot]);
-      const bool advanced = conv && !retired;
-      const int32_t k_next = a.cur_k_in[slot] + (advanced ? 1 : 0);
-      const int32_t s_t = was_done ? (trips > 0 ? a.supp_in[t] : 0) : __ldcg(a.supp + t);
-      const bool al = __ldcg(a.alive + t) != 0;
-      const bool keep = al && s_t >= k_next - 2;
-      a.alive[t] = keep;
-      a.supp[t] = keep ? s_t : 0;
-      if (a.carry_lanes != nullptr && advanced) {
-        const int32_t ft = a.frozen[t] ? a.ftruss[t] : INT_MIN;
-        const bool present = keep || ft >= k_next;
-        carried = (al || ft >= a.cur_k_in[slot]) && !present;
-        a.carry_flags[t] = present ? kPresent : (carried ? kDying : kAbsent);
+  for (int32_t w = 0; w < n_walk; ++w) {
+    const int32_t slot = walk[w];
+    const int64_t base = static_cast<int64_t>(slot) * a.slot_nnz;
+    const bool was_done = a.done_in[slot] != 0;
+    const bool conv = latch[slot] && !was_done;
+    const bool nonempty = __ldcg(left + slot) > 0;
+    const bool retired = conv && (!nonempty || a.single[slot]);
+    const bool advanced = conv && !retired;
+    const int32_t k_in = a.cur_k_in[slot];
+    const int32_t k_next = k_in + (advanced ? 1 : 0);
+    const bool record = a.carry_lanes != nullptr && advanced;
+    for (int64_t i0 = wbase; i0 < a.slot_nnz; i0 += wstride) {  // warp-uniform
+      const int64_t t = base + i0 + lane;
+      bool carried = false;
+      if (i0 + lane < a.slot_nnz) {
+        const int32_t s_t = was_done ? (trips > 0 ? a.supp_in[t] : 0) : __ldcg(a.supp + t);
+        const bool al = __ldcg(a.alive + t) != 0;
+        const bool keep = al && s_t >= k_next - 2;
+        a.alive[t] = keep;
+        a.supp[t] = keep ? s_t : 0;
+        if (record) {
+          const int32_t ft = a.frozen[t] ? a.ftruss[t] : INT_MIN;
+          const bool present = keep || ft >= k_next;
+          carried = (al || ft >= k_in) && !present;
+          a.carry_flags[t] = present ? kPresent : (carried ? kDying : kAbsent);
+        }
       }
+      // The carry is one flat list: unsplit (front) only.  Most warps carry
+      // nothing and skip the append.
+      if (record && __any_sync(kFull, carried))
+        append(a, a.carry_lanes, a.carry_len, 0, carried, false, static_cast<int32_t>(t), lane);
     }
-    // The carry is one flat list: unsplit (front) only.  Most warps (those
-    // of done, retired or padded slots) carry nothing and skip the append.
-    if (a.carry_lanes != nullptr && __any_sync(kFull, carried))
-      append(a, a.carry_lanes, a.carry_len, 0, carried, false, static_cast<int32_t>(t), lane);
   }
   // One atomic a warp.
   for (int offset = kWarp / 2; offset > 0; offset /= 2)
@@ -757,6 +832,7 @@ __global__ void __launch_bounds__(kThreads, kBsearch ? 8 : 4) peel_fused_kernel(
       a.titers[0] = a.titers_in[0] + trips;
       a.level_counts[kUpdateTrips] += updates;
       a.level_counts[kCarried] += first_updated;
+      a.level_counts[kWalkedLanes] += static_cast<int64_t>(n_walk) * a.slot_nnz;
     }
   }
   stamp(a, 5);
@@ -766,7 +842,7 @@ template <bool kBsearch>
 cudaError_t launch(Args& args, int device, cudaStream_t stream, cudaEvent_t begin,
                    cudaEvent_t end) {
   const void* fn = reinterpret_cast<const void*>(&peel_fused_kernel<kBsearch>);
-  const size_t smem = 3 * sizeof(int32_t) * static_cast<size_t>(args.num_slots);
+  const size_t smem = kSlotWords * sizeof(int32_t) * static_cast<size_t>(args.num_slots);
   cudaError_t err;
   if ((err = cudaSetDevice(device)) != cudaSuccess) return err;
   if (smem > 40 * 1024 &&
@@ -801,7 +877,9 @@ extern "C" {
 // (0 = success).  Pointers in the order of struct Args; `counts` must come
 // zeroed and `level_counts` must not be null; trip_log and stamps may be
 // null, and so may the three carry pointers in (no carry: the first trip
-// counts) and the three out (none recorded).  `begin`
+// counts) and the three out (none recorded).  `held` != 0 only when the
+// state out is the one the launch before last of the same level loop
+// returned (see the top); 0 copies every done slot.  `begin`
 // and `end` (cudaEvent_t, or null) are recorded on `stream` just before
 // and just after the launch.
 int peel_fused_launch(const void* colidx, const void* edge_row, const void* urowptr,
@@ -820,8 +898,8 @@ int peel_fused_launch(const void* colidx, const void* edge_row, const void* urow
                       long long unnzp, int nrows,
                       int slot_nnz,
                       int num_slots, int block, int inner_limit, int split_row, int split_ways,
-                      int trip_log_len, int bsearch, int device, void* stream, void* begin,
-                      void* end) {
+                      int trip_log_len, int held, int bsearch, int device, void* stream,
+                      void* begin, void* end) {
   // Lanes are int32 in the worklists.
   if (nnzp <= 0 || nnzp > INT_MAX || nrows < 1 || num_slots < 1 || block < 1 || nnzp % block ||
       slot_nnz % block || split_ways < 1 || split_row < 0 || level_counts == nullptr ||
@@ -858,7 +936,7 @@ int peel_fused_launch(const void* colidx, const void* edge_row, const void* urow
       static_cast<int32_t*>(carry_len),
       static_cast<int64_t>(nnzp),
       static_cast<int64_t>(unnzp),           nrows,
-      slot_nnz, num_slots, block, inner_limit, split_row, split_ways, trip_log_len};
+      slot_nnz, num_slots, block, inner_limit, split_row, split_ways, trip_log_len, held};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const cudaEvent_t b = static_cast<cudaEvent_t>(begin), e = static_cast<cudaEvent_t>(end);
   const cudaError_t err =
@@ -876,7 +954,7 @@ int peel_fused_blocks_per_sm(int bsearch, int num_slots) {
                            : reinterpret_cast<const void*>(&peel_fused_kernel<false>);
   int per_sm = 0;
   const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, fn, kThreads, 3 * sizeof(int32_t) * static_cast<size_t>(num_slots));
+      &per_sm, fn, kThreads, kSlotWords * sizeof(int32_t) * static_cast<size_t>(num_slots));
   if (err != cudaSuccess) {
     cudaGetLastError();
     return -static_cast<int>(err);

@@ -24,10 +24,12 @@ The kernel computes only what can change the state: the alive lanes of
 slots that are neither done nor latched, from a worklist it compacts in
 scratch; a done slot's ``alive``, ``support`` and ``trussness`` are copied
 from the state in (its fixed point; see the source for why the copy is
-exact).  After a launch's first trip, a trip whose last prune killed at
-most as many lanes as it kept takes its supports from those deaths (each
-lost triangle taken off its surviving edges) instead of counting every
-alive lane again; the supports are the count's either way.
+exact), unless the state out already holds them: a launch walks only the
+slots that can change (see :func:`fused_level_cuda`'s ``state_out``).
+After a launch's first trip, a trip whose last prune killed at most as
+many lanes as it kept takes its supports from those deaths (each lost
+triangle taken off its surviving edges) instead of counting every alive
+lane again; the supports are the count's either way.
 
 The first trip of a launch updates the same way when the launch before,
 in the same level loop, handed it a :class:`LevelCarry`: the lanes that
@@ -105,13 +107,16 @@ class LevelCounts(NamedTuple):
     supports from the last trip's deaths; the lanes its trips counted in
     full (a split lane once, a latched slot's not at all; the plain version
     counts every alive lane of every trip); 1 when its first trip updated
-    from the carry; and the alive lanes of the slots not done at launch.
-    The vector read back makes one of these."""
+    from the carry; the alive lanes of the slots not done at launch; and
+    the lanes its per-lane passes visited, ``slot_nnz`` times the slots it
+    walked (the plain version visits all ``nnz_pad``).  The vector read
+    back makes one of these."""
 
     update_trips: int
     counted_lanes: int
     carried: int
     alive_lanes: int
+    walked_lanes: int
 
     @classmethod
     def zeros(cls, device) -> torch.Tensor:
@@ -221,7 +226,8 @@ def fused_level_torch(
     set.  Reads the loop condition back to the host once per inner trip.
     Every trip counts every lane, and ``carry`` is not read: of
     ``level_counts`` (see :class:`LevelCounts`; None for a vector of its
-    own) it adds to ``counted_lanes`` and ``alive_lanes`` alone.
+    own) it adds to ``counted_lanes``, ``alive_lanes`` and ``walked_lanes``
+    (every lane) alone.
     """
     del carry  # every trip counts
     num_slots, slot_nnz = _geometry(p, state, block)
@@ -230,6 +236,7 @@ def fused_level_torch(
         level_counts = LevelCounts.zeros(done.device)
     slot = LevelCounts._fields.index
     level_counts[slot("alive_lanes")] += (state.alive & ~done.repeat_interleave(slot_nnz)).sum()
+    level_counts[slot("walked_lanes")] += p.nnz_pad
     cur_k_lane = cur_k.repeat_interleave(slot_nnz)
     frozen_live = frozen & (frozen_truss >= cur_k_lane)
     # Per level a live slot prunes >= 1 of its <= slot_nnz free lanes per
@@ -284,7 +291,7 @@ def load_peel_fused() -> BuiltLibrary:
     fn.argtypes = (
         [ctypes.c_void_p] * 46
         + [ctypes.c_longlong, ctypes.c_longlong]
-        + [ctypes.c_int] * 10
+        + [ctypes.c_int] * 11
         + [ctypes.c_void_p] * 3  # the stream, the timing events (or null)
     )
     fn.restype = ctypes.c_int
@@ -343,6 +350,7 @@ def fused_level_cuda(
     level_counts: torch.Tensor | None = None,
     carry: LevelCarry | None = None,
     carry_out: LevelCarry | None = None,
+    state_out: PeelState | None = None,
     events=None,
 ) -> PeelState:
     """One truss level of every live slot, by the CUDA kernel (one
@@ -363,6 +371,13 @@ def fused_level_cuda(
     from it.  ``carry_out``: buffers the launch records its own carry into
     for the next launch; they may be ``carry``'s (the launch reads a carry
     before it writes one).
+
+    ``state_out``: the state the launch before last of the same level loop
+    returned (and only that one; never ``state`` itself), which the launch
+    writes into and returns.  The done slots it already holds final are
+    neither read nor written: a launch walks the slots not done and copies
+    the newly done ones.  None allocates a fresh state, into which every
+    done slot is copied.
 
     ``events`` (a ``repro_torch.obs.device_time.EventPair`` on the state's
     device): the library records its two events on the launch's stream
@@ -399,12 +414,21 @@ def fused_level_cuda(
         ):
             raise ValueError(f"{name} must be a LevelCarry of ({nnzp},) int32 lanes, ({nnzp},) "
                              "uint8 flags and (1,) int32 length on the state's device")
+    if state_out is not None:
+        ins = {x.data_ptr() for x in state}
+        for f in PeelState._fields:
+            x, like = getattr(state_out, f), getattr(state, f)
+            if (x.device, x.dtype, x.shape) != (like.device, like.dtype, like.shape) or (
+                not x.is_contiguous() or x.data_ptr() in ins
+            ):
+                raise ValueError(f"state_out.{f} must be a contiguous {like.dtype} tensor of "
+                                 f"shape {tuple(like.shape)} on {dev}, apart from the state in")
     built = load_peel_fused()
 
     def i32(n):
         return torch.empty(n, dtype=torch.int32, device=dev)
 
-    out = PeelState(
+    out = state_out if state_out is not None else PeelState(
         alive=torch.empty(nnzp, dtype=torch.bool, device=dev),
         support=i32(nnzp),
         trussness=i32(nnzp),
@@ -451,6 +475,7 @@ def fused_level_cuda(
             SPLIT_ROW,
             SPLIT_WAYS,
             trip_log.numel() // 2 if trip_log is not None else 0,
+            int(state_out is not None),  # held: the state out holds its done slots' lanes
             int(schedule == "bsearch"),
             dev.index if dev.index is not None else torch.cuda.current_device(),
             stream,
@@ -472,14 +497,16 @@ def make_fused_level(*, window: int, block: int = 128, schedule: str = "bsearch"
     """Build the one-launch-per-level step for one configuration.
 
     Returns ``level_step(p, state, frozen, frozen_truss, single_level, *,
-    carry=None, events=None, level_counts=None) -> (PeelState, LevelCarry |
-    None)`` advancing every live slot by exactly one truss level and adding
-    its counts to ``level_counts`` (see :class:`LevelCounts`).  CUDA tensors
-    go to :func:`fused_level_cuda` (with ``carry``, the one the last step of
-    the same level loop returned, or None; ``events``, the launch's timing
-    pair), which returns the launch's own carry, recorded into ``carry``'s
-    buffers when given; CPU tensors to :func:`fused_level_torch`, which
-    counts every lane on every trip and returns no carry.
+    carry=None, state_out=None, events=None, level_counts=None) ->
+    (PeelState, LevelCarry | None)`` advancing every live slot by exactly
+    one truss level and adding its counts to ``level_counts`` (see
+    :class:`LevelCounts`).  CUDA tensors go to :func:`fused_level_cuda`
+    (with ``carry``, the one the last step of the same level loop returned,
+    or None; ``state_out``, the state the step before last of that loop
+    returned, or None; ``events``, the launch's timing pair), which returns
+    the launch's own carry, recorded into ``carry``'s buffers when given;
+    CPU tensors to :func:`fused_level_torch`, which counts every lane on
+    every trip, allocates its state and returns no carry.
     ``window`` must cover the bucket's max
     undirected degree; ``block`` must divide the packed ``slot_nnz``
     (checked here and, with slot attribution, by
@@ -490,14 +517,15 @@ def make_fused_level(*, window: int, block: int = 128, schedule: str = "bsearch"
     if block < 1 or (block & (block - 1)) != 0:
         raise ValueError(f"fused block must be a power of two, got {block}")
 
-    def level_step(p, state, frozen, frozen_truss, single_level, *, carry=None, events=None,
-                   level_counts=None):
+    def level_step(p, state, frozen, frozen_truss, single_level, *, carry=None, state_out=None,
+                   events=None, level_counts=None):
         dev = state.alive.device
         if dev.type == "cuda":
             out = carry if carry is not None else LevelCarry.empty(p.nnz_pad, dev)
             st = fused_level_cuda(
                 p, state, frozen, frozen_truss, single_level, block=block, schedule=schedule,
-                level_counts=level_counts, carry=carry, carry_out=out, events=events,
+                level_counts=level_counts, carry=carry, carry_out=out, state_out=state_out,
+                events=events,
             )
             return st, out
         if dev.type != "cpu":

@@ -25,8 +25,8 @@ on CUDA and its host wall on the CPU, where the peel runs on the host.
 The fused peel also counts ``peel_level_trips`` (inner trips, every
 device), ``peel_level_device_seconds`` (CUDA) and, from the level counts
 its launches add to (``repro_torch.kernels.peel_fused.LevelCounts``),
-``peel_level_trips_incremental``, ``peel_level_lanes_counted`` and
-``peel_level_trips_carried``.  The event timing is always on; it adds no
+``peel_level_trips_incremental``, ``peel_level_lanes_counted``,
+``peel_level_trips_carried`` and ``peel_level_lanes_walked``.  The event timing is always on; it adds no
 synchronization.
 
 While tracing, the fused peel writes one ``peel-level.done`` instant event

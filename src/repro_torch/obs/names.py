@@ -21,6 +21,7 @@ __all__ = [
     "ALL_METRIC_NAMES",
     "PEEL_LEVEL_DEVICE_SECONDS",
     "PEEL_LEVEL_LANES_COUNTED",
+    "PEEL_LEVEL_LANES_WALKED",
     "PEEL_LEVEL_TRIPS",
     "PEEL_LEVEL_TRIPS_CARRIED",
     "PEEL_LEVEL_TRIPS_INCREMENTAL",
@@ -39,6 +40,9 @@ PEEL_LEVEL_TRIPS_INCREMENTAL = "peel_level_trips_incremental"
 PEEL_LEVEL_TRIPS_CARRIED = "peel_level_trips_carried"
 # the lanes whose supports the inner trips counted by a full intersection
 PEEL_LEVEL_LANES_COUNTED = "peel_level_lanes_counted"
+# the lanes the level launches' per-lane passes visited (the lanes of the
+# slots each launch walked)
+PEEL_LEVEL_LANES_WALKED = "peel_level_lanes_walked"
 
 COUNTERS: frozenset[str] = frozenset(
     {
@@ -55,6 +59,7 @@ COUNTERS: frozenset[str] = frozenset(
         "peel_fused_levels",
         PEEL_LEVEL_DEVICE_SECONDS,
         PEEL_LEVEL_LANES_COUNTED,
+        PEEL_LEVEL_LANES_WALKED,
         PEEL_LEVEL_TRIPS,
         PEEL_LEVEL_TRIPS_CARRIED,
         PEEL_LEVEL_TRIPS_INCREMENTAL,

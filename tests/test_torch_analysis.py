@@ -366,8 +366,8 @@ def test_port_tree_is_clean_against_its_baseline():
 
 @pytest.mark.parametrize(
     "const",
-    ["PEEL_LEVEL_DEVICE_SECONDS", "PEEL_LEVEL_LANES_COUNTED", "PEEL_LEVEL_TRIPS",
-     "PEEL_LEVEL_TRIPS_CARRIED", "PEEL_LEVEL_TRIPS_INCREMENTAL"],
+    ["PEEL_LEVEL_DEVICE_SECONDS", "PEEL_LEVEL_LANES_COUNTED", "PEEL_LEVEL_LANES_WALKED",
+     "PEEL_LEVEL_TRIPS", "PEEL_LEVEL_TRIPS_CARRIED", "PEEL_LEVEL_TRIPS_INCREMENTAL"],
 )
 def test_fused_level_counters_are_declared_and_r5_finds_no_drift(const):
     """Each counter of the fused level loop is a constant of

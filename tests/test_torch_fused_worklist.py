@@ -13,7 +13,9 @@ update rule, as a plain model of the kernel's walk (``_update_model``) held
 to a recount, also across launches (the carried deaths, frozen leavers
 included); the plain version ignores a carry.  And the level-counts
 vector: the kernel's slots in the Python table's order, and the plain
-version's adds to each against the slot's definition.
+version's adds to each against the slot's definition.  And the level
+loop's two states: each launch from the third writes into the state the
+launch before last returned.
 """
 
 import re
@@ -417,7 +419,8 @@ def test_level_counts_slots_match_the_kernel_and_their_definitions(monkeypatch):
     level over a batch whose single-level slot retires with its lanes
     alive, the plain version adds to the vector it is handed: the alive
     lanes of the slots not done at entry (``alive_lanes``), each trip's
-    alive lanes (``counted_lanes``), and 0 and 0."""
+    alive lanes (``counted_lanes``), every lane (``walked_lanes``: it walks
+    every slot), and 0 and 0."""
     src = Path(__file__).resolve().parents[1] / "src/repro_torch/kernels/csrc/peel_fused.cu"
     enum = re.search(r"enum\s*:\s*int\s*\{([^}]*kUpdateTrips[^}]*)\}", src.read_text())
     declared = {k: int(v) for k, v in re.findall(r"(k\w+)\s*=\s*(\d+)", enum.group(1))}
@@ -449,8 +452,70 @@ def test_level_counts_slots_match_the_kernel_and_their_definitions(monkeypatch):
         assert len(trips_alive) == int(out.total_iters - st.total_iters) >= 1
         assert LevelCounts(*(counts - before).tolist()) == LevelCounts(
             update_trips=0, counted_lanes=sum(trips_alive), carried=0,
-            alive_lanes=int((st.alive & ~done).sum()),
+            alive_lanes=int((st.alive & ~done).sum()), walked_lanes=p.nnz_pad,
         )
         retired_alive |= bool((st.alive & done).any())
         st = out
     assert retired_alive
+
+
+# --------------------------------------------------------------------- #
+# The level loop's two states (exec/peel.py::_FusedPeel)
+# --------------------------------------------------------------------- #
+def test_each_launch_writes_into_the_state_of_the_launch_before_last():
+    """A level step that, as the kernel does, writes its state into the
+    ``state_out`` it is handed: the first two launches of a dispatch are
+    handed none, every later one the state the launch before last
+    returned (never the state it peels), so a dispatch's launches write
+    into two states in turns; the caller's ``alive0`` is never handed over
+    nor written, and the peel ends on the plain peel's state."""
+    p, slot_nnz, window, k0, single, alive0, frozen, ftruss = _case("single_beside_decompose")
+    kw = dict(slot_ids=torch.arange(len(k0), dtype=torch.int32).repeat_interleave(slot_nnz),
+              k0=np.array(k0, np.int32), single_level=np.array(single), alive0=alive0,
+              frozen=frozen, frozen_truss=ftruss)
+    kept = alive0.clone()
+    exe = tpeel.PeelExecutor(backend="fused", window=window, chunk=CHUNK)
+    plain = exe.peel(p, **kw)
+    inner = exe._peel.level_step
+    given, ins, returned = [], [], []
+
+    def step(p, st, *args, state_out=None, **kw):
+        got, carry = inner(p, st, *args, state_out=state_out, **kw)
+        given.append(state_out)
+        ins.append(st)
+        if state_out is not None:
+            for x, y in zip(state_out, got):
+                x.copy_(y)
+            got = state_out
+        returned.append(got)
+        return got, carry
+
+    exe._peel.level_step = step
+    for _ in range(2):  # a second dispatch starts afresh
+        start = len(given)
+        out = exe.peel(p, **kw)
+        levels = len(given) - start
+        assert levels >= 3 and out is returned[-1]
+        assert given[start] is None and given[start + 1] is None
+        for i in range(start + 2, start + levels):
+            assert given[i] is returned[i - 2] and given[i] is not ins[i]
+        assert not any(g is not None and g.alive is alive0 for g in given)
+        for f in tpeel.PeelState._fields:
+            assert torch.equal(getattr(out, f), getattr(plain, f)), f
+    assert torch.equal(alive0, kept)
+
+
+def test_the_plain_level_walks_every_lane_and_the_dispatch_files_it():
+    """The plain version adds ``nnz_pad`` to ``walked_lanes`` a launch (it
+    walks every slot); a dispatch files the total as
+    ``peel_level_lanes_walked``, one ``nnz_pad`` a level."""
+    from repro_torch.api import Session, TrussQuery
+    from repro_torch.obs.names import PEEL_LEVEL_LANES_WALKED
+
+    g = tg.rmat(6, 4, seed=2)
+    s = Session(device="cpu", backend="fine/fused/aligned", chunk=64, max_batch=2)
+    s.solve([TrussQuery.decompose(g)])
+    counters = s.metrics_snapshot()["counters"]
+    nnz_pad = 2 * bucket_for(g, chunk=64).nnz_pad
+    levels = counters["peel_fused_levels"]
+    assert levels >= 2 and counters[PEEL_LEVEL_LANES_WALKED] == levels * nnz_pad

@@ -279,8 +279,8 @@ def test_fused_level_kernel_refuses_mis_tiled_block(cuda):
 
 
 def test_fused_level_launch_error_raises(cuda):
-    """65,536 one-lane slots need 768 KiB of shared memory per CTA for the
-    per-slot latch, more than a CTA can have: the launch is refused, and
+    """65,536 one-lane slots need 1 MiB of shared memory per CTA for the
+    per-slot latch and the slots to walk, more than a CTA can have: the launch is refused, and
     the wrapper raises the typed error instead of returning a state."""
     from repro_torch.core import problem_from_arrays
     from repro_torch.errors import DeviceError
@@ -554,6 +554,114 @@ def test_update_trips_on_rmat15(cuda):
     assert n_carried < updates <= trips - levels + n_carried, (updates, trips, levels, n_carried)
 
 
+def _eight_slots(cuda):
+    """(problem, window, slot_ids, k0, single) of an 8-slot aligned batch:
+    three decompose members of kmax 3, 6 and 11 (one retires early, one
+    late), a ``ktruss(4)`` member (one level), and four padded slots."""
+    gs = [tg.erdos(200, 6.0, seed=1), tg.rmat(7, 5, seed=4), tg.clustered(3, 20, 0.8, seed=3),
+          tg.rmat(8, 6, seed=2)]
+    buckets = [bucket_for(g, chunk=64) for g in gs]
+    pp = tg.pack_problems(gs, slot_n=max(b.n_pad for b in buckets),
+                          slot_nnz=max(b.nnz_pad for b in buckets), slots=8, chunk=64,
+                          layout="aligned", device=cuda)
+    slot_ids = torch.arange(8, dtype=torch.int32, device=cuda).repeat_interleave(pp.slot_nnz)
+    k0 = torch.tensor([3, 3, 3, 4, 3, 3, 3, 3], dtype=torch.int32, device=cuda)
+    single = torch.tensor([False, False, False, True] + [False] * 4, device=cuda)
+    return pp.problem, max(b.window for b in buckets), slot_ids, k0, single
+
+
+def test_fused_level_loop_walks_only_the_slots_that_can_change(cuda):
+    """Through the fused level loop of an 8-slot batch whose slots retire at
+    different levels: each launch, handed the state of the launch before
+    last (none to the first two) and writing into it, returns every field of
+    ``fused_level_torch``'s level and of today's launch (the same carry, no
+    state out); its counts are today's launch's but for ``walked_lanes``,
+    which steps by ``slot_nnz`` times the slots walked (those not done at
+    launch and the done ones the state out does not hold; every slot with no
+    state out, whose launch walks all ``nnz_pad``).  The loop ends on the
+    plain whole peel, files the walked lanes as ``peel_level_lanes_walked``
+    and never writes the caller's ``alive0``.  The all-done launch into a
+    state walks every slot and prunes with s = 0, as the plain version does;
+    a state out that is the state in is refused."""
+    from repro_torch.exec.peel import PeelExecutor, init_peel_state
+    from repro_torch.kernels.peel_fused import (
+        LevelCarry,
+        LevelCounts,
+        fused_level_cuda,
+        fused_level_torch,
+    )
+    from repro_torch.obs import get_registry
+    from repro_torch.obs.names import PEEL_LEVEL_LANES_WALKED
+
+    p, window, slot_ids, k0, single = _eight_slots(cuda)
+    slot_nnz = p.nnz_pad // 8
+    alive0 = p.colidx != 0
+    kept = alive0.clone()
+    frozen = torch.zeros(p.nnz_pad, dtype=torch.bool, device=cuda)
+    ftruss = torch.zeros(p.nnz_pad, dtype=torch.int32, device=cuda)
+    exe = PeelExecutor(backend="fused", window=window, chunk=64)
+    cfg, inner = exe.fused_config, exe._peel.level_step
+    walked_at = LevelCounts._fields.index("walked_lanes")
+    walked, states = [], []
+
+    def step(p, st, frozen, ftruss, single, *, carry=None, state_out=None, events=None,
+             level_counts=None):
+        level = len(walked)
+        assert (state_out is None) is (level < 2) and state_out is not st
+        today = LevelCounts.zeros(cuda)
+        bare = fused_level_cuda(p, st, frozen, ftruss, single, block=cfg.block, schedule=cfg.schedule,
+                                level_counts=today, carry=carry,
+                                carry_out=LevelCarry.empty(p.nnz_pad, cuda))
+        want = fused_level_torch(p, st, frozen, ftruss, single, window=window, block=cfg.block)
+        done = st.done.clone()
+        held = state_out.done.clone() if state_out is not None else torch.zeros_like(done)
+        before = level_counts.clone()
+        got, out = inner(p, st, frozen, ftruss, single, carry=carry, state_out=state_out,
+                         events=events, level_counts=level_counts)
+        assert state_out is None or all(x is y for x, y in zip(got, state_out))
+        for f in got._fields:
+            assert torch.equal(getattr(got, f), getattr(want, f)), (level, f)
+            assert torch.equal(getattr(got, f), getattr(bare, f)), (level, f)
+        step_counts, today = (level_counts - before).tolist(), today.tolist()
+        assert today[walked_at] == p.nnz_pad
+        del step_counts[walked_at], today[walked_at]
+        assert step_counts == today, level
+        n = int((~done | ~held).sum()) if not bool(done.all()) else 8
+        assert int(level_counts[walked_at] - before[walked_at]) == n * slot_nnz, (level, n)
+        walked.append(n)
+        states.append(got)
+        return got, out
+
+    exe._peel.level_step = step
+    counters = get_registry().snapshot()["counters"]
+    walked0 = counters.get(PEEL_LEVEL_LANES_WALKED, 0)
+    st = exe.peel(p, slot_ids=slot_ids, k0=k0.cpu().numpy(), single_level=single.cpu().numpy(),
+                  alive0=alive0)
+    assert get_registry().snapshot()["counters"][PEEL_LEVEL_LANES_WALKED] - walked0 == (
+        slot_nnz * sum(walked))
+    assert torch.equal(alive0, kept)
+    assert walked[:2] == [8, 8] and min(walked) == 1, walked
+    assert len(set(st.levels[:3].tolist())) == 3, st.levels
+    ref = init_peel_state(p, slot_ids, k0, single, alive0, frozen, ftruss)
+    while not bool(ref.done.all()):
+        ref = fused_level_torch(p, ref, frozen, ftruss, single, window=window, block=cfg.block)
+    for f in st._fields:
+        assert torch.equal(getattr(st, f), getattr(ref, f)), f
+    # The all-done launch, into the state the loop's last launch did not
+    # return, and with no state out.
+    want = fused_level_torch(p, st, frozen, ftruss, single, window=window, block=cfg.block)
+    bare = fused_level_cuda(p, st, frozen, ftruss, single, block=cfg.block, schedule=cfg.schedule)
+    counts = LevelCounts.zeros(cuda)
+    got = fused_level_cuda(p, st, frozen, ftruss, single, block=cfg.block, schedule=cfg.schedule,
+                           level_counts=counts, state_out=states[-2])
+    assert all(torch.equal(getattr(got, f), getattr(want, f)) for f in got._fields)
+    assert all(torch.equal(getattr(bare, f), getattr(want, f)) for f in got._fields)
+    assert int(counts[walked_at]) == p.nnz_pad
+    with pytest.raises(ValueError, match="apart from the state in"):
+        fused_level_cuda(p, st, frozen, ftruss, single, block=cfg.block, schedule=cfg.schedule,
+                         state_out=st)
+
+
 def _ktbench_root():
     """The repository's root, put on the path for the benchmark's package
     (``ktbench``, beside ``tests``)."""
@@ -619,7 +727,8 @@ def test_counted_lanes_of_the_fused_kernel(cuda, which):
     cfg, window = exe.fused_config, bucket_for(g, chunk=s.planner.chunk).window
     levels = []
 
-    def step(p, st, frozen, ftruss, single, *, carry=None, events=None, level_counts=None):
+    def step(p, st, frozen, ftruss, single, *, carry=None, state_out=None, events=None,
+             level_counts=None):
         log = torch.full((4096,), -1, dtype=torch.int32, device=cuda)
         before = LevelCounts(*level_counts.tolist())
         n_carry = int(carry.length) if carry is not None else None
@@ -627,7 +736,7 @@ def test_counted_lanes_of_the_fused_kernel(cuda, which):
         kept = carry if carry is not None else LevelCarry.empty(p.nnz_pad, cuda)
         out = fused_level_cuda(p, st, frozen, ftruss, single, block=cfg.block, schedule=cfg.schedule,
                                trip_log=log, level_counts=level_counts, carry=carry, carry_out=kept,
-                               events=events)
+                               state_out=state_out, events=events)
         wants = [bare]
         if which == "rgg12":
             wants.append(fused_level_torch(p, st, frozen, ftruss, single, window=window,
