@@ -22,7 +22,8 @@ loop reads its condition as a host bool each trip, which is free there.
 Both devices read back alike: once per shard before its first trip (is
 any lane alive, and are the slot ids the aligned layout), then once per
 live shard after its loop (the exit condition, with the support passes
-the device counted), two a live shard whatever its trips; the executor
+and the lanes they were given, which the device counted), two a live
+shard whatever its trips; the executor
 counts every readback in ``host_syncs``.  On CUDA each replay is
 bracketed by a pair of timing events (``repro_torch.obs.device_time``),
 read once the loop's exit has been read back.  A **dispatch** is one
@@ -73,6 +74,9 @@ from ..obs.names import (
     PEEL_LEVEL_TRIPS,
     PEEL_LEVEL_TRIPS_CARRIED,
     PEEL_LEVEL_TRIPS_INCREMENTAL,
+    PEEL_SUPPORT_LANES,
+    PEEL_SUPPORT_PASSES,
+    PEEL_TRIPS,
 )
 
 __all__ = [
@@ -316,17 +320,24 @@ def _trip_pred(st: PeelState, limit: int) -> torch.Tensor:
 
 class _EagerTrips:
     """A shard's trip loop off CUDA, its condition read on the host each
-    trip (free on the CPU)."""
+    trip (free on the CPU).  Each trip adds the lanes of the mask its
+    support is given to the int64 ``support_lanes``."""
 
     def __init__(self, support: SupportFn, step: tuple, st: PeelState, limit: int):
         self.support, self.step, self.st, self.limit = support, step, st, limit
+        dev = st.alive.device
         # Support passes counted on the device: none here, where every
         # launch counts itself.
-        self.passes = torch.zeros((), dtype=torch.int32, device=st.alive.device)
+        self.passes = torch.zeros((), dtype=torch.int32, device=dev)
+        self.support_lanes = torch.zeros((), dtype=torch.int64, device=dev)
 
     def run(self) -> None:
         while bool(_trip_pred(self.st, self.limit)):
-            self.st = _peel_step(self.support, *self.step, self.st)
+            self.st = _peel_step(self._counted_support, *self.step, self.st)
+
+    def _counted_support(self, p: FineProblem, alive: torch.Tensor) -> torch.Tensor:
+        self.support_lanes.add_(alive.sum())
+        return self.support(p, alive)
 
     def ran(self, passes: int) -> None:
         """Every launch of an eager trip counted itself."""
@@ -355,7 +366,10 @@ class _TripGraph:
     buffer.  The support function runs only at capture, so it must be
     pure tensor ops on its inputs.  A ``support_fine_cuda`` pass in the
     body adds one to the graph's device counter ``passes`` each time it
-    runs; :meth:`ran` adds what a replay counted to its ``launches``.
+    runs, and the lanes its worklist listed to the int64 ``support_lanes``
+    (a count the kernel has already made: a reduction of the pass's mask
+    would cost a tenth of a trip); :meth:`ran` adds what a replay counted
+    to its ``launches``, and :meth:`load` zeroes both counters.
     """
 
     def __init__(self, support: SupportFn, step: tuple, st: PeelState, limit: int):
@@ -374,6 +388,7 @@ class _TripGraph:
         self.st = PeelState(*(torch.empty_like(t) for t in st))
         dev = st.alive.device
         self.passes = torch.zeros((), dtype=torch.int32, device=dev)
+        self.support_lanes = torch.zeros((), dtype=torch.int64, device=dev)
         self.events = EventPair(dev)  # each replay's timing pair
         self.load(step, st)
         self.graph = torch.cuda.CUDAGraph()
@@ -395,7 +410,7 @@ class _TripGraph:
         with torch.cuda.stream(self.side):
             graph.capture_begin(capture_error_mode=mode)
             try:
-                with count_launches_on_device(self.passes):
+                with count_launches_on_device(self.passes, lanes=self.support_lanes):
                     while_loop(
                         lambda: _trip_pred(self.st, self.limit), self._trip, self.body,
                         self.pool, mode,
@@ -416,16 +431,19 @@ class _TripGraph:
             dst.copy_(src)
 
     def load(self, step: tuple, st: PeelState) -> None:
-        """Copy one dispatch's inputs and starting state into the buffers."""
+        """Copy one dispatch's inputs and starting state into the buffers
+        (the ``trip-load`` span)."""
         p, lanes, sums, single_level, frozen, frozen_truss = step
         pairs = [
             *zip(self.p, p), *zip(self.sums.tensors(), sums.tensors()), *zip(self.st, st),
             (self.lanes, lanes), (self.single_level, single_level),
             (self.frozen, frozen), (self.frozen_truss, frozen_truss),
         ]
-        for dst, src in pairs:
-            dst.copy_(src)
-        self.passes.zero_()
+        with current_tracer().span("trip-load"):
+            for dst, src in pairs:
+                dst.copy_(src)
+            self.passes.zero_()
+            self.support_lanes.zero_()
 
     def run(self) -> None:
         from ..kernels.graph_while import GRAPH_SITE  # lazy: CUDA only
@@ -474,12 +492,16 @@ class _Peel:
         alive0: torch.Tensor,
         frozen: torch.Tensor,
         frozen_truss: torch.Tensor,
+        *,
+        span_attrs: dict | None = None,
     ) -> PeelState:
         # The unsharded peel is the lock step of one shard.
         args = (p, slot_ids, k0, single_level, alive0, frozen, frozen_truss)
-        return self.lock_step([args], trip_cap(self.max_iters, p, alive0))[0]
+        return self.lock_step(
+            [args], trip_cap(self.max_iters, p, alive0), span_attrs=span_attrs
+        )[0]
 
-    def lock_step(self, shards, limit: int) -> list[PeelState]:
+    def lock_step(self, shards, limit: int, *, span_attrs: dict | None = None) -> list[PeelState]:
         """Peel every shard's inputs (``shard_peel_args``' sets) in lock step.
 
         Each shard first reads back whether any of its lanes is alive and
@@ -493,7 +515,11 @@ class _Peel:
         loop would, and each shard's ``total_iters`` is its own trip
         count.  Launches go to each shard's device on its current stream:
         shards on different devices overlap, shards on one device run one
-        after another."""
+        after another.  The exit's readback also brings each loop's support
+        passes and support lanes: ``peel_trips``, ``peel_support_passes``
+        and ``peel_support_lanes`` add them, and ``span_attrs`` (the
+        ``dispatch`` span's, while tracing) gets the shards' ``trips`` and
+        ``support_lanes``."""
         if _CAPTURE_LOCK.acquire(blocking=False):  # no capture is underway
             try:
                 _release_retired()
@@ -522,13 +548,16 @@ class _Peel:
                     live.append(j)
             for j in live:
                 runs[j].run()
+            registry = current_registry()
+            total_trips = total_lanes = 0
             for j in live:
                 run = runs[j]
                 self.host_syncs += 1
-                # The loop's exit, with the support passes the device
-                # counted: one readback per live shard.
-                all_done, trips, passes = torch.stack(  # trusslint: disable=R1
-                    [run.st.done.all().to(torch.int32), run.st.total_iters, run.passes]
+                # The loop's exit, with the support passes and lanes the
+                # device counted: one readback per live shard.
+                all_done, trips, passes, lanes = torch.stack(  # trusslint: disable=R1
+                    [run.st.done.all().to(torch.int64), run.st.total_iters.to(torch.int64),
+                     run.passes.to(torch.int64), run.support_lanes]
                 ).tolist()
                 if not all_done and trips < limit:
                     from ..kernels.graph_while import GRAPH_SITE
@@ -538,6 +567,13 @@ class _Peel:
                         "slots unfinished", site=GRAPH_SITE,
                     )
                 run.ran(passes)
+                registry.inc(PEEL_TRIPS, trips)
+                registry.inc(PEEL_SUPPORT_PASSES, passes)
+                registry.inc(PEEL_SUPPORT_LANES, lanes)
+                total_trips += trips
+                total_lanes += lanes
+            if span_attrs is not None and live:
+                span_attrs.update(trips=total_trips, support_lanes=total_lanes)
             return [run.result() for run in runs]
 
     def _graph(self, j, args, aligned, limit, step, st) -> _TripGraph:  # requires-lock: _lock
@@ -859,13 +895,16 @@ class PeelExecutor:
         tracer = current_tracer()
         # "dispatch" covers every trip: the loop reads the done flags back
         # when it has ended (the fused loop after every level), so the
-        # span ends when the device has finished.
-        with tracer.span("dispatch", slots=num_slots):
+        # span ends when the device has finished.  The unfused loop puts
+        # its trips and support lanes on it.
+        with tracer.span("dispatch", slots=num_slots) as span:
             if self.mesh is None:
-                st = self._peel(p, slot_ids, k0, single_level, alive0, frozen, frozen_truss)
+                kw = {} if self.backend == "fused" else {"span_attrs": span.attrs}
+                st = self._peel(p, slot_ids, k0, single_level, alive0, frozen, frozen_truss, **kw)
             else:
                 st = self._peel_sharded(
-                    p, slot_ids, k0, single_level, alive0, frozen, frozen_truss
+                    p, slot_ids, k0, single_level, alive0, frozen, frozen_truss,
+                    span_attrs=span.attrs,
                 )
         # Belt: the iteration cap is provably unreachable (see build_peel),
         # so an un-done slot means a peel bug — fail loudly rather than
@@ -883,7 +922,7 @@ class PeelExecutor:
         return st
 
     def _peel_sharded(
-        self, p, slot_ids, k0, single_level, alive0, frozen, frozen_truss
+        self, p, slot_ids, k0, single_level, alive0, frozen, frozen_truss, *, span_attrs=None
     ) -> PeelState:
         """The mesh path of :meth:`peel`: split, lock step, concatenate."""
         from ..distributed.ktruss import shard_peel_args  # lazy: exec stays dep-light
@@ -892,7 +931,9 @@ class PeelExecutor:
             self.mesh, p, slot_ids, k0, single_level, alive0, frozen, frozen_truss
         )
         self._belt_syncs += len(shards)  # shard_peel_args' alignment check
-        states = self._peel.lock_step(shards, trip_cap(self._peel.max_iters, p, alive0))
+        states = self._peel.lock_step(
+            shards, trip_cap(self._peel.max_iters, p, alive0), span_attrs=span_attrs
+        )
         dev = p.device
 
         def joined(field):

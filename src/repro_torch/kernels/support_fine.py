@@ -27,9 +27,10 @@ then the items).  A call made while its stream is being captured into a
 CUDA graph launches nothing then, and the graph may run it many times or
 none: such a call must be made inside :func:`count_launches_on_device`,
 and its worklist kernel then adds one to that device counter each time it
-runs.  The graph's owner reads the counter back and adds it to
-``launches`` (``repro_torch.exec.peel._TripGraph``), so every launch is
-counted by the kernel that ran.
+runs (and, when a lane counter is given, each run adds the lanes its
+worklist listed to that counter too).  The graph's owner reads the counter
+back and adds it to ``launches`` (``repro_torch.exec.peel._TripGraph``),
+so every launch is counted by the kernel that ran.
 """
 
 from __future__ import annotations
@@ -61,7 +62,9 @@ _FIELDS = ("edge_row", "colidx", "urowptr", "udeg", "ucolidx", "u2d")
 _LAUNCH_THREADS = (256, 256)
 # `counts`: a 64-bit item cursor (two words) and the two list lengths.
 _COUNTER_WORDS = 4
-_capture = threading.local()  # .counter: this thread's device launch counter, if any
+_LIST_LENGTHS = slice(2, 4)  # the unsplit and split lanes the worklist kernel listed
+# .counter, .lanes: this thread's device launch and lane counters, if any
+_capture = threading.local()
 
 
 class Worklist(NamedTuple):
@@ -190,21 +193,26 @@ def _check(p: FineProblem, alive: torch.Tensor) -> None:
 
 
 @contextlib.contextmanager
-def count_launches_on_device(counter: torch.Tensor) -> Iterator[None]:
+def count_launches_on_device(
+    counter: torch.Tensor, lanes: torch.Tensor | None = None
+) -> Iterator[None]:
     """Inside the block, in this thread, a :func:`support_fine_cuda` call
     captured into a CUDA graph passes ``counter`` (one int32 on the card)
-    to its kernel, which adds one to it every time the graph launches it."""
-    if counter.dtype != torch.int32 or counter.numel() != 1 or not counter.is_cuda:
-        raise ValueError(
-            f"counter must be one CUDA int32, got {counter.dtype} {tuple(counter.shape)} "
-            f"on {counter.device}"
-        )
-    outer = getattr(_capture, "counter", None)
-    _capture.counter = counter
+    to its kernel, which adds one to it every time the graph launches it.
+    With ``lanes`` (one int64 on the card), each run of the call also adds
+    to it the lanes its worklist listed: the alive real lanes of its mask,
+    whose supports it counts."""
+    for name, t, dtype in (("counter", counter, torch.int32), ("lanes", lanes, torch.int64)):
+        if t is not None and (t.dtype != dtype or t.numel() != 1 or not t.is_cuda):
+            raise ValueError(
+                f"{name} must be one CUDA {dtype}, got {t.dtype} {tuple(t.shape)} on {t.device}"
+            )
+    outer = getattr(_capture, "counter", None), getattr(_capture, "lanes", None)
+    _capture.counter, _capture.lanes = counter, lanes
     try:
         yield
     finally:
-        _capture.counter = outer
+        _capture.counter, _capture.lanes = outer
 
 
 def support_fine_cuda(p: FineProblem, alive: torch.Tensor) -> torch.Tensor:
@@ -222,6 +230,7 @@ def support_fine_cuda(p: FineProblem, alive: torch.Tensor) -> torch.Tensor:
     with torch.cuda.device(dev):
         captured = torch.cuda.is_current_stream_capturing()
         counter = getattr(_capture, "counter", None) if captured else None
+        lanes = getattr(_capture, "lanes", None) if captured else None
         if captured and (counter is None or counter.device != dev):
             raise ValueError(
                 "support_fine_cuda captured into a CUDA graph needs a launch counter on "
@@ -255,6 +264,8 @@ def support_fine_cuda(p: FineProblem, alive: torch.Tensor) -> torch.Tensor:
         )
     if not captured:  # a captured launch counts on the device, each time it runs
         support_fine_cuda.launches += 1
+    if lanes is not None:
+        lanes.add_(counts[_LIST_LENGTHS].sum())
     return out
 
 

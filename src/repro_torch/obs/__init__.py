@@ -26,11 +26,15 @@ The fused peel also counts ``peel_level_trips`` (inner trips, every
 device), ``peel_level_device_seconds`` (CUDA) and, from the level counts
 its launches add to (``repro_torch.kernels.peel_fused.LevelCounts``),
 ``peel_level_trips_incremental``, ``peel_level_lanes_counted``,
-``peel_level_trips_carried`` and ``peel_level_lanes_walked``.  The event timing is always on; it adds no
-synchronization.
+``peel_level_trips_carried`` and ``peel_level_lanes_walked``.  The unfused
+trip loop counts ``peel_trips``, ``peel_support_passes`` and
+``peel_support_lanes``, read back with its exit.  The event timing is
+always on; it adds no synchronization.
 
 While tracing, the fused peel writes one ``peel-level.done`` instant event
-per level (level, inner trips, each level count, device ms on CUDA), and
+per level (level, inner trips, each level count, device ms on CUDA), the
+unfused loop puts its trips and support lanes on the ``dispatch`` span and
+the trip graph's copy-in is the ``trip-load`` span, and
 while a ``torch.profiler`` records, every span also opens a
 ``torch.profiler.record_function`` range of its name, so the spans sit on
 the device trace's own timeline.

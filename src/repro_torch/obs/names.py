@@ -25,6 +25,9 @@ __all__ = [
     "PEEL_LEVEL_TRIPS",
     "PEEL_LEVEL_TRIPS_CARRIED",
     "PEEL_LEVEL_TRIPS_INCREMENTAL",
+    "PEEL_SUPPORT_LANES",
+    "PEEL_SUPPORT_PASSES",
+    "PEEL_TRIPS",
 ]
 
 # Counters of the fused peel's level launches that the JAX package does
@@ -43,6 +46,13 @@ PEEL_LEVEL_LANES_COUNTED = "peel_level_lanes_counted"
 # the lanes the level launches' per-lane passes visited (the lanes of the
 # slots each launch walked)
 PEEL_LEVEL_LANES_WALKED = "peel_level_lanes_walked"
+# Counters of the unfused peel's trip loops, read back with each loop's exit.
+PEEL_TRIPS = "peel_trips"  # the trips of every shard's loop, every device
+PEEL_SUPPORT_PASSES = "peel_support_passes"  # support kernel passes the card counted
+# the lanes whose supports the trips' support passes counted: each pass's
+# mask (the live slots' effective alive lanes), as the support kernel's
+# worklist lists it on the card and as a sum of the mask off it
+PEEL_SUPPORT_LANES = "peel_support_lanes"
 
 COUNTERS: frozenset[str] = frozenset(
     {
@@ -64,6 +74,9 @@ COUNTERS: frozenset[str] = frozenset(
         PEEL_LEVEL_TRIPS_CARRIED,
         PEEL_LEVEL_TRIPS_INCREMENTAL,
         "peel_slots",
+        PEEL_SUPPORT_LANES,
+        PEEL_SUPPORT_PASSES,
+        PEEL_TRIPS,
         # compile cache
         "cache_bucket_compiles",
         "cache_bucket_hits",
