@@ -20,11 +20,15 @@ compile) and replayed, its inputs copied into its static buffers, on
 every later one.  There is no eager path on CUDA.  On the CPU the same
 loop reads its condition as a host bool each trip, which is free there.
 Both devices read back alike: once per shard before its first trip (is
-any lane alive, and are the slot ids the aligned layout), then once per
-live shard after its loop (the exit condition, with the support passes
-and the lanes they were given, which the device counted), two a live
-shard whatever its trips; the executor
-counts every readback in ``host_syncs``.  On CUDA each replay is
+any lane alive, are the slot ids the aligned layout, and which is the
+last slot with an alive lane), then once per live shard after its loop
+(the exit condition, with the support passes and the lanes they were
+given, which the device counted), two a live shard whatever its trips;
+the executor counts every readback in ``host_syncs``.  An aligned shard's
+trips walk only its leading slots up to the last live one, rounded up to
+a power of two (:func:`_slot_prefix`): the slots past them are done
+before the first trip and keep their starting state, so a one-query
+dispatch on eight slots peels one slot's lanes.  On CUDA each replay is
 bracketed by a pair of timing events (``repro_torch.obs.device_time``),
 read once the loop's exit has been read back.  A **dispatch** is one
 :meth:`PeelExecutor.peel` call: one packed batch peeled to completion,
@@ -76,6 +80,7 @@ from ..obs.names import (
     PEEL_LEVEL_TRIPS_INCREMENTAL,
     PEEL_SUPPORT_LANES,
     PEEL_SUPPORT_PASSES,
+    PEEL_TRIP_LANES_WALKED,
     PEEL_TRIPS,
 )
 
@@ -212,6 +217,70 @@ def _is_aligned(slot_ids: torch.Tensor, num_slots: int) -> torch.Tensor:
     return (slot_ids.reshape(num_slots, -1) == slots[:, None]).all()
 
 
+def _live_slots(alive0: torch.Tensor, num_slots: int) -> torch.Tensor:
+    """() int64 on the mask's device: one more than the last of the
+    aligned layout's lane blocks that holds an alive lane (0 when none
+    does; ``num_slots`` when the lanes do not split into the slots)."""
+    dev = alive0.device
+    if num_slots == 0 or alive0.numel() % num_slots:
+        return torch.full((), num_slots, dtype=torch.int64, device=dev)
+    rank = torch.arange(1, num_slots + 1, device=dev)
+    return (alive0.reshape(num_slots, -1).any(1) * rank).max()
+
+
+def _walked_slots(live: int, num_slots: int, p: FineProblem) -> int:
+    """The slots an aligned shard's trips walk: its ``live`` leading slots
+    rounded up to a power of two (so a bucket captures at most
+    ``log2(slots) + 1`` trip graphs), or all of them when the vertex rows
+    or the undirected lanes do not split into the slots."""
+    if not live or p.n % num_slots or int(p.ucolidx.shape[0]) % num_slots:
+        return num_slots
+    return min(num_slots, 1 << (live - 1).bit_length())
+
+
+# The FineProblem fields indexed by vertex row and by undirected lane; the
+# others by directed lane.  And the PeelState fields indexed by lane; the
+# others by slot, but for the scalar total_iters.
+_ROW_FIELDS = frozenset({"rowptr", "deg", "urowptr", "udeg"})
+_ULANE_FIELDS = frozenset({"ucolidx", "u2d", "uedge_row"})
+_LANE_FIELDS = frozenset({"alive", "support", "trussness"})
+
+
+def _slot_prefix(args: tuple, st: PeelState, width: int) -> tuple[tuple, PeelState]:
+    """A shard's peel inputs and starting state cut to their first
+    ``width`` slots of the aligned layout, which are the aligned pack of
+    those slots: slot ``s`` owns the directed lanes ``[s, s+1) * slot_nnz``,
+    the undirected lanes ``[2s, 2s+2) * slot_nnz`` and the vertex rows
+    ``[s * slot_n, (s+1) * slot_n]``, so every field is a leading slice
+    and nothing is renumbered (the undirected pad's ``u2d``, the whole
+    pack's ``nnz_pad``, stays past the cut one)."""
+    p, slot_ids, k0, single_level, alive0, frozen, frozen_truss = args
+    num_slots = int(k0.shape[0])
+    lanes = p.nnz_pad // num_slots * width
+    ulanes = int(p.ucolidx.shape[0]) // num_slots * width
+    rows = p.n // num_slots * width + 1
+    cut = FineProblem(*(
+        t[:rows if f in _ROW_FIELDS else ulanes if f in _ULANE_FIELDS else lanes]
+        for f, t in zip(FineProblem._fields, p)
+    ))
+    args = (cut, slot_ids[:lanes], k0[:width], single_level[:width], alive0[:lanes],
+            frozen[:lanes], frozen_truss[:lanes])
+    st = PeelState(*(
+        t if f == "total_iters" else t[:lanes if f in _LANE_FIELDS else width]
+        for f, t in zip(PeelState._fields, st)
+    ))
+    return args, st
+
+
+def _widened(start: PeelState, part: PeelState) -> PeelState:
+    """A new state: ``part``'s fields over the leading lanes and slots of
+    ``start``'s, whose rest they keep (a done slot is a fixed point)."""
+    return PeelState(*(
+        b.clone() if f == "total_iters" else torch.cat([b, a[b.shape[0]:]])
+        for f, a, b in zip(PeelState._fields, start, part)
+    ))
+
+
 def init_peel_state(
     p: FineProblem,
     slot_ids: torch.Tensor,
@@ -342,9 +411,6 @@ class _EagerTrips:
     def ran(self, passes: int) -> None:
         """Every launch of an eager trip counted itself."""
 
-    def result(self) -> PeelState:
-        return self.st
-
 
 class _TripGraph:
     """A shard's trip loop captured as one CUDA graph, for one shape,
@@ -466,10 +532,6 @@ class _TripGraph:
         support_fine_cuda.launches += passes
         add_device_seconds(self.events.seconds())
 
-    def result(self) -> PeelState:
-        """The state, cloned: a later dispatch overwrites the buffers."""
-        return PeelState(*(t.clone() for t in self.st))
-
 
 class _Peel:
     """The peel callable :func:`build_peel` returns (see there)."""
@@ -504,9 +566,14 @@ class _Peel:
     def lock_step(self, shards, limit: int, *, span_attrs: dict | None = None) -> list[PeelState]:
         """Peel every shard's inputs (``shard_peel_args``' sets) in lock step.
 
-        Each shard first reads back whether any of its lanes is alive and
-        whether its slot ids are the aligned layout (its :class:`_SlotSums`).
-        Then every live shard runs its trip loop (a replay of its graph on
+        Each shard first reads back whether any of its lanes is alive,
+        whether its slot ids are the aligned layout (its :class:`_SlotSums`)
+        and how many leading slots hold its alive lanes.  An aligned shard
+        then peels only those slots, rounded up to a power of two
+        (:func:`_walked_slots`, :func:`_slot_prefix`), and the rest keep
+        their starting state: no lane of theirs is alive, so they are done
+        before the first trip, and a done slot is a fixed point.  Then
+        every live shard runs its trip loop (a replay of its graph on
         CUDA), and after all are started each one's exit condition is read
         back: every slot done, or ``limit`` trips (the unsharded peel's
         cap).  A shard stops at its own last trip: a done slot is a fixed
@@ -517,28 +584,41 @@ class _Peel:
         shards on different devices overlap, shards on one device run one
         after another.  The exit's readback also brings each loop's support
         passes and support lanes: ``peel_trips``, ``peel_support_passes``
-        and ``peel_support_lanes`` add them, and ``span_attrs`` (the
-        ``dispatch`` span's, while tracing) gets the shards' ``trips`` and
-        ``support_lanes``."""
+        and ``peel_support_lanes`` add them, ``peel_trip_lanes_walked`` the
+        trips times the lanes of the slots they walked, and ``span_attrs``
+        (the ``dispatch`` span's, while tracing) gets the shards' ``trips``
+        and ``support_lanes``."""
         if _CAPTURE_LOCK.acquire(blocking=False):  # no capture is underway
             try:
                 _release_retired()
             finally:
                 _CAPTURE_LOCK.release()
         with self._lock:
-            runs, live = [], []
+            runs, starts, live = [], [], []
             for j, args in enumerate(shards):
                 p, slot_ids, k0, single_level, alive0, frozen, frozen_truss = args
                 num_slots = int(k0.shape[0])
                 self.host_syncs += 1
-                # The first loop condition and the layout: one readback a shard.
-                any_alive, aligned = torch.stack(  # trusslint: disable=R1
-                    [alive0.any(), _is_aligned(slot_ids, num_slots)]
+                # The first loop condition, the layout and the live slots:
+                # one readback a shard.
+                any_alive, aligned, live_slots = torch.stack(  # trusslint: disable=R1
+                    [alive0.any().long(), _is_aligned(slot_ids, num_slots).long(),
+                     _live_slots(alive0, num_slots)]
                 ).tolist()
+                aligned = bool(aligned)
                 sums = _SlotSums(slot_ids, num_slots, aligned=aligned)
-                st = init_peel_state(
+                start = init_peel_state(
                     p, slot_ids, k0, single_level, alive0, frozen, frozen_truss, sums=sums
                 )
+                starts.append(start)
+                width = _walked_slots(live_slots, num_slots, p) if aligned else num_slots
+                st = start
+                if width < num_slots:
+                    # Every slot past the live ones is done at the start and
+                    # keeps its starting state: peel the leading ones alone.
+                    args, st = _slot_prefix(args, start, width)
+                    p, slot_ids, k0, single_level, alive0, frozen, frozen_truss = args
+                    sums = _SlotSums(slot_ids, width, aligned=True)
                 step = (p, slot_ids.long(), sums, single_level, frozen, frozen_truss)
                 if any_alive and limit > 0 and alive0.is_cuda:
                     runs.append(self._graph(j, args, aligned, limit, step, st))
@@ -570,11 +650,13 @@ class _Peel:
                 registry.inc(PEEL_TRIPS, trips)
                 registry.inc(PEEL_SUPPORT_PASSES, passes)
                 registry.inc(PEEL_SUPPORT_LANES, lanes)
+                registry.inc(PEEL_TRIP_LANES_WALKED, trips * int(run.st.alive.shape[0]))
                 total_trips += trips
                 total_lanes += lanes
             if span_attrs is not None and live:
                 span_attrs.update(trips=total_trips, support_lanes=total_lanes)
-            return [run.result() for run in runs]
+            # New tensors: a later dispatch overwrites a trip graph's state.
+            return [_widened(start, run.st) for start, run in zip(starts, runs)]
 
     def _graph(self, j, args, aligned, limit, step, st) -> _TripGraph:  # requires-lock: _lock
         """Shard ``j``'s trip graph for these inputs' shapes, captured on

@@ -27,9 +27,9 @@ device), ``peel_level_device_seconds`` (CUDA) and, from the level counts
 its launches add to (``repro_torch.kernels.peel_fused.LevelCounts``),
 ``peel_level_trips_incremental``, ``peel_level_lanes_counted``,
 ``peel_level_trips_carried`` and ``peel_level_lanes_walked``.  The unfused
-trip loop counts ``peel_trips``, ``peel_support_passes`` and
-``peel_support_lanes``, read back with its exit.  The event timing is
-always on; it adds no synchronization.
+trip loop counts ``peel_trips``, ``peel_support_passes``,
+``peel_support_lanes`` and ``peel_trip_lanes_walked``, read back with its
+exit.  The event timing is always on; it adds no synchronization.
 
 While tracing, the fused peel writes one ``peel-level.done`` instant event
 per level (level, inner trips, each level count, device ms on CUDA), the

@@ -27,6 +27,7 @@ __all__ = [
     "PEEL_LEVEL_TRIPS_INCREMENTAL",
     "PEEL_SUPPORT_LANES",
     "PEEL_SUPPORT_PASSES",
+    "PEEL_TRIP_LANES_WALKED",
     "PEEL_TRIPS",
 ]
 
@@ -53,6 +54,9 @@ PEEL_SUPPORT_PASSES = "peel_support_passes"  # support kernel passes the card co
 # mask (the live slots' effective alive lanes), as the support kernel's
 # worklist lists it on the card and as a sum of the mask off it
 PEEL_SUPPORT_LANES = "peel_support_lanes"
+# the lanes the trips' per-lane passes walked: each loop's trips times the
+# lanes of the slot prefix it peels (its live slots, rounded up)
+PEEL_TRIP_LANES_WALKED = "peel_trip_lanes_walked"
 
 COUNTERS: frozenset[str] = frozenset(
     {
@@ -76,6 +80,7 @@ COUNTERS: frozenset[str] = frozenset(
         "peel_slots",
         PEEL_SUPPORT_LANES,
         PEEL_SUPPORT_PASSES,
+        PEEL_TRIP_LANES_WALKED,
         PEEL_TRIPS,
         # compile cache
         "cache_bucket_compiles",

@@ -189,7 +189,9 @@ def test_lock_step_sums_the_counts_of_its_shards():
     assert counters[PEEL_SUPPORT_LANES] == sum(given) == attrs["support_lanes"] > 0
 
 
-@pytest.mark.parametrize("const", ["PEEL_TRIPS", "PEEL_SUPPORT_PASSES", "PEEL_SUPPORT_LANES"])
+@pytest.mark.parametrize(
+    "const", ["PEEL_TRIPS", "PEEL_SUPPORT_PASSES", "PEEL_SUPPORT_LANES", "PEEL_TRIP_LANES_WALKED"]
+)
 def test_trip_loop_counters_are_declared_constants(const):
     """Each counter of the unfused trip loop is an exported constant of
     ``repro_torch.obs.names`` whose value is a declared counter, and the

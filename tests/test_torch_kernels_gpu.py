@@ -1186,6 +1186,93 @@ def test_captured_support_pass_needs_a_device_launch_counter(cuda):
     assert torch.equal(got, want)
 
 
+def _delaunay(log2_n: int):
+    """The benchmark's Delaunay graph at ``2**log2_n`` points (Qhull on the
+    host)."""
+    import json
+
+    pytest.importorskip("scipy.spatial")
+    root = _ktbench_root()
+    from ktbench import generators
+
+    config = json.loads((root / "ktbench" / "configs" / "delaunay_n20.json").read_text())
+    n, edges = generators.config_graph(dict(config, log2_n=log2_n), 2_147_483_659, 0)
+    return tg.from_edges(n, edges, name=f"delaunay{log2_n}")
+
+
+def _wide_inputs(cuda, gs, bucket, slots=8):
+    """``gs`` packed from slot 0 on ``slots`` aligned slots of ``bucket``,
+    every member a decompose, and the peel's inputs on the card."""
+    pp = tg.pack_problems(gs, slot_n=bucket.n_pad, slot_nnz=bucket.nnz_pad, slots=slots,
+                          chunk=64, layout="aligned", device=cuda)
+    p = pp.problem
+    ids = torch.arange(slots, dtype=torch.int32, device=cuda).repeat_interleave(bucket.nnz_pad)
+    k0 = torch.full((slots,), 3, dtype=torch.int32, device=cuda)
+    single = torch.zeros(slots, dtype=torch.bool, device=cuda)
+    alive0 = p.colidx != 0
+    return p, (ids, k0, single, alive0, torch.zeros_like(alive0),
+               torch.zeros(alive0.shape, dtype=torch.int32, device=cuda))
+
+
+def test_walked_prefix_trip_graph_equals_the_eager_loop_on_delaunay14(cuda):
+    """One Delaunay member on 8 slots: the trip graph walks the first slot's
+    lanes alone, and its state and counters equal the eager loop's over all
+    8 slots, each support pass launched and counted by the host."""
+    from repro_torch.exec import build_peel, make_problem_support
+    from repro_torch.exec import peel as pm
+    from repro_torch.obs import MetricsRegistry, use_registry
+    from repro_torch.obs import names
+
+    g = _delaunay(14)
+    bucket = bucket_for(g, chunk=64)
+    p, args = _wide_inputs(cuda, [g], bucket)
+    support = make_problem_support(backend="pallas", mode="owner", window=bucket.window, chunk=64)
+    peel, reg = build_peel(support), MetricsRegistry()
+    with use_registry(reg):
+        got = peel(p, *args)
+    given = []
+
+    def counted(prob, alive):
+        given.append(int(alive.sum()))
+        return support(prob, alive)
+
+    before = support_fine_cuda.launches
+    want = _eager_trip_loop(counted, p, *args)
+    trips = int(want.total_iters)
+    assert support_fine_cuda.launches - before == trips == len(given) > 1
+    for name, a, b in zip(pm.PeelState._fields, got, want):
+        assert torch.equal(a, b), name
+    counters = reg.snapshot()["counters"]
+    assert counters[names.PEEL_TRIPS] == counters[names.PEEL_SUPPORT_PASSES] == trips
+    assert counters[names.PEEL_SUPPORT_LANES] == sum(given) > 0
+    assert counters[names.PEEL_TRIP_LANES_WALKED] == trips * bucket.nnz_pad
+    assert peel.host_syncs == 2
+
+
+def test_walked_prefix_captures_at_most_four_trip_graphs(cuda):
+    """Dispatches of 1, 2, 3 and 8 members on 8 slots walk 1, 2, 4 and 8
+    slots: four trip graphs, none more on a second pass, each answer the
+    eager loop's."""
+    from repro_torch.analysis.sentinel import count_compiles
+    from repro_torch.exec import PeelExecutor
+
+    from repro_torch.api.cache import Bucket
+
+    gs = [make() for make in GRAPHS]
+    bucket = Bucket(*(max(col) for col in zip(*(bucket_for(g, chunk=64) for g in gs))))
+    exe = PeelExecutor(mode="owner", backend="pallas", window=bucket.window, chunk=64)
+    for rep in range(2):
+        with count_compiles() as log:
+            for members in (1, 2, 3, 8):
+                p, args = _wide_inputs(cuda, [gs[i % len(gs)] for i in range(members)], bucket)
+                ids, k0, single = args[:3]
+                got = exe.peel(p, slot_ids=ids, k0=k0.cpu().numpy(),
+                               single_level=single.cpu().numpy())
+                want = _eager_trip_loop(exe.support, p, *args)
+                assert all(torch.equal(a, b) for a, b in zip(got, want)), members
+        assert log.captures == (4 if rep == 0 else 0)
+
+
 def _numpy_trussness(g):
     from repro_torch.core import trussness_numpy
 

@@ -30,14 +30,19 @@ from repro_torch import obs
 from repro_torch.api import Session, TrussQuery, solve
 from repro_torch.api.cache import CacheStats
 from repro_torch.api.errors import TrussTimeoutError
-from repro_torch.obs.names import PEEL_SUPPORT_LANES, PEEL_SUPPORT_PASSES, PEEL_TRIPS
+from repro_torch.obs.names import (
+    PEEL_SUPPORT_LANES,
+    PEEL_SUPPORT_PASSES,
+    PEEL_TRIP_LANES_WALKED,
+    PEEL_TRIPS,
+)
 
 SPAN_NAMES = {"solve", "plan", "pack", "compile", "dispatch", "device-wait", "unpack"}
 # Counters that hold seconds: equal in name only between the two packages.
 TIMED_COUNTERS = ("device_seconds_total", "peel_device_seconds_total")
 # What the port's unfused trip loop records and the JAX package does not:
 # its counters, and the keys its exit puts on the ``dispatch`` span.
-PORT_COUNTERS = {PEEL_TRIPS, PEEL_SUPPORT_PASSES, PEEL_SUPPORT_LANES}
+PORT_COUNTERS = {PEEL_TRIPS, PEEL_SUPPORT_PASSES, PEEL_SUPPORT_LANES, PEEL_TRIP_LANES_WALKED}
 PORT_DISPATCH_KEYS = {"trips", "support_lanes"}
 
 
@@ -130,7 +135,8 @@ def test_metrics_snapshot_matches_reference(traced, ref_traced):
     gauges and histogram series in both packages."""
     got, want = traced[0].metrics_snapshot(), ref_traced[0].metrics_snapshot()
     assert PORT_COUNTERS <= set(got["counters"])
-    assert got["counters"][PEEL_TRIPS] > 0 and got["counters"][PEEL_SUPPORT_LANES] > 0
+    for name in (PEEL_TRIPS, PEEL_SUPPORT_LANES, PEEL_TRIP_LANES_WALKED):
+        assert got["counters"][name] > 0, name
     assert set(got["counters"]) - PORT_COUNTERS == set(want["counters"])
     for key, value in want["counters"].items():
         if not key.startswith(TIMED_COUNTERS):

@@ -333,3 +333,190 @@ def test_trip_loop_that_stops_early_is_a_typed_device_fault(monkeypatch):
     with pytest.raises(DeviceError, match="stopped after 0 of") as e:
         _port_peel("aligned", False)
     assert e.value.site == "peel_graph"
+
+
+# --------------------------------------------------------------------- #
+# An aligned shard's trips walk only its live slot prefix
+# --------------------------------------------------------------------- #
+WIDE = 8  # the planner's max_batch: a one-query dispatch has seven empty slots
+
+
+def _wide_pack(members: int, layout: str = "aligned"):
+    """``members`` of the small graphs, in turn, packed on WIDE slots."""
+    graphs = [g for g, _ in small_pairs()]
+    graphs = [graphs[i % len(graphs)] for i in range(members)]
+    pp = rg.pack_problems(
+        graphs, slot_n=SLOT_N, slot_nnz=SLOT_NNZ, slots=WIDE, chunk=CHUNK, layout=layout
+    )
+    window = max(bucket_for(g, chunk=CHUNK).window for g in graphs)
+    return pp, window
+
+
+@functools.lru_cache(maxsize=None)
+def _wide_ref_peel(window, max_iters=None):
+    """One reference peel a window and cap: every case shares its shapes."""
+    return rexec.build_peel(rexec.make_problem_support(**_support_cfg(window)), max_iters=max_iters)
+
+
+@functools.lru_cache(maxsize=None)
+def _wide_truss(members):
+    """Each lane's trussness in a decompose of ``members`` (the reference's)."""
+    import jax.numpy as jnp
+
+    pp, window = _wide_pack(members)
+    real = np.asarray(pp.problem.colidx) != 0
+    none = np.zeros(real.shape[0], bool)
+    args = (np.repeat(np.arange(WIDE, dtype=np.int32), SLOT_NNZ), np.full(WIDE, 3, np.int32),
+            np.zeros(WIDE, bool), real, none, np.zeros(real.shape[0], np.int32))
+    return np.asarray(_wide_ref_peel(window)(pp.problem, *(jnp.asarray(a) for a in args)).trussness)
+
+
+# name: (members, k0 of the members, single_level of the members, lanes of
+# these slots not alive, lanes of these slots frozen only, walked slots)
+WIDE_CASES = {
+    "one_member": (1, [3], [False], (), (), 1),
+    "three_members": (3, [3, 4, 3], [False, False, False], (), (), 4),
+    "eight_members": (8, [3] * 8, [False] * 8, (), (), 8),
+    "slot_1_empty": (3, [3, 3, 3], [False] * 3, (1,), (), 4),
+    # A frontier free in slots 0 and 2, the rest frozen; slots 1, 3 (inside
+    # the walked prefix) and 4 (past it) frozen only.
+    "frozen": (5, [3] * 5, [False] * 5, (), (1, 3, 4), 4),
+    "single_level": (2, [3, 4], [False, True], (), (), 2),
+}
+
+
+def _wide_args(name):
+    """Numpy peel arguments of a WIDE_CASES case, with its pack and window."""
+    members, k0, single, dead, frozen_only, _ = WIDE_CASES[name]
+    pp, window = _wide_pack(members)
+    real = np.asarray(pp.problem.colidx) != 0
+    slot = np.repeat(np.arange(WIDE, dtype=np.int32), SLOT_NNZ)
+    alive0 = real & ~np.isin(slot, dead)
+    frozen = np.zeros(real.shape[0], bool)
+    truss = np.zeros(real.shape[0], np.int32)
+    if frozen_only:
+        frontier = real & (np.random.default_rng(7).random(real.shape[0]) < 0.3)
+        frozen = real & (~frontier | np.isin(slot, frozen_only))
+        alive0 = real & ~frozen
+        truss = np.where(frozen, _wide_truss(members), 0).astype(np.int32)
+    pad = WIDE - members
+    k0 = np.array(k0 + [3] * pad, np.int32)
+    single = np.array(single + [False] * pad)
+    return pp, window, (slot, k0, single, alive0, frozen, truss)
+
+
+def _port_wide(pp, window, args, *, max_iters=None, walk_all=False):
+    """The port's ``build_peel`` state, the peel, and what it filed; with
+    ``walk_all`` the trips walk every slot (the untrimmed loop)."""
+    from repro_torch.obs import MetricsRegistry, use_registry
+
+    peel = texec.build_peel(texec.make_problem_support(**_support_cfg(window)), max_iters=max_iters)
+    reg = MetricsRegistry()
+    with pytest.MonkeyPatch.context() as m, use_registry(reg):
+        if walk_all:
+            m.setattr(tpeel, "_walked_slots", lambda live, num_slots, p: num_slots)
+        st = peel(torch_problem(pp.problem), *(torch.from_numpy(a) for a in args))
+    return st, peel, reg.snapshot()["counters"]
+
+
+@pytest.mark.parametrize("name", sorted(WIDE_CASES))
+def test_walked_prefix_peel_equals_the_reference_and_the_whole_loop(name):
+    """The trips walk the live slots rounded up to a power of two, and
+    every ``PeelState`` field equals the reference's ``build_peel`` and the
+    same loop over all WIDE slots; two readbacks, as before."""
+    import jax.numpy as jnp
+
+    pp, window, args = _wide_args(name)
+    walked = WIDE_CASES[name][-1]
+    ref = _wide_ref_peel(window)(pp.problem, *(jnp.asarray(a) for a in args))
+    got, peel, counters = _port_wide(pp, window, args)
+    whole, _, whole_counters = _port_wide(pp, window, args, walk_all=True)
+    for f in ref._fields:
+        assert_same(getattr(ref, f), getattr(got, f), f)
+        assert torch.equal(getattr(whole, f), getattr(got, f)), f
+    trips = int(got.total_iters)
+    assert bool(got.done.all()) and trips > 1
+    assert peel.host_syncs == LIVE_SHARD_SYNCS
+    assert counters[tpeel.PEEL_TRIPS] == trips
+    assert counters[tpeel.PEEL_TRIP_LANES_WALKED] == trips * walked * SLOT_NNZ
+    assert whole_counters[tpeel.PEEL_TRIP_LANES_WALKED] == trips * WIDE * SLOT_NNZ
+    # The same work: the support passes were given the same lanes.
+    assert counters[tpeel.PEEL_SUPPORT_LANES] == whole_counters[tpeel.PEEL_SUPPORT_LANES] > 0
+    assert got.alive.shape == (WIDE * SLOT_NNZ,) and got.done.shape == (WIDE,)
+
+
+@pytest.mark.parametrize("cap", [1, 2])
+def test_walked_prefix_capped_peel_stops_like_the_reference_and_raises(cap):
+    """A cap that fires mid-peel on the one-member prefix stops at the
+    reference's truncated state, and the executor still raises."""
+    import jax.numpy as jnp
+
+    pp, window, args = _wide_args("one_member")
+    ref = _wide_ref_peel(window, cap)(pp.problem, *(jnp.asarray(a) for a in args))
+    got, _, counters = _port_wide(pp, window, args, max_iters=cap)
+    whole, _, _ = _port_wide(pp, window, args, max_iters=cap, walk_all=True)
+    for f in ref._fields:
+        assert_same(getattr(ref, f), getattr(got, f), f)
+        assert torch.equal(getattr(whole, f), getattr(got, f)), f
+    assert int(got.total_iters) == cap and not bool(got.done.all())
+    assert counters[tpeel.PEEL_TRIP_LANES_WALKED] == cap * SLOT_NNZ
+    slot_ids, k0 = args[0], args[1]
+    with pytest.raises(DeviceError, match="iteration cap"):
+        texec.PeelExecutor(max_iters=cap, **_support_cfg(window)).peel(
+            torch_problem(pp.problem), slot_ids=slot_ids, k0=k0
+        )
+
+
+def test_contig_layout_walks_every_lane():
+    """The contig layout parks its pad tail on slot 0: not the aligned
+    layout, so its trips walk the whole pack, one member or eight."""
+    pp, window = _wide_pack(1, layout="contig")
+    nnzp = int(pp.problem.nnz_pad)
+    real = np.asarray(pp.problem.colidx) != 0
+    args = (_contig_ids(pp.edge_ranges, nnzp), np.full(WIDE, 3, np.int32), np.zeros(WIDE, bool),
+            real, np.zeros(nnzp, bool), np.zeros(nnzp, np.int32))
+    assert not bool(tpeel._is_aligned(torch.from_numpy(args[0]), WIDE))
+    got, peel, counters = _port_wide(pp, window, args)
+    trips = int(got.total_iters)
+    assert trips > 1 and bool(got.done.all())
+    assert counters[tpeel.PEEL_TRIP_LANES_WALKED] == trips * nnzp
+    assert peel.host_syncs == LIVE_SHARD_SYNCS
+
+
+@pytest.mark.parametrize(
+    "live, walked", [(0, 8), (1, 1), (2, 2), (3, 4), (4, 4), (5, 8), (7, 8), (8, 8)]
+)
+def test_walked_slots_round_the_live_prefix_up_to_a_power_of_two(live, walked):
+    pp, _ = _wide_pack(1)
+    p = torch_problem(pp.problem)
+    assert tpeel._walked_slots(live, WIDE, p) == walked
+    alive = torch.zeros(p.nnz_pad, dtype=torch.bool)
+    if live:
+        alive[(live - 1) * SLOT_NNZ + 3] = True
+    assert int(tpeel._live_slots(alive, WIDE)) == live
+
+
+def test_lock_step_walks_each_shards_own_prefix(monkeypatch):
+    """Two aligned shards in lock step, one member and three: each walks its
+    own live prefix (1 and 4 slots), equals the loop over all its slots
+    field for field, and reads back twice."""
+    from repro_torch.obs import MetricsRegistry, use_registry
+
+    shards = []
+    for name in ("one_member", "three_members"):
+        pp, window, args = _wide_args(name)
+        shards.append((torch_problem(pp.problem), *(torch.from_numpy(a) for a in args)))
+    support = texec.make_problem_support(**_support_cfg(window))
+    peel, reg = texec.build_peel(support), MetricsRegistry()
+    with use_registry(reg):
+        states = peel.lock_step(shards, limit=10_000)
+    monkeypatch.setattr(tpeel, "_walked_slots", lambda live, num_slots, p: num_slots)
+    wholes = texec.build_peel(support).lock_step(shards, limit=10_000)
+    trips = [int(st.total_iters) for st in states]
+    assert trips[0] != trips[1]
+    for st, whole in zip(states, wholes):
+        for f, a, b in zip(tpeel.PeelState._fields, st, whole):
+            assert torch.equal(a, b), f
+    counters = reg.snapshot()["counters"]
+    assert counters[tpeel.PEEL_TRIP_LANES_WALKED] == (trips[0] * 1 + trips[1] * 4) * SLOT_NNZ
+    assert peel.host_syncs == LIVE_SHARD_SYNCS * len(shards)
