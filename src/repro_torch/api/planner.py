@@ -40,8 +40,9 @@ from ..graphs.csr import CSRGraph, LiftedCSR, lift_csr, not_upper, upper_violati
 from ..graphs.pack import pack_problems
 from ..graphs.stats import ImbalanceStats, imbalance_parts, stats_from_parts
 from ..obs import clock as obs_clock
-from ..obs import current_tracer, record_peel_batch
+from ..obs import current_registry, current_tracer, record_peel_batch
 from ..obs.device_time import dispatch_device_time
+from ..obs.names import PEEL_SLOTS_SHARED
 from ..resilience.faults import inject
 from .cache import Bucket, CompileCache, bucket_from_degree, undirected_max_degree
 from .query import TrussQuery
@@ -509,6 +510,10 @@ class Planner:
                 if st.lift.low[0]:
                     raise not_upper(st.lift.graph.name, *st.lift.low)
                 members.append(st.lift.csr)
+            # Members whose graph object an earlier member already holds:
+            # each is packed into a slot of its own all the same.
+            shared = len(queries) - len({id(st.query.graph) for st in queries})
+            current_registry().inc(PEEL_SLOTS_SHARED, shared)
             packed = pack_problems(
                 members,
                 slot_n=bucket.n_pad,

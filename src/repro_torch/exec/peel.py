@@ -586,8 +586,10 @@ class _Peel:
         passes and support lanes: ``peel_trips``, ``peel_support_passes``
         and ``peel_support_lanes`` add them, ``peel_trip_lanes_walked`` the
         trips times the lanes of the slots they walked, and ``span_attrs``
-        (the ``dispatch`` span's, while tracing) gets the shards' ``trips``
-        and ``support_lanes``."""
+        (the ``dispatch`` span's, while tracing) gets the live shards'
+        ``trips`` and ``support_lanes``, their live slots (``members``: an
+        aligned shard's live prefix, every slot of another) and the slots
+        they walked (``walked_slots``), each summed over the shards."""
         if _CAPTURE_LOCK.acquire(blocking=False):  # no capture is underway
             try:
                 _release_retired()
@@ -595,6 +597,7 @@ class _Peel:
                 _CAPTURE_LOCK.release()
         with self._lock:
             runs, starts, live = [], [], []
+            members = walked = 0  # the live shards' live and walked slots
             for j, args in enumerate(shards):
                 p, slot_ids, k0, single_level, alive0, frozen, frozen_truss = args
                 num_slots = int(k0.shape[0])
@@ -626,6 +629,8 @@ class _Peel:
                     runs.append(_EagerTrips(self.support, step, st, limit))
                 if any_alive and limit > 0:
                     live.append(j)
+                    members += live_slots if aligned else num_slots
+                    walked += width
             for j in live:
                 runs[j].run()
             registry = current_registry()
@@ -654,7 +659,8 @@ class _Peel:
                 total_trips += trips
                 total_lanes += lanes
             if span_attrs is not None and live:
-                span_attrs.update(trips=total_trips, support_lanes=total_lanes)
+                span_attrs.update(trips=total_trips, support_lanes=total_lanes,
+                                  members=members, walked_slots=walked)
             # New tensors: a later dispatch overwrites a trip graph's state.
             return [_widened(start, run.st) for start, run in zip(starts, runs)]
 
@@ -978,7 +984,7 @@ class PeelExecutor:
         # "dispatch" covers every trip: the loop reads the done flags back
         # when it has ended (the fused loop after every level), so the
         # span ends when the device has finished.  The unfused loop puts
-        # its trips and support lanes on it.
+        # its trips, support lanes, live slots and walked slots on it.
         with tracer.span("dispatch", slots=num_slots) as span:
             if self.mesh is None:
                 kw = {} if self.backend == "fused" else {"span_attrs": span.attrs}

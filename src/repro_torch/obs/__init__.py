@@ -29,11 +29,15 @@ its launches add to (``repro_torch.kernels.peel_fused.LevelCounts``),
 ``peel_level_trips_carried`` and ``peel_level_lanes_walked``.  The unfused
 trip loop counts ``peel_trips``, ``peel_support_passes``,
 ``peel_support_lanes`` and ``peel_trip_lanes_walked``, read back with its
-exit.  The event timing is always on; it adds no synchronization.
+exit, and the planner ``peel_slots_shared`` (the members of each dispatch
+whose graph object an earlier member of it also holds), counted where the
+batch is packed.  The event timing is always on; it adds no
+synchronization.
 
 While tracing, the fused peel writes one ``peel-level.done`` instant event
 per level (level, inner trips, each level count, device ms on CUDA), the
-unfused loop puts its trips and support lanes on the ``dispatch`` span and
+unfused loop puts its trips, support lanes, live slots (``members``) and
+walked slots (``walked_slots``) on the ``dispatch`` span and
 the trip graph's copy-in is the ``trip-load`` span, and
 while a ``torch.profiler`` records, every span also opens a
 ``torch.profiler.record_function`` range of its name, so the spans sit on

@@ -25,6 +25,7 @@ __all__ = [
     "PEEL_LEVEL_TRIPS",
     "PEEL_LEVEL_TRIPS_CARRIED",
     "PEEL_LEVEL_TRIPS_INCREMENTAL",
+    "PEEL_SLOTS_SHARED",
     "PEEL_SUPPORT_LANES",
     "PEEL_SUPPORT_PASSES",
     "PEEL_TRIP_LANES_WALKED",
@@ -57,6 +58,9 @@ PEEL_SUPPORT_LANES = "peel_support_lanes"
 # the lanes the trips' per-lane passes walked: each loop's trips times the
 # lanes of the slot prefix it peels (its live slots, rounded up)
 PEEL_TRIP_LANES_WALKED = "peel_trip_lanes_walked"
+# The planner's: the members of each dispatch whose graph object an earlier
+# member of the same dispatch also holds.
+PEEL_SLOTS_SHARED = "peel_slots_shared"
 
 COUNTERS: frozenset[str] = frozenset(
     {
@@ -78,6 +82,7 @@ COUNTERS: frozenset[str] = frozenset(
         PEEL_LEVEL_TRIPS_CARRIED,
         PEEL_LEVEL_TRIPS_INCREMENTAL,
         "peel_slots",
+        PEEL_SLOTS_SHARED,
         PEEL_SUPPORT_LANES,
         PEEL_SUPPORT_PASSES,
         PEEL_TRIP_LANES_WALKED,

@@ -157,7 +157,8 @@ def test_trip_loop_counts_its_trips_and_support_lanes(small, monkeypatch):
 
 def test_lock_step_sums_the_counts_of_its_shards():
     """Two shards of unequal trips in one lock step: each counter adds both
-    shards' counts, and the span attributes hold their sums."""
+    shards' counts, and the span attributes hold their sums (the live and
+    walked slots too)."""
     from repro_torch.api import bucket_for
     from repro_torch.core import prepare_fine
     from repro_torch.obs import MetricsRegistry, use_registry
@@ -187,6 +188,7 @@ def test_lock_step_sums_the_counts_of_its_shards():
     counters = reg.snapshot()["counters"]
     assert counters[PEEL_TRIPS] == sum(trips) == len(given) == attrs["trips"]
     assert counters[PEEL_SUPPORT_LANES] == sum(given) == attrs["support_lanes"] > 0
+    assert (attrs["members"], attrs["walked_slots"]) == (2, 2)  # one live slot a shard
 
 
 @pytest.mark.parametrize(

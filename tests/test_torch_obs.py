@@ -31,6 +31,7 @@ from repro_torch.api import Session, TrussQuery, solve
 from repro_torch.api.cache import CacheStats
 from repro_torch.api.errors import TrussTimeoutError
 from repro_torch.obs.names import (
+    PEEL_SLOTS_SHARED,
     PEEL_SUPPORT_LANES,
     PEEL_SUPPORT_PASSES,
     PEEL_TRIP_LANES_WALKED,
@@ -40,10 +41,12 @@ from repro_torch.obs.names import (
 SPAN_NAMES = {"solve", "plan", "pack", "compile", "dispatch", "device-wait", "unpack"}
 # Counters that hold seconds: equal in name only between the two packages.
 TIMED_COUNTERS = ("device_seconds_total", "peel_device_seconds_total")
-# What the port's unfused trip loop records and the JAX package does not:
-# its counters, and the keys its exit puts on the ``dispatch`` span.
-PORT_COUNTERS = {PEEL_TRIPS, PEEL_SUPPORT_PASSES, PEEL_SUPPORT_LANES, PEEL_TRIP_LANES_WALKED}
-PORT_DISPATCH_KEYS = {"trips", "support_lanes"}
+# What the port's unfused trip loop and planner record and the JAX package
+# does not: their counters, and the keys the loop's exit puts on the
+# ``dispatch`` span.
+PORT_COUNTERS = {PEEL_TRIPS, PEEL_SUPPORT_PASSES, PEEL_SUPPORT_LANES, PEEL_TRIP_LANES_WALKED,
+                 PEEL_SLOTS_SHARED}
+PORT_DISPATCH_KEYS = {"trips", "support_lanes", "members", "walked_slots"}
 
 
 def _ref_graphs():
@@ -137,6 +140,8 @@ def test_metrics_snapshot_matches_reference(traced, ref_traced):
     assert PORT_COUNTERS <= set(got["counters"])
     for name in (PEEL_TRIPS, PEEL_SUPPORT_LANES, PEEL_TRIP_LANES_WALKED):
         assert got["counters"][name] > 0, name
+    # The kmax query shares the first decompose's graph, the ktruss query the second's.
+    assert got["counters"][PEEL_SLOTS_SHARED] == 2
     assert set(got["counters"]) - PORT_COUNTERS == set(want["counters"])
     for key, value in want["counters"].items():
         if not key.startswith(TIMED_COUNTERS):
@@ -172,17 +177,23 @@ def test_traced_solve_exports_chrome_trace(traced):
 
 def test_trace_matches_reference(traced, ref_traced):
     """Same span names, same count of each, same span attributes' keys,
-    but for the trips and support lanes the port's unfused loop puts on
-    each of its ``dispatch`` spans."""
+    but for the trips, support lanes, live slots and walked slots the
+    port's unfused loop puts on each of its ``dispatch`` spans."""
     got = json.loads(traced[2].read_text())["traceEvents"]
     want = json.loads(ref_traced[2].read_text())["traceEvents"]
     dispatches = [e for e in got if e["name"] == "dispatch"]
     assert dispatches and all(PORT_DISPATCH_KEYS <= set(e["args"]) for e in dispatches)
     assert all(e["args"]["trips"] > 0 for e in dispatches)
+    assert sum(e["args"]["members"] for e in dispatches) == 4
+    assert all(e["args"]["members"] <= e["args"]["walked_slots"] <= e["args"]["slots"]
+               for e in dispatches)
 
     def shape(events, port_keys=frozenset()):
-        return sorted((e["name"], e["ph"], tuple(sorted(set(e.get("args", {})) - port_keys)))
-                      for e in events)
+        def keys(e):
+            args = set(e.get("args", {}))
+            return args - port_keys if e["name"] == "dispatch" else args
+
+        return sorted((e["name"], e["ph"], tuple(sorted(keys(e)))) for e in events)
 
     assert shape(got, PORT_DISPATCH_KEYS) == shape(want)
 
