@@ -23,7 +23,8 @@ Both devices read back alike: once per shard before its first trip (is
 any lane alive, are the slot ids the aligned layout, and which is the
 last slot with an alive lane), then once per live shard after its loop
 (the exit condition, with the support passes and the lanes they were
-given, which the device counted), two a live shard whatever its trips;
+given, which the device counted, and on CUDA the support kernel's global
+claims), two a live shard whatever its trips;
 the executor counts every readback in ``host_syncs``.  An aligned shard's
 trips walk only its leading slots up to the last live one, rounded up to
 a power of two (:func:`_slot_prefix`): the slots past them are done
@@ -78,6 +79,7 @@ from ..obs.names import (
     PEEL_LEVEL_TRIPS,
     PEEL_LEVEL_TRIPS_CARRIED,
     PEEL_LEVEL_TRIPS_INCREMENTAL,
+    PEEL_SUPPORT_CLAIMS,
     PEEL_SUPPORT_LANES,
     PEEL_SUPPORT_PASSES,
     PEEL_TRIP_LANES_WALKED,
@@ -399,6 +401,7 @@ class _EagerTrips:
         # launch counts itself.
         self.passes = torch.zeros((), dtype=torch.int32, device=dev)
         self.support_lanes = torch.zeros((), dtype=torch.int64, device=dev)
+        self.support_claims = None  # the kernel's claims are counted on the card only
 
     def run(self) -> None:
         while bool(_trip_pred(self.st, self.limit)):
@@ -432,10 +435,12 @@ class _TripGraph:
     buffer.  The support function runs only at capture, so it must be
     pure tensor ops on its inputs.  A ``support_fine_cuda`` pass in the
     body adds one to the graph's device counter ``passes`` each time it
-    runs, and the lanes its worklist listed to the int64 ``support_lanes``
+    runs, the lanes its worklist listed to the int64 ``support_lanes``
     (a count the kernel has already made: a reduction of the pass's mask
-    would cost a tenth of a trip); :meth:`ran` adds what a replay counted
-    to its ``launches``, and :meth:`load` zeroes both counters.
+    would cost a tenth of a trip) and the global claims and reservations
+    its launches made to the int64 ``support_claims``; :meth:`ran` adds
+    what a replay counted to its ``launches``, and :meth:`load` zeroes the
+    counters.
     """
 
     def __init__(self, support: SupportFn, step: tuple, st: PeelState, limit: int):
@@ -455,6 +460,7 @@ class _TripGraph:
         dev = st.alive.device
         self.passes = torch.zeros((), dtype=torch.int32, device=dev)
         self.support_lanes = torch.zeros((), dtype=torch.int64, device=dev)
+        self.support_claims = torch.zeros((), dtype=torch.int64, device=dev)
         self.events = EventPair(dev)  # each replay's timing pair
         self.load(step, st)
         self.graph = torch.cuda.CUDAGraph()
@@ -476,7 +482,9 @@ class _TripGraph:
         with torch.cuda.stream(self.side):
             graph.capture_begin(capture_error_mode=mode)
             try:
-                with count_launches_on_device(self.passes, lanes=self.support_lanes):
+                with count_launches_on_device(
+                    self.passes, lanes=self.support_lanes, claims=self.support_claims
+                ):
                     while_loop(
                         lambda: _trip_pred(self.st, self.limit), self._trip, self.body,
                         self.pool, mode,
@@ -510,6 +518,7 @@ class _TripGraph:
                 dst.copy_(src)
             self.passes.zero_()
             self.support_lanes.zero_()
+            self.support_claims.zero_()
 
     def run(self) -> None:
         from ..kernels.graph_while import GRAPH_SITE  # lazy: CUDA only
@@ -585,7 +594,9 @@ class _Peel:
         after another.  The exit's readback also brings each loop's support
         passes and support lanes: ``peel_trips``, ``peel_support_passes``
         and ``peel_support_lanes`` add them, ``peel_trip_lanes_walked`` the
-        trips times the lanes of the slots they walked, and ``span_attrs``
+        trips times the lanes of the slots they walked,
+        ``peel_support_claims`` (a trip graph's alone) the support kernel's
+        global claims and reservations, and ``span_attrs``
         (the ``dispatch`` span's, while tracing) gets the live shards'
         ``trips`` and ``support_lanes``, their live slots (``members``: an
         aligned shard's live prefix, every slot of another) and the slots
@@ -638,11 +649,14 @@ class _Peel:
             for j in live:
                 run = runs[j]
                 self.host_syncs += 1
-                # The loop's exit, with the support passes and lanes the
-                # device counted: one readback per live shard.
-                all_done, trips, passes, lanes = torch.stack(  # trusslint: disable=R1
-                    [run.st.done.all().to(torch.int64), run.st.total_iters.to(torch.int64),
-                     run.passes.to(torch.int64), run.support_lanes]
+                # The loop's exit, with the support passes, lanes and claims
+                # the device counted: one readback per live shard.
+                counted = [run.st.done.all().to(torch.int64), run.st.total_iters.to(torch.int64),
+                           run.passes.to(torch.int64), run.support_lanes]
+                if run.support_claims is not None:
+                    counted.append(run.support_claims)
+                all_done, trips, passes, lanes, *claims = torch.stack(  # trusslint: disable=R1
+                    counted
                 ).tolist()
                 if not all_done and trips < limit:
                     from ..kernels.graph_while import GRAPH_SITE
@@ -655,6 +669,8 @@ class _Peel:
                 registry.inc(PEEL_TRIPS, trips)
                 registry.inc(PEEL_SUPPORT_PASSES, passes)
                 registry.inc(PEEL_SUPPORT_LANES, lanes)
+                if claims:
+                    registry.inc(PEEL_SUPPORT_CLAIMS, claims[0])
                 registry.inc(PEEL_TRIP_LANES_WALKED, trips * int(run.st.alive.shape[0]))
                 total_trips += trips
                 total_lanes += lanes

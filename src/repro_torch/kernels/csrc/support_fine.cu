@@ -24,23 +24,43 @@
 // data-dependent probes: each binary search is a chain of dependent loads
 // into rows that sit in L2 (the rows of rmat-15 are 16 MB), and the work per
 // lane ranges from nothing (a dead or pad lane) to thousands of probes (a
-// pair of hub rows).  The design keeps every thread with a probe in flight
-// and gives no thread work that cannot change the result:
+// pair of hub rows).  The design keeps every thread with a probe in flight,
+// gives no thread work that cannot change the result, and keeps atomics on
+// one global word off the per-warp path (the L2 serialises them: claimed a
+// few at a time by each warp, a planar mesh's 1.1 M short items would queue
+// 280 K atomics on one cursor, about 0.7 ns each on the H100):
 // - two launches on one stream.  The first (build_worklist) lifts alive to
 //   the undirected lanes (one byte each, in scratch) and compacts the alive
-//   real lanes into a worklist in scratch with warp ballots, one atomic per
-//   warp; pad lanes, dead lanes and empty slots cost nothing past it.  The
+//   real lanes into a worklist in scratch.  A block classifies a tile of
+//   kTileSteps lanes a thread, sums its warps' ballots in shared memory and
+//   reserves its span of each half of the list with one atomic a tile;
+//   pad lanes, dead lanes and empty slots cost nothing past it.  The
 //   wrapper zeroes `out`, so the second launch touches only listed lanes;
 // - the shorter of the lane's two rows is walked: each of its entries is
 //   binary-searched in the longer row, and a hit counts only where both
 //   entries are alive (a hub to a leaf costs the leaf's few probes, not
 //   the hub's thousands);
-// - flattened probes (intersect.cuh::count_flat): a warp claims up to
-//   kMaxClaim items by an atomic cursor (fewer when the list is short, so
-//   that every warp gets a share), lays their chunks end to end by a warp
-//   scan, and runs them one probe a thread, so short rows do not idle the
-//   warp.  Claims are small: the items' costs differ by hundreds of times,
-//   and small claims keep warps from ending the launch on a long tail;
+// - flattened probes (intersect.cuh::count_flat): a warp draws up to
+//   kMaxClaim items, lays their chunks end to end by a warp scan, and runs
+//   them one probe a thread, so short rows do not idle the warp.  A draw
+//   takes fewer items when the list cannot give every warp kMinDraws
+//   draws: the items' costs differ by hundreds of times, and many small
+//   draws keep warps from ending the launch on a long tail, while a long
+//   list of short items keeps more probes in flight a warp (a sweep on the
+//   H100: 8 and 12 first of 4 to 12 and 1 to 24);
+// - claims per block, draws per warp: a block of 16 warps claims a batch
+//   of whole chunks (a chunk is one draw for each of its warps) from the
+//   global cursor with one atomic, and its warps draw from the batch by a
+//   cursor in shared memory.  The batch is guided: a claim takes the chunks
+//   left over kGuide times the blocks of the grid (at least one, at most
+//   kMaxBatchChunks), so batches shrink as the list drains and the launch
+//   ends on one-chunk batches, a draw a warp, as per-warp claims did; the
+//   first batches are a third of a block's share, so that a block whose
+//   first items are heavy still ends with the others (a batch of a whole
+//   share left rmat-15's blocks about 30% apart).  The warp that takes a
+//   batch's last draw claims the next batch, so that it is ready when the
+//   batch runs out.  A planar mesh's pass makes a few thousand claims;
+//   each block adds its claims and reservations to one word at its exit;
 // - hub rows split: a lane whose shorter row exceeds split_row entries is
 //   split_ways items, each a chunk of that row, which several warps take;
 //   they add into out[t] with integer atomics, exact in any order.  Split
@@ -62,25 +82,50 @@ using intersect::count_flat;
 using intersect::kFull;
 using intersect::kWarp;
 
-constexpr int kThreads = 256;  // the most threads a block of either kernel takes
+constexpr int kThreads = 512;  // the most threads a block of either kernel takes
 constexpr int kWarps = kThreads / kWarp;
-constexpr int kBlocksPerSm = 8;  // the second launch's grid: SMs x this
-// The most items a warp claims at a time.  Small claims balance items whose
-// costs differ by hundreds of times (a sweep on the H100 over 4 to 32 put
-// 4 first).
-constexpr int kMaxClaim = 4;
-static_assert(kMaxClaim <= kWarp, "a claim is one item a lane");
+// The second launch's grid: SMs x this, 2,048 threads an SM at kThreads
+// (so 32 registers a thread).  Fewer, larger blocks make fewer claims.
+constexpr int kBlocksPerSm = 4;
+// The most items a warp draws at a time, and the fewest draws each warp
+// of the grid should get from the list: a draw takes fewer items than
+// kMaxClaim when the list is too short to give every warp kMinDraws.
+// Large draws keep more probes in flight a warp; many draws a warp balance
+// items whose costs differ by hundreds of times.
+constexpr int kMaxClaim = 8;
+constexpr int kMinDraws = 12;
+static_assert(kMaxClaim <= kWarp, "a draw is one item a lane");
+// Lanes each thread of the worklist launch classifies in one tile (one bit
+// of a mask each): a block reserves a tile's listed lanes at once.
+constexpr int kTileSteps = 16;
+static_assert(kTileSteps <= 32, "a tile's steps are bits of one word");
+// A claim takes the unclaimed chunks over kGuide times the blocks: the first
+// batches are a third of a block's even share, so that a block whose early
+// items are heavy (split hub rows come first) still finishes with the others.
+constexpr int kGuide = 3;
+// A block's batch: the first chunk (32 bits), the chunks in it (8 bits) and
+// the items its warps have drawn (24 bits, which never pass the batch's
+// items, at most kMaxBatchChunks * kWarps * kMaxClaim, by more than one
+// draw a warp).
+constexpr int kMaxBatchChunks = 255;
+constexpr unsigned long long kNoBatch = 0xffffffffull << 32;  // the list is claimed
+static_assert((kMaxBatchChunks + 1) * kWarps * kMaxClaim < (1 << 24), "a batch's draws fit");
 
-// `counts` (int32, zeroed by the wrapper): the 64-bit item cursor (words 0
-// and 1, 8-byte aligned; warps claim past the end of the list, so it
-// outgrows the item count), then the lengths of the two halves of the
-// list: unsplit lanes from the front, split lanes from the back.
-enum : int { kRegCount = 2, kSplitCount = 3 };
+// `counts` (int32, zeroed by the wrapper): the 64-bit chunk cursor (words 0
+// and 1, 8-byte aligned; blocks may claim past the end of the list, so it
+// may outgrow the chunk count), the lengths of the two halves of the list
+// (unsplit lanes from the front, split lanes from the back), and the global
+// claims and reservations both launches made.
+enum : int { kRegCount = 2, kSplitCount = 3, kClaims = 4 };
 
 __device__ __forceinline__ int32_t row_start(const int32_t* __restrict__ urowptr, int32_t v) {
   return v > 0 ? urowptr[v - 1] : 0;
 }
 
+// Lists each alive real lane once: unsplit lanes from the front of `list`,
+// split lanes from the back.  A block's tile is kTileSteps x blockDim.x
+// lanes, step j of thread i its lane j * blockDim.x + i; the tile's lanes of
+// each half lie together in the list, warp by warp, step by step.
 __global__ void __launch_bounds__(kThreads)
 build_worklist(const int32_t* __restrict__ edge_row, const int32_t* __restrict__ colidx,
                const uint8_t* __restrict__ alive, const int32_t* __restrict__ udeg,
@@ -88,8 +133,13 @@ build_worklist(const int32_t* __restrict__ edge_row, const int32_t* __restrict__
                uint8_t* __restrict__ ualive, int32_t* __restrict__ list,
                int32_t* __restrict__ counts, int64_t nnzp, int64_t unnzp, int32_t split_row,
                int32_t* __restrict__ launch_count) {
+  // Each warp's listed lanes of the tile, then its offset in the block's
+  // span, for the two halves; the span's start in each half.
+  __shared__ int32_t warp_span[2][kWarps];
+  __shared__ int32_t block_base[2];
   if (launch_count != nullptr && blockIdx.x == 0 && threadIdx.x == 0) atomicAdd(launch_count, 1);
-  const int lane = threadIdx.x % kWarp;
+  const int lane = threadIdx.x % kWarp, warp = threadIdx.x / kWarp;
+  const int warps = blockDim.x / kWarp;
   const int64_t tid = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   const int64_t nthreads = static_cast<int64_t>(gridDim.x) * blockDim.x;
 
@@ -99,26 +149,58 @@ build_worklist(const int32_t* __restrict__ edge_row, const int32_t* __restrict__
   }
 
   const unsigned lt = (1u << lane) - 1;
-  for (int64_t t0 = tid - lane; t0 < nnzp; t0 += nthreads) {  // warp-uniform
-    const int64_t t = t0 + lane;
-    bool keep = false, split = false;
-    if (t < nnzp) {
-      const int32_t b = colidx[t];
-      keep = b != 0 && alive[t];
-      if (keep) split = min(udeg[edge_row[t]], udeg[b]) > split_row;
+  const int64_t tile = static_cast<int64_t>(blockDim.x) * kTileSteps;
+  int32_t reservations = 0;  // thread 0's
+  for (int64_t t0 = blockIdx.x * tile; t0 < nnzp; t0 += gridDim.x * tile) {  // block-uniform
+    unsigned reg = 0, spl = 0;  // bit j: step j's lane is listed unsplit, split
+#pragma unroll
+    for (int j = 0; j < kTileSteps; ++j) {
+      const int64_t t = t0 + static_cast<int64_t>(j) * blockDim.x + threadIdx.x;
+      if (t < nnzp) {
+        const int32_t b = colidx[t];
+        if (b != 0 && alive[t]) {
+          if (min(udeg[edge_row[t]], udeg[b]) > split_row) spl |= 1u << j;
+          else reg |= 1u << j;
+        }
+      }
     }
-    const unsigned m_reg = __ballot_sync(kFull, keep && !split);
-    const unsigned m_spl = __ballot_sync(kFull, keep && split);
-    int32_t base_reg = 0, base_spl = 0;
+    const int n_reg = __reduce_add_sync(kFull, __popc(reg));
+    const int n_spl = __reduce_add_sync(kFull, __popc(spl));
     if (lane == 0) {
-      if (m_reg) base_reg = atomicAdd(counts + kRegCount, __popc(m_reg));
-      if (m_spl) base_spl = atomicAdd(counts + kSplitCount, __popc(m_spl));
+      warp_span[0][warp] = n_reg;
+      warp_span[1][warp] = n_spl;
     }
-    base_reg = __shfl_sync(kFull, base_reg, 0);
-    base_spl = __shfl_sync(kFull, base_spl, 0);
-    if (keep && !split) list[base_reg + __popc(m_reg & lt)] = static_cast<int32_t>(t);
-    if (keep && split) list[nnzp - 1 - (base_spl + __popc(m_spl & lt))] = static_cast<int32_t>(t);
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      for (int h = 0; h < 2; ++h) {
+        int32_t total = 0;
+        for (int w = 0; w < warps; ++w) {
+          const int32_t n = warp_span[h][w];
+          warp_span[h][w] = total;
+          total += n;
+        }
+        block_base[h] = total ? atomicAdd(counts + (h ? kSplitCount : kRegCount), total) : 0;
+        reservations += total != 0;
+      }
+    }
+    __syncthreads();
+    int32_t at_reg = block_base[0] + warp_span[0][warp];
+    int32_t at_spl = block_base[1] + warp_span[1][warp];
+#pragma unroll
+    for (int j = 0; j < kTileSteps; ++j) {
+      const int32_t t =
+          static_cast<int32_t>(t0 + static_cast<int64_t>(j) * blockDim.x + threadIdx.x);
+      const unsigned m_reg = __ballot_sync(kFull, (reg >> j) & 1u);
+      const unsigned m_spl = __ballot_sync(kFull, (spl >> j) & 1u);
+      if ((reg >> j) & 1u) list[at_reg + __popc(m_reg & lt)] = t;
+      if ((spl >> j) & 1u) list[nnzp - 1 - (at_spl + __popc(m_spl & lt))] = t;
+      at_reg += __popc(m_reg);
+      at_spl += __popc(m_spl);
+    }
+    // warp_span and block_base are rewritten for the next tile only after
+    // every warp has passed the next tile's first barrier.
   }
+  if (threadIdx.x == 0 && reservations) atomicAdd(counts + kClaims, reservations);
 }
 
 struct Problem {
@@ -171,35 +253,99 @@ __device__ __forceinline__ Item resolve(const Problem& a, int64_t q, int64_t n_s
   return it;
 }
 
-// Warps claim up to kMaxClaim items at a time by an atomic cursor, fewer
-// when the list is too short to give every warp kMaxClaim.
+// Claims a block's next batch from the global cursor (counts' words 0 and
+// 1): the chunks not yet claimed over kGuide times the blocks of the grid,
+// at least one and at most kMaxBatchChunks, as a batch word (no item
+// drawn), or kNoBatch once every chunk is claimed.  The read before the
+// claim keeps blocks from claiming past the end; a read that lags other
+// blocks' claims only makes the batch larger.  Adds the claim to the
+// block's count.
+__device__ __noinline__ unsigned long long claim_batch(int32_t* counts, int64_t n_items,
+                                                       int32_t chunk, int32_t* block_claims) {
+  unsigned long long* cursor = reinterpret_cast<unsigned long long*>(counts);
+  const int64_t n_chunks = (n_items + chunk - 1) / chunk;
+  const int64_t done =
+      static_cast<int64_t>(*reinterpret_cast<volatile unsigned long long*>(cursor));
+  if (done >= n_chunks) return kNoBatch;
+  const int64_t spread = static_cast<int64_t>(kGuide) * gridDim.x;
+  int64_t take = (n_chunks - done + spread - 1) / spread;
+  if (take > kMaxBatchChunks) take = kMaxBatchChunks;
+  const int64_t first =
+      static_cast<int64_t>(atomicAdd(cursor, static_cast<unsigned long long>(take)));
+  atomicAdd(block_claims, 1);
+  if (first >= n_chunks) return kNoBatch;
+  return static_cast<unsigned long long>(first) << 32 | static_cast<unsigned long long>(take) << 24;
+}
+
+// Warps draw `share` items at a time (kMaxClaim, fewer when the list is too
+// short to give every warp kMinDraws draws) from their block's batch, a run of
+// whole chunks of the item order (a chunk is `share` items for each warp of
+// the block).  The warp whose draw is the batch's last claims the block's
+// next batch into `ahead`; the warp whose draw finds the batch used up
+// installs it, and the warps whose draws come after that wait for it.  A
+// warp stops once a draw lies past the end of the list (kNoBatch's first
+// chunk lies past any list's end).
 __global__ void __launch_bounds__(kThreads, kBlocksPerSm) count_items(Problem a) {
   __shared__ int32_t warp_counts_all[kWarps][kWarp];
+  __shared__ unsigned long long batch;  // first chunk << 32 | chunks << 24 | items drawn
+  __shared__ unsigned long long ahead;  // the next batch's word; 0 while it is being claimed
+  __shared__ int32_t block_claims;
   const int lane = threadIdx.x % kWarp;
   int32_t* warp_counts = warp_counts_all[threadIdx.x / kWarp];
-  unsigned long long* cursor = reinterpret_cast<unsigned long long*>(a.counts);
   const int64_t n_split_items = static_cast<int64_t>(a.counts[kSplitCount]) * a.split_ways;
   const int64_t n_items = n_split_items + a.counts[kRegCount];
-  const int64_t n_warps = static_cast<int64_t>(gridDim.x) * (blockDim.x / kWarp);
-  int64_t share = (n_items + n_warps - 1) / n_warps;
-  if (share > kMaxClaim) share = kMaxClaim;
-  if (share < 1) share = 1;
+  const int64_t draws = static_cast<int64_t>(gridDim.x) * (blockDim.x / kWarp) * kMinDraws;
+  const int32_t share = static_cast<int32_t>(
+      max(min((n_items + draws - 1) / draws, static_cast<int64_t>(kMaxClaim)), int64_t{1}));
+  const int32_t chunk = share * static_cast<int32_t>(blockDim.x / kWarp);
+  if (threadIdx.x == 0) {
+    block_claims = 0;
+    batch = 0;  // an empty batch at chunk 0: the first draw installs `ahead`
+    ahead = claim_batch(a.counts, n_items, chunk, &block_claims);
+  }
+  __syncthreads();
   while (true) {
-    unsigned long long claimed = 0;
-    if (lane == 0) claimed = atomicAdd(cursor, static_cast<unsigned long long>(share));
-    const int64_t base = static_cast<int64_t>(__shfl_sync(kFull, claimed, 0));
-    if (base >= n_items) break;
-    const int64_t q = base + lane;  // lane i resolves item i of the claim
-    Item mine{-1, 0, 0, 0, 0, 1};
-    if (q < min(base + share, n_items)) mine = resolve(a, q, n_split_items);
-    count_flat<false>(a.ucolidx, a.ualive, mine.s0, mine.n, mine.l0, mine.dl, warp_counts, lane);
-    const int32_t c = warp_counts[lane];
-    if (mine.t >= 0 && c) {
-      if (mine.whole) a.out[mine.t] = c;
-      else atomicAdd(a.out + mine.t, c);
+    unsigned long long w = 0;
+    if (lane == 0) w = atomicAdd(&batch, static_cast<unsigned long long>(share));
+    w = __shfl_sync(kFull, w, 0);
+    const int64_t first = static_cast<int64_t>(w >> 32) * chunk;
+    const int64_t end = first + static_cast<int64_t>((w >> 24) & 0xff) * chunk;
+    const int64_t base = first + static_cast<int64_t>(w & 0xffffff);
+    if (base < end) {  // a draw from the batch
+      if (base >= n_items) break;  // the batch holds the list's end: nothing is left
+      if (lane == 0 && base + share == end) {
+        const unsigned long long next = claim_batch(a.counts, n_items, chunk, &block_claims);
+        *static_cast<volatile unsigned long long*>(&ahead) = next;
+      }
+      const int64_t q = base + lane;  // lane i resolves item i of the draw
+      Item mine{-1, 0, 0, 0, 0, 1};
+      if (q < min(base + share, n_items)) mine = resolve(a, q, n_split_items);
+      count_flat<false>(a.ucolidx, a.ualive, mine.s0, mine.n, mine.l0, mine.dl, warp_counts, lane);
+      const int32_t c = warp_counts[lane];
+      if (mine.t >= 0 && c) {
+        if (mine.whole) a.out[mine.t] = c;
+        else atomicAdd(a.out + mine.t, c);
+      }
+    } else {
+      if (end >= n_items) break;  // the batch held the list's end, or none is left
+      if (lane == 0) {
+        volatile unsigned long long* vahead = &ahead;
+        if (base == end) {  // the batch is used up: install the next one
+          unsigned long long next;
+          while ((next = *vahead) == 0) __nanosleep(32);
+          *vahead = 0;
+          __threadfence_block();
+          atomicExch(&batch, next);
+        } else {  // wait for the warp that installs it
+          const volatile unsigned long long* vbatch = &batch;
+          while ((*vbatch >> 24) == (w >> 24)) __nanosleep(32);
+        }
+      }
     }
     __syncwarp();
   }
+  __syncthreads();
+  if (threadIdx.x == 0 && block_claims) atomicAdd(a.counts + kClaims, block_claims);
 }
 
 }  // namespace
@@ -207,12 +353,14 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm) count_items(Problem a)
 extern "C" {
 
 // Launches both kernels on `stream`; returns the first nonzero cudaError_t
-// of the two launches (0 = success).  `out` and `counts` must come zeroed;
-// ualive (unnzp bytes) and list (nnzp int32) are scratch.  threads_list and
-// threads_count are the two launches' block sizes (multiples of 32, at most
-// 256).  `launch_count`, when not null, is one int32 on the device to which
-// the worklist launch adds one each time it runs (a call captured into a
-// CUDA graph runs whenever the graph does).
+// of the two launches (0 = success).  `out` and `counts` (kClaims + 1
+// int32) must come zeroed; ualive (unnzp bytes) and list (nnzp int32) are
+// scratch; counts[kClaims] ends holding the global claims and reservations
+// the two launches made.  threads_list and threads_count are the two
+// launches' block sizes (multiples of 32, at most kThreads).
+// `launch_count`, when not null, is one int32 on the device to which the
+// worklist launch adds one each time it runs (a call captured into a CUDA
+// graph runs whenever the graph does).
 int support_fine_launch(const void* edge_row, const void* colidx, const void* alive,
                         const void* urowptr, const void* udeg, const void* ucolidx,
                         const void* u2d, void* ualive, void* list, void* counts, void* out,

@@ -28,9 +28,17 @@ CUDA graph launches nothing then, and the graph may run it many times or
 none: such a call must be made inside :func:`count_launches_on_device`,
 and its worklist kernel then adds one to that device counter each time it
 runs (and, when a lane counter is given, each run adds the lanes its
-worklist listed to that counter too).  The graph's owner reads the counter
-back and adds it to ``launches`` (``repro_torch.exec.peel._TripGraph``),
-so every launch is counted by the kernel that ran.
+worklist listed to that counter too; when a claim counter is given, the
+global claims and reservations the two launches made).  The graph's owner
+reads the counter back and adds it to ``launches``
+(``repro_torch.exec.peel._TripGraph``), so every launch is counted by the
+kernel that ran.
+
+The items launch claims work per block, not per warp: a block claims a
+batch of items from the global cursor with one atomic, and its warps draw
+from the batch in shared memory; the worklist launch reserves a tile's
+listed lanes with one atomic per half of the list.  :func:`claim_bounds`
+gives the least and the most such claims a pass can make.
 """
 
 from __future__ import annotations
@@ -51,6 +59,7 @@ __all__ = [
     "support_fine_cuda",
     "count_launches_on_device",
     "support_fine_items",
+    "claim_bounds",
     "load_support_fine",
     "worklist",
     "worklist_elements",
@@ -59,11 +68,20 @@ __all__ = [
 
 _FIELDS = ("edge_row", "colidx", "urowptr", "udeg", "ucolidx", "u2d")
 # Threads per block of the two launches (worklist, items).
-_LAUNCH_THREADS = (256, 256)
-# `counts`: a 64-bit item cursor (two words) and the two list lengths.
-_COUNTER_WORDS = 4
+_LAUNCH_THREADS = (512, 512)
+# `counts`: a 64-bit chunk cursor (two words), the two list lengths and the
+# launches' global claims and reservations.
+_COUNTER_WORDS = 5
 _LIST_LENGTHS = slice(2, 4)  # the unsplit and split lanes the worklist kernel listed
-# .counter, .lanes: this thread's device launch and lane counters, if any
+_CLAIMS = 4
+# What the kernels fix at compile time (csrc/support_fine.cu): the items
+# launch's blocks per SM, the lanes a worklist thread classifies a tile, the
+# most items a warp draws, the fewest draws a warp should get, the most
+# chunks a block claims at once, and the blocks over which a claim spreads
+# what is unclaimed (times the grid).
+_BLOCKS_PER_SM, _TILE_STEPS, _MAX_CLAIM, _MIN_DRAWS = 4, 16, 8, 12
+_MAX_BATCH_CHUNKS, _GUIDE = 255, 3
+# .counter, .lanes, .claims: this thread's device counters, if any
 _capture = threading.local()
 
 
@@ -94,7 +112,8 @@ def worklist_elements(nnzp: int, unnzp: int) -> dict[str, int]:
     """Elements of each scratch buffer of one :func:`support_fine_cuda`
     call: the undirected alive flags (``ualive``, uint8), the worklist
     (``list``, int32: unsplit lanes from the front, split lanes from the
-    back, each listed lane once) and ``counts`` (int32, zeroed)."""
+    back, each listed lane once) and ``counts`` (int32, zeroed: the chunk
+    cursor, the two list lengths, the claims)."""
     return {"ualive": unnzp, "list": nnzp, "counts": _COUNTER_WORDS}
 
 
@@ -160,6 +179,58 @@ def support_fine_items(p: FineProblem, alive: torch.Tensor) -> torch.Tensor:
     return torch.zeros(nnzp, dtype=torch.int32).index_add_(0, lanes, per_item)
 
 
+def _item_chunks(n_items: int, sms: int) -> tuple[int, int]:
+    """The items launch's blocks on a card of ``sms`` SMs, and the chunks of
+    a list of ``n_items`` items: a chunk is one draw of ``share`` items
+    (``_MAX_CLAIM``, fewer when the list cannot give every warp of the grid
+    ``_MIN_DRAWS`` draws) for each warp of a block."""
+    blocks = _BLOCKS_PER_SM * sms
+    warps = _LAUNCH_THREADS[1] // 32
+    share = min(_MAX_CLAIM, max(1, -(-n_items // (blocks * warps * _MIN_DRAWS))))
+    return blocks, -(-n_items // (share * warps))
+
+
+def _batch_chunks(left: int, blocks: int) -> int:
+    """The chunks a block claims when it reads ``left`` chunks unclaimed."""
+    return min(_MAX_BATCH_CHUNKS, -(-left // (_GUIDE * blocks)))
+
+
+def _batch_claim_bounds(n_items: int, sms: int) -> tuple[int, int]:
+    """The least and the most global claims of the items launch on a list of
+    ``n_items`` items (see :func:`claim_bounds`)."""
+    blocks, n_chunks = _item_chunks(n_items, sms)
+    if n_chunks == 0:
+        return 0, 0
+    claimed = exact = 0
+    while claimed < n_chunks:
+        claimed += _batch_chunks(n_chunks - claimed, blocks)
+        exact += 1
+    return -(-n_chunks // _batch_chunks(n_chunks, blocks)), exact + blocks
+
+
+def claim_bounds(p: FineProblem, alive: torch.Tensor, sms: int) -> tuple[int, int]:
+    """The least and the most global claims and reservations one
+    :func:`support_fine_cuda` pass on ``alive`` makes on a card of ``sms``
+    SMs: what the kernels add to ``counts`` (and a captured pass to its
+    claim counter).
+
+    The worklist launch reserves once for each half of the list (unsplit,
+    split) that lists a lane of a tile (``_TILE_STEPS`` lanes a thread):
+    exactly that many.  The items launch's blocks claim batches of whole
+    chunks (:func:`_item_chunks`); a claim takes the unclaimed chunks over
+    ``_GUIDE`` times the blocks, at least one and at most
+    ``_MAX_BATCH_CHUNKS``, by a read of
+    the cursor that may lag the claims of other blocks.  A lagging read
+    only makes a batch larger, so the claims are at most those of the same
+    rule on exact reads, and at least the chunks over the first batch's
+    size; each block may make one more claim that finds the list used up."""
+    wl = worklist(p, alive)
+    tile = _LAUNCH_THREADS[0] * _TILE_STEPS
+    reservations = sum(int(torch.unique(lanes // tile).numel()) for lanes in wl)
+    least, most = _batch_claim_bounds(wl.items, sms)
+    return reservations + least, reservations + most
+
+
 def load_support_fine() -> BuiltLibrary:
     """Build (on first use) and load the kernel library; ctypes signatures set."""
     built = load_library("support_fine")
@@ -194,25 +265,29 @@ def _check(p: FineProblem, alive: torch.Tensor) -> None:
 
 @contextlib.contextmanager
 def count_launches_on_device(
-    counter: torch.Tensor, lanes: torch.Tensor | None = None
+    counter: torch.Tensor, lanes: torch.Tensor | None = None, claims: torch.Tensor | None = None
 ) -> Iterator[None]:
     """Inside the block, in this thread, a :func:`support_fine_cuda` call
     captured into a CUDA graph passes ``counter`` (one int32 on the card)
     to its kernel, which adds one to it every time the graph launches it.
     With ``lanes`` (one int64 on the card), each run of the call also adds
     to it the lanes its worklist listed: the alive real lanes of its mask,
-    whose supports it counts."""
-    for name, t, dtype in (("counter", counter, torch.int32), ("lanes", lanes, torch.int64)):
+    whose supports it counts.  With ``claims`` (one int64 on the card),
+    each run adds the global claims and reservations its two launches made
+    (:func:`claim_bounds`)."""
+    given = (("counter", counter, torch.int32), ("lanes", lanes, torch.int64),
+             ("claims", claims, torch.int64))
+    for name, t, dtype in given:
         if t is not None and (t.dtype != dtype or t.numel() != 1 or not t.is_cuda):
             raise ValueError(
                 f"{name} must be one CUDA {dtype}, got {t.dtype} {tuple(t.shape)} on {t.device}"
             )
-    outer = getattr(_capture, "counter", None), getattr(_capture, "lanes", None)
-    _capture.counter, _capture.lanes = counter, lanes
+    outer = tuple(getattr(_capture, name, None) for name, _, _ in given)
+    _capture.counter, _capture.lanes, _capture.claims = counter, lanes, claims
     try:
         yield
     finally:
-        _capture.counter, _capture.lanes = outer
+        _capture.counter, _capture.lanes, _capture.claims = outer
 
 
 def support_fine_cuda(p: FineProblem, alive: torch.Tensor) -> torch.Tensor:
@@ -231,6 +306,7 @@ def support_fine_cuda(p: FineProblem, alive: torch.Tensor) -> torch.Tensor:
         captured = torch.cuda.is_current_stream_capturing()
         counter = getattr(_capture, "counter", None) if captured else None
         lanes = getattr(_capture, "lanes", None) if captured else None
+        claims = getattr(_capture, "claims", None) if captured else None
         if captured and (counter is None or counter.device != dev):
             raise ValueError(
                 "support_fine_cuda captured into a CUDA graph needs a launch counter on "
@@ -266,6 +342,8 @@ def support_fine_cuda(p: FineProblem, alive: torch.Tensor) -> torch.Tensor:
         support_fine_cuda.launches += 1
     if lanes is not None:
         lanes.add_(counts[_LIST_LENGTHS].sum())
+    if claims is not None:
+        claims.add_(counts[_CLAIMS])
     return out
 
 

@@ -28,8 +28,9 @@ its launches add to (``repro_torch.kernels.peel_fused.LevelCounts``),
 ``peel_level_trips_incremental``, ``peel_level_lanes_counted``,
 ``peel_level_trips_carried`` and ``peel_level_lanes_walked``.  The unfused
 trip loop counts ``peel_trips``, ``peel_support_passes``,
-``peel_support_lanes`` and ``peel_trip_lanes_walked``, read back with its
-exit, and the planner ``peel_slots_shared`` (the members of each dispatch
+``peel_support_lanes``, ``peel_trip_lanes_walked`` and, on CUDA,
+``peel_support_claims`` (the support kernel's global claims), read back
+with its exit, and the planner ``peel_slots_shared`` (the members of each dispatch
 whose graph object an earlier member of it also holds), counted where the
 batch is packed.  The event timing is always on; it adds no
 synchronization.

@@ -26,6 +26,7 @@ __all__ = [
     "PEEL_LEVEL_TRIPS_CARRIED",
     "PEEL_LEVEL_TRIPS_INCREMENTAL",
     "PEEL_SLOTS_SHARED",
+    "PEEL_SUPPORT_CLAIMS",
     "PEEL_SUPPORT_LANES",
     "PEEL_SUPPORT_PASSES",
     "PEEL_TRIP_LANES_WALKED",
@@ -55,6 +56,10 @@ PEEL_SUPPORT_PASSES = "peel_support_passes"  # support kernel passes the card co
 # mask (the live slots' effective alive lanes), as the support kernel's
 # worklist lists it on the card and as a sum of the mask off it
 PEEL_SUPPORT_LANES = "peel_support_lanes"
+# the global atomics the support kernel's launches made to claim items and
+# reserve worklist spans, counted by the kernel in each captured pass (card
+# only)
+PEEL_SUPPORT_CLAIMS = "peel_support_claims"
 # the lanes the trips' per-lane passes walked: each loop's trips times the
 # lanes of the slot prefix it peels (its live slots, rounded up)
 PEEL_TRIP_LANES_WALKED = "peel_trip_lanes_walked"
@@ -83,6 +88,7 @@ COUNTERS: frozenset[str] = frozenset(
         PEEL_LEVEL_TRIPS_INCREMENTAL,
         "peel_slots",
         PEEL_SLOTS_SHARED,
+        PEEL_SUPPORT_CLAIMS,
         PEEL_SUPPORT_LANES,
         PEEL_SUPPORT_PASSES,
         PEEL_TRIP_LANES_WALKED,

@@ -7,8 +7,9 @@ support kernel); at 2**12 points, the port's ``Session`` decompose on that
 path against the benchmark's plain reference and the JAX package, edge for
 edge; and the unfused trip loop's counters (``peel_trips``,
 ``peel_support_passes``, ``peel_support_lanes``) against what its support
-function was given.  On a card, the trip graph's counters and state
-against the same trips driven one at a time."""
+function was given (``peel_support_claims``, the support kernel's own
+count, absent off the card).  On a card, the trip graph's counters and
+state against the same trips driven one at a time."""
 
 import json
 import sys
@@ -30,7 +31,13 @@ from repro_torch.exec import peel as pm  # noqa: E402
 from repro_torch.graphs.csr import from_edges  # noqa: E402
 from repro_torch.graphs.stats import imbalance_stats  # noqa: E402
 from repro_torch.obs import names  # noqa: E402
-from repro_torch.obs.names import PEEL_SUPPORT_LANES, PEEL_SUPPORT_PASSES, PEEL_TRIPS  # noqa: E402
+from repro_torch.obs.names import (  # noqa: E402
+    PEEL_SUPPORT_CLAIMS,
+    PEEL_SUPPORT_LANES,
+    PEEL_SUPPORT_PASSES,
+    PEEL_TRIPS,
+)
+from ktbench.spec import load_reader  # noqa: E402
 
 CONFIG = json.loads((ROOT / "ktbench" / "configs" / "delaunay_n20.json").read_text())
 PUBLISHED_EDGES = 3_145_686  # SuiteSparse DIMACS10/delaunay_n20
@@ -150,6 +157,7 @@ def test_trip_loop_counts_its_trips_and_support_lanes(small, monkeypatch):
     assert counters[PEEL_TRIPS] == trips == len(given) > 1
     assert counters[PEEL_SUPPORT_LANES] == sum(given) > 0
     assert counters[PEEL_SUPPORT_PASSES] == 0  # off the card every launch counts itself
+    assert PEEL_SUPPORT_CLAIMS not in counters  # the kernel's claims: a card count
     assert given[-1] < given[0]  # the retired ktruss slot's lanes left the masks
     (dispatch,) = [e["args"] for e in s.obs.tracer.events() if e["name"] == "dispatch"]
     assert (dispatch["trips"], dispatch["support_lanes"]) == (trips, sum(given))
@@ -192,7 +200,9 @@ def test_lock_step_sums_the_counts_of_its_shards():
 
 
 @pytest.mark.parametrize(
-    "const", ["PEEL_TRIPS", "PEEL_SUPPORT_PASSES", "PEEL_SUPPORT_LANES", "PEEL_TRIP_LANES_WALKED"]
+    "const",
+    ["PEEL_TRIPS", "PEEL_SUPPORT_PASSES", "PEEL_SUPPORT_LANES", "PEEL_TRIP_LANES_WALKED",
+     "PEEL_SUPPORT_CLAIMS"],
 )
 def test_trip_loop_counters_are_declared_constants(const):
     """Each counter of the unfused trip loop is an exported constant of
@@ -202,6 +212,28 @@ def test_trip_loop_counters_are_declared_constants(const):
     assert getattr(names, const) in names.COUNTERS
     peel = (ROOT / "src" / "repro_torch" / "exec" / "peel.py").read_text()
     assert f"registry.inc({const}," in peel
+
+
+@pytest.mark.parametrize("metric", ["support_claims_per_trip.delaunay",
+                                    "support_claims_per_trip.q3"])
+@pytest.mark.parametrize("counts, want", [
+    ({PEEL_TRIPS: 860, PEEL_SUPPORT_CLAIMS: 860 * 4_000}, 4_000.0),
+    ({PEEL_TRIPS: 860}, None),  # off the card, or a program that does not count its claims
+    ({PEEL_SUPPORT_CLAIMS: 5}, None),
+])
+def test_support_claims_reader_is_the_ratio_of_two_counters(monkeypatch, metric, counts, want):
+    """The benchmark's reader of the support kernel's claims a trip: the
+    program's claims over its trips, nothing where either is absent; the
+    shared-queries cell's reader forwards to the Delaunay cell's."""
+    import repro_torch.obs as program_obs
+    from repro_torch.obs import MetricsRegistry
+
+    reg = MetricsRegistry()
+    for name, value in counts.items():
+        reg.inc(name, value)
+    monkeypatch.setattr(program_obs, "get_registry", lambda: reg)
+    ctx = type("Ctx", (), {"device": "cuda"})()
+    assert load_reader("layer_metrics", metric).read(ctx) == want
 
 
 # --------------------------------------------------------------------- #
@@ -258,6 +290,8 @@ def test_trip_graph_counts_equal_the_eager_loop(which, monkeypatch):
     assert counters[PEEL_TRIPS] == trips > 1
     assert counters[PEEL_SUPPORT_PASSES] == passes == trips
     assert counters[PEEL_SUPPORT_LANES] == int(eager.support_lanes) > 0
+    # Each pass over a nonempty list claims; an eager pass's claims are not filed.
+    assert passes <= counters[PEEL_SUPPORT_CLAIMS] < 8_000 * passes
     (graph_state,) = seen["states"]
     for name, a, b in zip(pm.PeelState._fields, graph_state, eager.st):
         assert torch.equal(a, b), name

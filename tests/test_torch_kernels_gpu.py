@@ -115,9 +115,19 @@ def test_a_batch_on_one_graph_lifts_it_once_on_the_card(cuda, monkeypatch, backe
 
 
 def _support_case(name, cuda):
-    """(problem, window, alive) of one edge case of the support kernel."""
-    if name == "split_hub":  # every clique lane's shorter row exceeds SPLIT_ROW
-        g = _star_clique()
+    """(problem, window, alive) of one case of the support kernel."""
+    if name in ("split_hub", "delaunay18", "rmat15"):
+        # split_hub: every clique lane's shorter row exceeds SPLIT_ROW;
+        # delaunay18: a planar mesh whose 786 K short items span several
+        # batches a block; rmat15: hub rows, split items.
+        if name == "split_hub":
+            g = _star_clique()
+        elif name == "delaunay18":
+            g = _delaunay(18)
+        else:
+            from repro_torch.configs import LARGE_GRAPHS
+
+            g = next(b for b in LARGE_GRAPHS if b.name == "rmat-15").build()
         p = prepare_fine(g, chunk=64, device=cuda)
         return p, bucket_for(g, chunk=64).window, p.colidx != 0
     gs = [f() for f in GRAPHS]
@@ -129,6 +139,10 @@ def _support_case(name, cuda):
     p, w = pp.problem, max(x.window for x in b)
     if name == "all_dead":  # an empty worklist
         return p, w, torch.zeros(p.nnz_pad, dtype=torch.bool, device=cuda)
+    if name == "short_list":  # fewer items than one batch a block
+        alive = torch.zeros(p.nnz_pad, dtype=torch.bool, device=cuda)
+        alive[torch.nonzero(p.colidx != 0).flatten()[::97]] = True
+        return p, w, alive
     # one_live_slot: only the barabasi slot (the fourth of eight) is alive
     a, e = pp.edge_ranges[3]
     alive = torch.zeros(p.nnz_pad, dtype=torch.bool, device=cuda)
@@ -136,9 +150,39 @@ def _support_case(name, cuda):
     return p, w, alive & (p.colidx != 0)
 
 
-@pytest.mark.parametrize("name", ["split_hub", "all_dead", "one_live_slot"])
+def _captured_claims(p, alive):
+    """The global claims and reservations of one ``support_fine_cuda``
+    pass, counted by its kernels in a captured graph's replay, and the
+    pass's support."""
+    from repro_torch.kernels.support_fine import count_launches_on_device
+
+    counter = torch.zeros((), dtype=torch.int32, device=alive.device)
+    claims = torch.zeros((), dtype=torch.int64, device=alive.device)
+    side = torch.cuda.Stream(alive.device)
+    side.wait_stream(torch.cuda.current_stream(alive.device))
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.stream(side):
+        graph.capture_begin()
+        try:
+            with count_launches_on_device(counter, claims=claims):
+                got = support_fine_cuda(p, alive)
+        finally:
+            graph.capture_end()
+    torch.cuda.current_stream(alive.device).wait_stream(side)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert int(counter) == 1
+    return int(claims), got
+
+
+@pytest.mark.parametrize(
+    "name", ["split_hub", "all_dead", "one_live_slot", "delaunay18", "rmat15", "short_list"]
+)
 def test_kernel_matches_plain_version_on_edge_cases(cuda, name):
-    from repro_torch.kernels.support_fine import worklist
+    """Bit for bit the plain version, eagerly and in a captured pass, whose
+    global claims and reservations lie within what the batch rule allows
+    (``claim_bounds``): far fewer than one claim a warp's draw."""
+    from repro_torch.kernels.support_fine import claim_bounds, worklist
 
     p, w, alive = _support_case(name, cuda)
     before = support_fine_cuda.launches
@@ -148,12 +192,21 @@ def test_kernel_matches_plain_version_on_edge_cases(cuda, name):
     want = support_fine_owner(p, alive, window=w, chunk=64)
     assert got.dtype == torch.int32 and torch.equal(got, want), name
     wl = worklist(p, alive)
-    assert (wl.split.numel() > 0) == (name == "split_hub")
+    assert (wl.split.numel() > 0) == (name in ("split_hub", "rmat15"))
     assert (wl.items == 0) == (name == "all_dead")
     if name == "all_dead":
         assert not bool(got.any())
     if name == "one_live_slot":
         assert bool(got.any()) and not bool(got[~alive].any())
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    claims, captured = _captured_claims(p, alive)
+    assert torch.equal(captured, want), name
+    lo, hi = claim_bounds(p, alive, sms)
+    assert lo <= claims <= hi, (name, lo, claims, hi)
+    if name == "all_dead":
+        assert claims == 0
+    if name in ("delaunay18", "rmat15"):  # batches of many draws, not a claim a draw
+        assert 10 * claims < wl.items / 4, (name, claims, wl.items)
 
 
 @pytest.mark.parametrize("stage", [0, 1], ids=["worklist", "items"])
@@ -1217,7 +1270,8 @@ def _wide_inputs(cuda, gs, bucket, slots=8):
 def test_walked_prefix_trip_graph_equals_the_eager_loop_on_delaunay14(cuda):
     """One Delaunay member on 8 slots: the trip graph walks the first slot's
     lanes alone, and its state and counters equal the eager loop's over all
-    8 slots, each support pass launched and counted by the host."""
+    8 slots, each support pass launched and counted by the host; its
+    support claims lie within the bounds of the masks the loop handed over."""
     from repro_torch.exec import build_peel, make_problem_support
     from repro_torch.exec import peel as pm
     from repro_torch.obs import MetricsRegistry, use_registry
@@ -1230,10 +1284,14 @@ def test_walked_prefix_trip_graph_equals_the_eager_loop_on_delaunay14(cuda):
     peel, reg = build_peel(support), MetricsRegistry()
     with use_registry(reg):
         got = peel(p, *args)
-    given = []
+    from repro_torch.kernels.support_fine import claim_bounds
+
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    given, bounds = [], []
 
     def counted(prob, alive):
         given.append(int(alive.sum()))
+        bounds.append(claim_bounds(prob, alive, sms))
         return support(prob, alive)
 
     before = support_fine_cuda.launches
@@ -1246,6 +1304,9 @@ def test_walked_prefix_trip_graph_equals_the_eager_loop_on_delaunay14(cuda):
     assert counters[names.PEEL_TRIPS] == counters[names.PEEL_SUPPORT_PASSES] == trips
     assert counters[names.PEEL_SUPPORT_LANES] == sum(given) > 0
     assert counters[names.PEEL_TRIP_LANES_WALKED] == trips * bucket.nnz_pad
+    # The eager loop walks all 8 slots, the graph the first: the same lists.
+    lo, hi = (sum(b) for b in zip(*bounds))
+    assert 0 < lo <= counters[names.PEEL_SUPPORT_CLAIMS] <= hi
     assert peel.host_syncs == 2
 
 

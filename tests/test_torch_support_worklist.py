@@ -30,6 +30,10 @@ from repro.api import bucket_for
 from repro_torch.core import support_fine_owner
 from repro_torch.kernels.peel_fused import SPLIT_ROW, SPLIT_WAYS
 from repro_torch.kernels.support_fine import (
+    _batch_chunks,
+    _batch_claim_bounds,
+    _item_chunks,
+    claim_bounds,
     support_fine_items,
     worklist,
     worklist_elements,
@@ -85,7 +89,8 @@ def test_worklist_scratch_covers_every_mask(name):
     _, pt, _, masks = _case(name)
     nnzp, unnzp = pt.nnz_pad, int(pt.ucolidx.shape[0])
     n = worklist_elements(nnzp, unnzp)
-    assert n == {"ualive": unnzp, "list": nnzp, "counts": 4}
+    # The chunk cursor (two words), the two list lengths and the claims.
+    assert n == {"ualive": unnzp, "list": nnzp, "counts": 5}
     real = pt.colidx != 0
     deg = pt.udeg.long()
     for ta in [torch.from_numpy(m) for m in masks] + [real, torch.ones(nnzp, dtype=torch.bool)]:
@@ -99,6 +104,85 @@ def test_worklist_scratch_covers_every_mask(name):
         short = torch.minimum(deg[pt.edge_row.long()], deg[pt.colidx.long()])
         assert bool((short[wl.split] > SPLIT_ROW).all())
         assert not bool((short[wl.unsplit] > SPLIT_ROW).any())
+
+
+def _lagging_claims(n_items: int, sms: int, lag: int, seed: int) -> int:
+    """The items launch's global claims in a model of its blocks: the block
+    whose batch runs out next is drawn at random, reads the cursor as it
+    stood up to ``lag`` claims earlier, claims ``_batch_chunks`` of what it
+    read as unclaimed, and stops once it reads the list claimed or its
+    claim starts past the end."""
+    blocks, n_chunks = _item_chunks(n_items, sms)
+    rng = np.random.default_rng(seed)
+    history, live, claims = [0], list(range(blocks)), 0
+    while live:
+        b = live[int(rng.integers(len(live)))]
+        done = history[max(0, len(history) - 1 - int(rng.integers(lag + 1)))]
+        first = history[-1]
+        if done < n_chunks:
+            history.append(first + _batch_chunks(n_chunks - done, blocks))
+            claims += 1
+        if done >= n_chunks or first >= n_chunks:
+            live.remove(b)
+    return claims
+
+
+@pytest.mark.parametrize("n_items, sms", [
+    (0, 132), (1, 132), (100, 1), (5_000, 132), (1_121_068, 132), (3_363_204, 132),
+    (910_269, 132), (40_000_000, 132),
+])
+@pytest.mark.parametrize("lag", [0, 1, 64, 2_000])
+def test_claims_of_the_batch_rule_lie_within_its_bounds(n_items, sms, lag):
+    """Whatever the order of the blocks' claims and however far their reads
+    of the cursor lag, the claims lie within ``claim_bounds``' range of the
+    items launch; with exact reads, the least terminal claims."""
+    least, most = _batch_claim_bounds(n_items, sms)
+    got = _lagging_claims(n_items, sms, lag, seed=n_items + lag)
+    assert least <= got <= most, (least, got, most)
+    if n_items == 0:
+        assert (least, most) == (0, 0)
+    if lag == 0:  # exact reads: no block claims past the end
+        blocks, _ = _item_chunks(n_items, sms)
+        assert got == most - (blocks if n_items else 0)
+
+
+def test_batches_cut_a_planar_meshs_claims_by_fifty_times():
+    """On the mean Delaunay trip's list (1.12 M items, 132 SMs) the items
+    launch claims 3,756 times on exact reads (and at least 1,460), against
+    280,267 claims of four items a warp: 528 blocks of 16 warps claim
+    batches of whole 128-item chunks (a draw of eight items a warp), a
+    third of the unclaimed chunks' even share at a time, shrinking as the
+    list drains."""
+    least, most = _batch_claim_bounds(1_121_068, 132)
+    blocks, n_chunks = _item_chunks(1_121_068, 132)
+    assert (blocks, n_chunks) == (528, 8_759)
+    assert (least, most - blocks) == (1_460, 3_756)
+    assert most - blocks < 1_121_068 / 4 / 50
+    assert [_batch_chunks(left, blocks) for left in (n_chunks, 1_584, 1_585, 10**9)] == [
+        6, 1, 2, 255]
+    # A list too short to give each of the 8,448 warps twelve draws of eight
+    # draws fewer items: 1,920 items, one a draw.
+    assert _item_chunks(1_920, 132) == (528, 120)
+
+
+@pytest.mark.parametrize("name", ["erdos", "star_clique"])
+def test_claim_bounds_count_one_reservation_a_tile_and_half(name):
+    """The worklist launch reserves once for each half of the list that
+    lists a lane of an 8,192-lane tile (512 threads, 16 lanes each), and
+    not at all for a tile that lists no lane of that half."""
+    _, pt, _, masks = _case(name)
+    tiles = -(-pt.nnz_pad // 8_192)
+    assert (tiles == 1) == (name == "erdos")
+    for i, m in enumerate(masks):
+        ta = torch.from_numpy(m)
+        wl = worklist(pt, ta)
+        listed = [torch.zeros(pt.nnz_pad, dtype=torch.bool) for _ in wl]
+        for flags, lanes in zip(listed, wl):
+            flags[lanes] = True
+        halves = sum(int(f[t * 8_192:(t + 1) * 8_192].any()) for f in listed for t in range(tiles))
+        want = tuple(halves + x for x in _batch_claim_bounds(wl.items, 132))
+        assert claim_bounds(pt, ta, sms=132) == want, i
+    assert claim_bounds(pt, torch.zeros(pt.nnz_pad, dtype=torch.bool), sms=132) == (0, 0)
 
 
 def _batch():
